@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Times the port's flash-attention kernel on the card, beside one SDPA call and its bound.
+
+    PYTHONPATH=src python3 scripts/bench_flash_attention.py [--batch 4] [--heads 24]
+        [--kv-heads 8] [--seq 4096] [--head-dim 128] [--other path/to/other.cu]
+
+Needs an NVIDIA GPU and ``nvcc``.  Inputs are bf16, causal, in the models'
+``(b, s, h, d)`` layout, as the serving path gives them to the kernel.  With
+``--other`` a second CUDA source with the same C interface (an earlier
+version of the kernel, say) is built too, checked against the same plain
+version, and timed in turns with the checkout's: other, this, this, other.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.compat import card_name_and_power_limit
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+PEAK_BF16_FLOPS = 989e12  # NVIDIA H100 SXM data sheet, dense
+
+
+def time_ms(fn, iters=30, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--heads", type=int, default=24)
+    ap.add_argument("--kv-heads", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=4096)
+    ap.add_argument("--head-dim", type=int, default=128)
+    ap.add_argument("--other", type=Path, default=None)
+    args = ap.parse_args()
+
+    b, h, kvh, s, d = args.batch, args.heads, args.kv_heads, args.seq, args.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draw = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d)))
+    ref = attention_ref(qt, kt, vt, causal=True).float()
+    flops = 4 * d * b * h * (s * (s + 1) // 2)
+    print(card_name_and_power_limit())
+    print(f"b={b} h={h} kvh={kvh} s={s} d={d} bf16 causal; bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms by operations")
+
+    this_build = flash_kernel.build
+    builds = {"this": this_build}
+    if args.other is not None:
+        builds["other"] = lambda: this_build(args.other.resolve())
+
+    def run(which):
+        flash_kernel.build = builds[which]  # the binding looks `build` up at each call
+        try:
+            out, _ = flash_kernel.flash_attention_fwd(qt, kt, vt, causal=True)
+        finally:
+            flash_kernel.build = this_build
+        return out
+
+    for which in builds:
+        err = (run(which).float() - ref).abs().max().item()
+        print(f"{which:5s}: max_abs_err {err:.3e} against attention_ref")
+        if err > 2e-2 * max(1.0, ref.abs().max().item()):
+            raise SystemExit("the kernel disagrees with its plain version")
+
+    order = ["other", "this", "this", "other"] if args.other is not None else ["this", "this"]
+    for which in order:
+        ms = time_ms(lambda: run(which))
+        print(f"{which:5s}: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s")
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    print(f"library (one SDPA call): {sdpa:.3f} ms  {flops / sdpa / 1e9:.1f} TFLOP/s")
+
+
+if __name__ == "__main__":
+    main()

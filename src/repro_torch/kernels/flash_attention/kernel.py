@@ -1,0 +1,109 @@
+"""Binding of the Hopper flash-attention kernel (forward).
+
+Counterpart of ``repro/kernels/flash_attention/kernel.py``: the Pallas kernel
+there becomes ``csrc/flash_attention_fwd.cu`` here, compiled with ``nvcc`` for
+``sm_90a`` at first use and called through ``ctypes``.  The note at the top of
+the CUDA source says what the kernel computes, what bounds it and why it is
+laid out as it is.
+
+``flash_attention_fwd`` takes CUDA tensors only and launches the kernel or
+raises.  It counts its launches in ``flash_attention_fwd.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from .._build import load_library
+
+__all__ = ["HEAD_DIMS", "build", "flash_attention_fwd"]
+
+HEAD_DIMS = (16, 64, 80, 128)  # the head dims that the CUDA source instantiates
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def build(source: Path = _SOURCE):
+    """Compile (if needed) and load the kernel's library; returns its entry point."""
+    lib = load_library("flash_attention_fwd", [source])
+    fn = lib.flash_attention_fwd
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int,  # q k v o lse dtype
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b h kvh
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # sq sk d
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,  # strides scale
+                   ctypes.c_int, ptr]  # causal stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Head dim contiguous and every row on a 16-byte boundary (the kernel's 16-byte copies)."""
+    per16 = 16 // x.element_size()
+    return (
+        x.stride(-1) == 1
+        and x.data_ptr() % 16 == 0
+        and all(s % per16 == 0 for s in x.stride()[:-1])
+    )
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # (b, h, sq, d)
+    k: torch.Tensor,  # (b, kvh, sk, d)
+    v: torch.Tensor,  # (b, kvh, sk, d)
+    *,
+    causal: bool = True,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Head-major flash attention on the card.  Returns ``(out, lse)``.
+
+    ``out`` is ``(b, h, sq, d)`` in ``q.dtype``; ``lse`` is ``(b, h, sq)``
+    float32, ``m + log(max(l, 1e-30))``.  The tensors may be strided views
+    (a transposed ``(b, s, h, d)`` tensor is taken as it is) as long as the
+    head dim is contiguous; ``out``, when given, is written in place.
+    Any ``sq`` and ``sk`` are taken; ``causal`` needs ``sq == sk``.
+    """
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention_fwd launches a CUDA kernel: the tensors must be on the card")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kvh == 0 or h % kvh != 0:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
+    if min(b, h, sq, sk) == 0:
+        raise ValueError("empty attention problem")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got {q.dtype} {k.dtype} {v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not built; the kernel takes {HEAD_DIMS}")
+    if causal and sq != sk:
+        raise ValueError(f"causal attention needs sq == sk, got {sq} and {sk}")
+
+    q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
+    if out is None:
+        out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device or not _rows_aligned(out):
+        raise ValueError("out must match q in shape, type and device, with aligned rows")
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
+    )
+    fn = build()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                 _DTYPES[q.dtype], b, h, kvh, sq, sk, d, strides, d**-0.5,
+                 int(causal), torch.cuda.current_stream().cuda_stream)  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd: launch failed with CUDA error {err}")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0

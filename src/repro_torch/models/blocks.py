@@ -1,0 +1,119 @@
+"""Decoder blocks: sequential / parallel-residual, dense FFN.
+
+Counterpart of ``repro/models/blocks.py``.  A *block* is one transformer
+layer: mixer (attention) + FFN (dense MLP), pre-norm residual.
+``command-r``-style architectures use a parallel residual (one input norm,
+attention and MLP both read it).
+
+Blocks are grouped as in the JAX package: :func:`group_pattern` returns the
+periodic (kind, is_moe) pattern of one group, and the parameters of all
+groups are stacked on a leading axis.
+
+SSD mixers (mamba2, jamba) and MoE FFNs are not ported yet: they raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from .layers.attention import attention_apply, init_attention, init_mla, mla_apply
+from .layers.basics import apply_norm, init_mlp, init_norm, mlp_apply
+
+Params = Dict[str, torch.Tensor]
+
+__all__ = ["group_pattern", "init_block", "block_apply", "prelude_layers"]
+
+_SSM_LATER = "the SSD mixer (mamba2-1.3b, jamba-v0.1-52b) is not ported yet: it comes with the SSD slice of the port"
+_MOE_LATER = "the MoE FFN is not ported yet: it comes with the MLA/MoE slice of the port"
+
+
+def prelude_layers(cfg: ModelConfig) -> int:
+    """Leading layers that do not fit the periodic group pattern."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else 0
+
+
+def group_pattern(cfg: ModelConfig) -> List[Tuple[str, bool]]:
+    """(mixer kind, is_moe) for each position of one group."""
+    pre = prelude_layers(cfg)
+    return [
+        (cfg.layer_kind(pre + p), cfg.layer_is_moe(pre + p))
+        for p in range(cfg.block_group)
+    ]
+
+
+def init_block(
+    gen: torch.Generator, cfg: ModelConfig, layer_idx: int, dtype=torch.float32, device=None
+) -> Params:
+    """Parameters of one layer (mixer + FFN + norms)."""
+    kind = cfg.layer_kind(layer_idx)
+    is_moe = cfg.layer_is_moe(layer_idx)
+    device = gen.device if device is None else device
+    p: Params = {"norm1": init_norm(cfg.norm, cfg.d_model, device=device)}
+    if kind == "attn":
+        p["mixer"] = (
+            init_mla(gen, cfg, dtype, device)
+            if cfg.mla is not None
+            else init_attention(gen, cfg, dtype, device)
+        )
+    else:
+        raise NotImplementedError(_SSM_LATER)
+    if is_moe:
+        raise NotImplementedError(_MOE_LATER)
+    elif cfg.d_ff > 0:
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+    if not cfg.parallel_block and "ffn" in p:
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, device=device)
+    return p
+
+
+def _mixer(
+    p: Params,
+    cfg: ModelConfig,
+    kind: str,
+    x: torch.Tensor,
+    positions: Optional[torch.Tensor],
+    kv_sink: Optional[Dict[str, torch.Tensor]],
+) -> torch.Tensor:
+    if kind == "attn":
+        if cfg.mla is not None:
+            return mla_apply(p, cfg, x, positions)
+        return attention_apply(p, cfg, x, positions, kv_sink=kv_sink)
+    raise NotImplementedError(_SSM_LATER)
+
+
+def _ffn(p: Params, cfg: ModelConfig, is_moe: bool, x: torch.Tensor) -> torch.Tensor:
+    if is_moe:
+        raise NotImplementedError(_MOE_LATER)
+    return mlp_apply(p, x, cfg.act)
+
+
+def block_apply(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    kind: str,
+    is_moe: bool,
+    positions: Optional[torch.Tensor] = None,
+    kv_sink: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One layer, full-sequence path (prefill).
+
+    ``kv_sink``, when given, receives the attention layer's ``"k"`` and ``"v"``.
+    """
+    has_ffn = "ffn" in p
+    if cfg.parallel_block:
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        out = x + _mixer(p["mixer"], cfg, kind, h, positions, kv_sink)
+        if has_ffn:
+            out = out + _ffn(p["ffn"], cfg, is_moe, h)
+        return out
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    x = x + _mixer(p["mixer"], cfg, kind, h, positions, kv_sink)
+    if has_ffn:
+        h = apply_norm(p["norm2"], x, cfg.norm)
+        x = x + _ffn(p["ffn"], cfg, is_moe, h)
+    return x

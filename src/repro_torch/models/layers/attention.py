@@ -1,0 +1,197 @@
+"""Attention layers: GQA/MHA, with the Hopper kernel as the core on the card.
+
+Counterpart of ``repro/models/layers/attention.py``.  For a CUDA tensor
+``attention_apply`` goes through ``kernels/flash_attention/ops.py`` to the
+hand-written kernel, always.  For a CPU tensor it takes the plain path and
+keeps the JAX package's rule: ``naive_attention`` up to 2048 tokens, the
+chunked online-softmax core above that.
+
+MLA (DeepSeek-V2) is not ported yet: ``init_mla``, ``mla_latents`` and
+``mla_apply`` raise ``NotImplementedError``.
+
+Decode (single-token) paths are in :mod:`repro_torch.serve.decode`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from .basics import apply_rope, dense, init_dense, init_norm, rmsnorm, rope_frequencies
+from .flash_core import flash_attention_core
+
+Params = Dict[str, torch.Tensor]
+
+__all__ = [
+    "init_attention",
+    "attention_qkv",
+    "attention_apply",
+    "init_mla",
+    "mla_latents",
+    "mla_apply",
+    "chunked_attention",
+    "naive_attention",
+]
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+
+def naive_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Reference O(S^2)-memory attention.  q: (b, sq, h, d); k/v: (b, sk, kvh, d)."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, d)
+    # scores in the input type, then float32: the JAX function does the same
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (d**-0.5)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    return out.reshape(b, sq, h, d)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Flash attention with O(S) memory, in plain PyTorch.
+
+    q: (b, sq, h, d); k, v: (b, sk, kvh, d) with h % kvh == 0 (GQA).
+    Returns (b, sq, h, d) in q.dtype.  Delegates to the core in
+    :mod:`repro_torch.models.layers.flash_core`.
+    """
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, d)
+    out = flash_attention_core(
+        qg, k, v, causal, min(q_chunk, sq), min(kv_chunk, k.shape[1]), q_offset
+    )
+    return out.reshape(b, sq, h, d)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+def init_attention(
+    gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32, device=None
+) -> Params:
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    kw = dict(dtype=dtype, device=device)
+    p = {
+        "wq": init_dense(gen, d, h * hd, bias=cfg.qkv_bias, **kw),
+        "wk": init_dense(gen, d, kvh * hd, bias=cfg.qkv_bias, **kw),
+        "wv": init_dense(gen, d, kvh * hd, bias=cfg.qkv_bias, **kw),
+        "wo": init_dense(gen, h * hd, d, scale=(h * hd) ** -0.5, **kw),
+    }
+    if cfg.qk_norm:
+        dev = p["wq"]["w"].device
+        p["q_norm"] = init_norm("rmsnorm", hd, device=dev)
+        p["k_norm"] = init_norm("rmsnorm", hd, device=dev)
+    return p
+
+
+def attention_qkv(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projections + RoPE; shared by prefill and decode paths."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(b, s, h, hd)
+    k = dense(p["wk"], x).reshape(b, s, kvh, hd)
+    v = dense(p["wv"], x).reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"]["scale"])
+        k = rmsnorm(k, p["k_norm"]["scale"])
+    if cfg.use_rope:
+        rot_dim, inv_freq = rope_frequencies(hd, cfg.rope_fraction, cfg.rope_theta, x.device)
+        q = apply_rope(q, positions, rot_dim, inv_freq)
+        k = apply_rope(k, positions, rot_dim, inv_freq)
+    return q, k, v
+
+
+def attention_apply(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    kv_sink: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Full-sequence causal attention (prefill).
+
+    ``kv_sink``, when given, receives this layer's ``"k"`` and ``"v"``
+    (after RoPE), so that prefill fills its cache from the one projection
+    that also feeds the attention.
+    """
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = attention_qkv(p, cfg, x, positions)
+    if kv_sink is not None:
+        kv_sink["k"], kv_sink["v"] = k, v
+    # The JAX function expands K/V to full heads here when the kv-head count
+    # does not divide a 16-way model axis: a tensor-parallel layout choice,
+    # numerically neutral.  The port never expands: the kernel indexes the kv
+    # head, and the plain versions group the q heads.
+    if x.is_cuda:
+        o = flash_attention(q, k, v, causal=True)
+    elif s <= 2048:
+        o = naive_attention(q, k, v, causal=True)
+    else:
+        o = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return dense(p["wo"], o.reshape(b, s, -1))
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2): a later slice
+# ---------------------------------------------------------------------------
+
+_MLA_LATER = (
+    "multi-head latent attention (deepseek-v2-lite-16b) is not ported yet: "
+    "it comes with the MLA/MoE slice of the port"
+)
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32, device=None) -> Params:
+    raise NotImplementedError(_MLA_LATER)
+
+
+def mla_latents(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    raise NotImplementedError(_MLA_LATER)
+
+
+def mla_apply(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    raise NotImplementedError(_MLA_LATER)

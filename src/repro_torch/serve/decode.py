@@ -1,0 +1,349 @@
+"""Serving: prefill + single-token decode with a KV cache on one device.
+
+Counterpart of ``repro/serve/decode.py``.  The cache layout mirrors the
+stacked parameter layout: one entry per group position, stacked over groups
+(leading ``G`` axis), plus unstacked prelude entries.  Cache kinds:
+
+  * GQA attention:  ``{"k","v"}: (G, b, S, kv_heads, head_dim)``
+
+The MLA latent cache and the SSD state cache come with their slices.
+``cache_specs`` and every ``NamedSharding`` of the JAX module are sharding:
+they wait for the sharding slice.  The factories keep their names and take a
+``device`` where the JAX ones take a mesh.
+
+Decode attention (``_gqa_decode``) is einsum + softmax in the JAX package,
+not a Pallas kernel, and is plain PyTorch here.
+
+:class:`CausalLM` is the one ``nn.Module`` of the port: it owns a parameter
+tree and exposes ``prefill`` / ``decode_step`` / ``.to(device)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.compat import resolve_device, torch_dtype
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import block_apply, group_pattern, prelude_layers
+from repro_torch.models.layers.attention import attention_qkv
+from repro_torch.models.layers.basics import apply_norm, dense, embed, mlp_apply, unembed
+from repro_torch.models.lm import sinusoidal_positions, tree_index
+
+__all__ = [
+    "CausalLM",
+    "cache_shapes",
+    "init_cache",
+    "make_serve_step",
+    "make_prefill",
+]
+
+_MLA_LATER = "the MLA latent cache is not ported yet: it comes with the MLA/MoE slice of the port"
+_SSM_LATER = "the SSD state cache is not ported yet: it comes with the SSD slice of the port"
+_MOE_LATER = "the MoE FFN is not ported yet: it comes with the MLA/MoE slice of the port"
+
+
+# ---------------------------------------------------------------------------
+# Cache structure
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache_shape(
+    cfg: ModelConfig, kind: str, batch: int, max_seq: int
+) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """{name: (shape, dtype)} for one (unstacked) layer."""
+    dt = torch_dtype(cfg.dtype)
+    if kind == "ssm":
+        raise NotImplementedError(_SSM_LATER)
+    if cfg.mla is not None:
+        raise NotImplementedError(_MLA_LATER)
+    hd = cfg.resolved_head_dim
+    return {
+        "k": ((batch, max_seq, cfg.n_kv_heads, hd), dt),
+        "v": ((batch, max_seq, cfg.n_kv_heads, hd), dt),
+    }
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
+    """Tree of the whole cache as meta tensors (shape and dtype, no storage)."""
+    pre = prelude_layers(cfg)
+    pattern = group_pattern(cfg)
+    n_groups = (cfg.n_layers - pre) // cfg.block_group
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out: Dict[str, Any] = {}
+    for i in range(pre):
+        kind = cfg.layer_kind(i)
+        out[f"prelude_{i}"] = {
+            k: sds(sh, dt) for k, (sh, dt) in _layer_cache_shape(cfg, kind, batch, max_seq).items()
+        }
+    blocks = {}
+    for p_idx, (kind, _) in enumerate(pattern):
+        blocks[f"pos_{p_idx}"] = {
+            k: sds((n_groups,) + sh, dt)
+            for k, (sh, dt) in _layer_cache_shape(cfg, kind, batch, max_seq).items()
+        }
+    out["blocks"] = blocks
+    return out
+
+
+def _alloc(tree, device, fill):
+    if isinstance(tree, dict):
+        return {k: _alloc(v, device, fill) for k, v in tree.items()}
+    return fill(tree.shape, dtype=tree.dtype, device=device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> Any:
+    """Concrete zero-filled cache on ``device``."""
+    return _alloc(cache_shapes(cfg, batch, max_seq), resolve_device(device), torch.zeros)
+
+
+# ---------------------------------------------------------------------------
+# Decode-attention core
+# ---------------------------------------------------------------------------
+
+
+def _gqa_decode(p, cfg: ModelConfig, x, cache, position):
+    """x: (b,1,d); cache k/v: (b,S,kvh,hd); position: (b,) integer.
+
+    Writes the new key and value into ``cache`` in place and returns it.
+    """
+    b = x.shape[0]
+    S = cache["k"].shape[1]
+    q, k_new, v_new = attention_qkv(p, cfg, x, positions=position[:, None])
+    bidx = torch.arange(b, device=x.device)
+    k, v = cache["k"], cache["v"]
+    k[bidx, position] = k_new[:, 0].to(k.dtype)
+    v[bidx, position] = v_new[:, 0].to(v.dtype)
+
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, hd)  # (b, kvh, g, hd) -- squeeze the seq dim
+    # f32 accumulation of exact products, as `preferred_element_type=float32`
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.float(), k.float()) * (hd**-0.5)
+    mask = torch.arange(S, device=x.device)[None, :] <= position[:, None]  # (b, S)
+    scores = torch.where(mask[:, None, None, :], scores, torch.full_like(scores, -1e30))
+    a = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", a.to(v.dtype), v)
+    out = out.reshape(b, 1, h * hd)
+    return dense(p["wo"], out), cache
+
+
+def _ffn_decode(p, cfg: ModelConfig, is_moe: bool, x):
+    if is_moe:
+        raise NotImplementedError(_MOE_LATER)
+    return mlp_apply(p, x, cfg.act)
+
+
+def _mixer_decode(p, cfg: ModelConfig, kind: str, h, cache, position):
+    if kind != "attn":
+        raise NotImplementedError(_SSM_LATER)
+    if cfg.mla is not None:
+        raise NotImplementedError(_MLA_LATER)
+    return _gqa_decode(p, cfg, h, cache, position)
+
+
+def _block_decode(p, cfg: ModelConfig, kind: str, is_moe: bool, x, cache, position):
+    has_ffn = "ffn" in p
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    mix, cache = _mixer_decode(p["mixer"], cfg, kind, h, cache, position)
+    if cfg.parallel_block:
+        out = x + mix
+        if has_ffn:
+            out = out + _ffn_decode(p["ffn"], cfg, is_moe, h)
+        return out, cache
+    x = x + mix
+    if has_ffn:
+        h = apply_norm(p["norm2"], x, cfg.norm)
+        x = x + _ffn_decode(p["ffn"], cfg, is_moe, h)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# serve_step / prefill factories
+# ---------------------------------------------------------------------------
+
+
+def make_serve_step(cfg: ModelConfig, device, batch: int, max_seq: int):
+    """Returns ``serve_fn`` (the JAX factory's tuple of shardings is gone).
+
+    ``serve_fn(params, cache, tokens, position) -> (next_tokens, logits_f32,
+    cache)``: one decode step for the whole batch.  ``serve_fn`` **mutates**
+    the cache it is given (the new key and value of every layer are written
+    at ``position``) and returns that same cache.
+    """
+    device = resolve_device(device)
+    pattern = group_pattern(cfg)
+    pre = prelude_layers(cfg)
+    n_groups = (cfg.n_layers - pre) // cfg.block_group
+    dtype = torch_dtype(cfg.dtype)
+
+    @torch.inference_mode()
+    def serve_fn(params, cache, tokens, position):
+        if tokens.shape != (batch, 1) or position.shape != (batch,):
+            raise ValueError(f"expected tokens ({batch}, 1) and position ({batch},)")
+        if tokens.device != device:
+            raise ValueError(f"tokens lie on {tokens.device}, this step was made for {device}")
+        x = embed(params["embed"], tokens, dtype)  # (b, 1, d)
+        if not cfg.use_rope:
+            x = x + sinusoidal_positions(position, cfg.d_model, dtype)[:, None, :]
+
+        for i in range(pre):
+            x, _ = _block_decode(
+                params[f"prelude_{i}"],
+                cfg,
+                cfg.layer_kind(i),
+                cfg.layer_is_moe(i),
+                x,
+                cache[f"prelude_{i}"],
+                position,
+            )
+        for g in range(n_groups):
+            gparams = tree_index(params["blocks"], g)
+            gcache = tree_index(cache["blocks"], g)  # views: written through
+            for p_idx, (kind, is_moe) in enumerate(pattern):
+                x, _ = _block_decode(
+                    gparams[f"pos_{p_idx}"], cfg, kind, is_moe, x, gcache[f"pos_{p_idx}"], position
+                )
+
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        logits = unembed(head, x[:, 0, :]).float()  # (b, vocab)
+        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_tokens, logits, cache
+
+    return serve_fn
+
+
+def make_prefill(cfg: ModelConfig, device, batch: int, seq: int):
+    """Prefill: full forward that also produces the filled cache.
+
+    Returns ``prefill_fn`` (the JAX factory's tuple of shardings is gone).
+    ``prefill_fn(params, batch_inputs) -> (last_logits, cache)``.
+
+    Each layer's q, k, v are computed once and feed both the cache and the
+    attention (the JAX function computes them twice and leaves the merging to
+    XLA; PyTorch runs eagerly).
+    """
+    device = resolve_device(device)
+    pattern = group_pattern(cfg)
+    pre = prelude_layers(cfg)
+    n_groups = (cfg.n_layers - pre) // cfg.block_group
+    dtype = torch_dtype(cfg.dtype)
+
+    def layer_with_cache(p, kind, is_moe, x, positions, cache):
+        """block_apply, with the layer's k and v copied into ``cache``."""
+        sink: Dict[str, torch.Tensor] = {}
+        x = block_apply(p, cfg, x, kind, is_moe, positions, kv_sink=sink)
+        cache["k"].copy_(sink["k"])
+        cache["v"].copy_(sink["v"])
+        return x
+
+    @torch.inference_mode()
+    def prefill_fn(params, inputs):
+        if cfg.frontend is not None:
+            x = inputs["embeddings"].to(dtype)
+        else:
+            x = embed(params["embed"], inputs["tokens"], dtype)
+        if x.shape[:2] != (batch, seq):
+            raise ValueError(f"expected inputs of ({batch}, {seq}), got {tuple(x.shape[:2])}")
+        if x.device != device:
+            raise ValueError(f"inputs lie on {x.device}, this prefill was made for {device}")
+        positions = torch.arange(seq, device=device)
+        if not cfg.use_rope:
+            x = x + sinusoidal_positions(positions, cfg.d_model, dtype)[None]
+
+        cache = _alloc(cache_shapes(cfg, batch, seq), device, torch.empty)
+        for i in range(pre):
+            x = layer_with_cache(
+                params[f"prelude_{i}"], cfg.layer_kind(i), cfg.layer_is_moe(i), x, positions,
+                cache[f"prelude_{i}"],
+            )  # fmt: skip
+        for g in range(n_groups):
+            gparams = tree_index(params["blocks"], g)
+            gcache = tree_index(cache["blocks"], g)  # views: written through
+            for p_idx, (kind, is_moe) in enumerate(pattern):
+                x = layer_with_cache(
+                    gparams[f"pos_{p_idx}"], kind, is_moe, x, positions, gcache[f"pos_{p_idx}"]
+                )
+
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        last_logits = unembed(head, x[:, -1, :]).float()
+        return last_logits, cache
+
+    return prefill_fn
+
+
+# ---------------------------------------------------------------------------
+# The module that owns a parameter tree
+# ---------------------------------------------------------------------------
+
+_SEP = "__"  # joins the keys of the nested dict into one buffer name
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = ""):
+    for key, value in tree.items():
+        name = f"{prefix}{_SEP}{key}" if prefix else key
+        if isinstance(value, dict):
+            yield from _flatten(value, name)
+        else:
+            yield name, value
+
+
+class CausalLM(nn.Module):
+    """A model configuration and its parameter tree, for serving.
+
+    The leaves are registered as buffers under their joined path, so
+    ``.to(device)``, ``state_dict()`` and friends see them; ``params`` gives
+    them back as the nested dict that the functions of this package take.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        for name, leaf in _flatten(params):
+            self.register_buffer(name, leaf)
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        tree: Dict[str, Any] = {}
+        for name, leaf in self._buffers.items():
+            node = tree
+            *path, last = name.split(_SEP)
+            for key in path:
+                node = node.setdefault(key, {})
+            node[last] = leaf
+        return tree
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self._buffers.values())).device
+
+    def prefill(self, inputs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Any]:
+        """``inputs``: ``{"tokens": (b, s)}`` or ``{"embeddings": (b, s, d)}``.
+        Returns the last position's float32 logits and the filled cache."""
+        b, s = next(iter(inputs.values())).shape[:2]
+        return make_prefill(self.cfg, self.device, b, s)(self.params, inputs)
+
+    def decode_step(self, cache: Any, tokens: torch.Tensor, position: torch.Tensor):
+        """One greedy decode step; writes into ``cache`` and returns
+        ``(next_tokens, logits, cache)``."""
+        max_seq = _cache_len(cache)
+        return make_serve_step(self.cfg, self.device, tokens.shape[0], max_seq)(
+            self.params, cache, tokens, position
+        )
+
+    def init_cache(self, batch: int, max_seq: int) -> Any:
+        return init_cache(self.cfg, batch, max_seq, self.device)
+
+
+def _cache_len(cache: Any) -> int:
+    leaf = cache
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[-3]

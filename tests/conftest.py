@@ -22,3 +22,9 @@ if importlib.util.find_spec("hypothesis") is None:
 
     sys.modules["hypothesis"] = _hypothesis_compat
     sys.modules["hypothesis.strategies"] = _hypothesis_compat.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped where there is none"
+    )
