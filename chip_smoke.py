@@ -9,24 +9,31 @@ nothing of the JAX package.  Phases, each of which ends the run with a
 non-zero exit if it fails:
 
 1. device:  the card's name and power limit; TF32 matmuls off.
-2. build:   every CUDA kernel of the port, from the sources in the checkout.
+2. build:   every CUDA kernel of the port, from the sources in the checkout,
+            one ``nvcc`` a source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card, at the
             test shapes and at the shape the serving path gives it; its time
-            beside the plain version's, one library call's and its bound.
-4. serve:   phi4-mini-3.8b at its published width (32 layers, d_model 3072,
-            vocab 200064, bf16, random weights from a seed) through the
-            launcher's functions: a batch of prompts is prefilled, then
-            greedy-decoded.  Checks that the logits are finite, that prefill
-            launched the attention kernel once per layer, that the kernel
-            path agrees with the plain attention on the card, and that
-            prefill + staged cache + one decode step equals a prefill of one
-            more token.
+            beside the plain version's, one library call's (where PyTorch
+            has one) and its bound.
+4. serve:   each served model at its published width (random weights from a
+            seed) through the launcher's functions: a batch of prompts is
+            prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
+            d_model 3072, vocab 200064) through the attention kernel, and
+            mamba2-1.3b (48 layers, d_model 2048, vocab 50280) through the
+            SSD-scan kernel.  Checks that the logits are finite and the tokens
+            in the vocabulary, that prefill launched the model's kernel once
+            per layer (every count set to 0 just before, read just after),
+            that the kernel path strays from a float32 model no further than
+            the plain bf16 path does, and that prefill + staged cache + one
+            decode step equals a prefill of one more token.
 5. result:  one ``{"kernels": [...]}`` line, the card line, and the last line
             ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import sys
@@ -58,6 +65,20 @@ KERNEL_SHAPES = [
 # output are rounded to 8 bits of mantissa at different places on each side.
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
+# (b, s, h, p, n, chunk): the three shapes of tests/test_kernels.py, one
+# ragged chunk and the smoke configs' dims in chunks of 11
+SSD_SHAPES = [
+    (1, 128, 2, 32, 16, 32),
+    (2, 128, 4, 64, 32, 64),
+    (1, 256, 2, 64, 128, 128),
+    (1, 255, 2, 64, 128, 255),
+    (2, 132, 2, 16, 16, 11),
+]
+# the figures of tests/test_kernels.py; the bf16 kernel must also hold half
+# of its tolerance (it splits f32 operands into bf16 hi + lo and rounds only
+# y, where the reference rounds it).  The final state is f32 on both sides.
+SSD_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
@@ -75,22 +96,42 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, h, kvh, sq, sk, d, causal, dtype_name):
-    """Least time for one attention call: (ms, 'bytes' | 'operations').
-
-    Bytes: q, k, v read once, out and lse written once.  Operations: two
-    products of 2*d each for every (query, key) pair that the mask keeps.
-    """
-    size = 2 if dtype_name == "bfloat16" else 4
-    nbytes = size * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    flops = 4 * d * b * h * pairs
+def bound(nbytes: float, flops: float, dtype_name: str):
+    """Least time for the work: (ms, 'bytes' | 'operations'), the larger of the two."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(prompt_len: int, cfg) -> dict:
+def attention_bound(b, h, kvh, sq, sk, d, causal, dtype_name):
+    """Bytes: q, k, v read once, out and lse written once.  Operations: two
+    products of 2*d each for every (query, key) pair that the mask keeps."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    nbytes = size * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    return bound(nbytes, 4 * d * b * h * pairs, dtype_name)
+
+
+def ssd_flops(b, s, h, p, n, chunk) -> int:
+    """Operations of the chunked SSD form, as the reference computes it: per
+    (batch, head, chunk of Q), C B^T over the j <= i pairs only (the masked
+    half not counted; counted per head, as the reference and the kernel
+    compute it per head), those scores times x (j <= i), C times the carried
+    state, and the state update: 2 FLOP a multiply-add.  The kernel's second
+    (lo) products and the elementwise exp, decay and cumsum are not counted."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    return b * h * nc * (2 * pairs * (n + p) + 4 * chunk * n * p)
+
+
+def ssd_bound(b, s, h, p, n, chunk, dtype_name):
+    """Bytes: x, dt, A, B, C read once; y and the final state written once."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    nbytes = size * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
+    return bound(nbytes, ssd_flops(b, s, h, p, n, chunk), dtype_name)
+
+
+def check_attention_kernel(prompt_len: int, cfg) -> dict:
     """Phase 3 for K1, the flash-attention forward.  Returns its entry of the kernels line."""
     import torch
     import torch.nn.functional as F
@@ -167,67 +208,241 @@ def check_kernels(prompt_len: int, cfg) -> dict:
     }
 
 
-def check_model_against_plain_attention(model, cfg, batch: int) -> None:
-    """The kernel path against the plain attention, and prefill + decode
-    against a longer prefill, on the card at a prompt the plain version fits."""
+def check_ssd_kernel(prompt_len: int, cfg) -> dict:
+    """Phase 3 for K2, the SSD chunked scan.  Returns its entry of the kernels line."""
     import torch
+    import torch.nn.functional as F
 
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def draw(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def inputs(b, s, h, p, n, x_dtype, dt_dtype):
+        """Drawn as tests/test_kernels.py draws them."""
+        return (draw(b, s, h, p, scale=0.5, dtype=x_dtype),
+                F.softplus(draw(b, s, h)).to(dt_dtype),
+                -torch.exp(draw(h, scale=0.3)),
+                draw(b, s, n, scale=0.3, dtype=x_dtype),
+                draw(b, s, n, scale=0.3, dtype=x_dtype))  # fmt: skip
+
+    def ref32(x, dt, A, B, C, chunk):
+        """The plain version on the same values widened to float32."""
+        return ssd_scan_ref(x.float(), dt.float(), A, B.float(), C.float(), chunk=chunk)
+
+    worst_bf16 = 0.0
+    for b, s, h, p, n, chunk in SSD_SHAPES:
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, dt, A, B, C = inputs(b, s, h, p, n, dtype, dtype)
+            y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
+            torch.cuda.synchronize()
+            ry, rst = ref32(x, dt, A, B, C, chunk)
+            err = (y.float() - ry).abs().max().item()
+            rel = ((y.float() - ry).abs() / (1 + ry.abs())).max().item()  # in units of the tolerance's
+            floor = (ry.to(dtype).float() - ry).abs().max().item()  # rounding y to the output type alone
+            st_err = (st - rst).abs().max().item()
+            tol = SSD_TOL[name]
+            print(f"[kernels] ssd_scan_fwd b={b} s={s} h={h} p={p} n={n} chunk={chunk} {name}: "
+                  f"y max_abs_err {err:.3e} (tol {tol:g}; max |y| {ry.abs().max().item():.3f}, rounding y to "
+                  f"{name} alone {floor:.3e}), err/(1+|y|) {rel:.3e}, final_state max_abs_err {st_err:.3e} (tol 3e-4)")
+            if not torch.allclose(y.float(), ry, rtol=tol, atol=tol):
+                raise SystemExit(f"ssd_scan_fwd disagrees with ssd_scan_ref: {err}")
+            if not torch.allclose(st, rst, rtol=3e-4, atol=3e-4):
+                raise SystemExit(f"ssd_scan_fwd's final state disagrees with ssd_scan_ref: {st_err}")
+            if name == "bfloat16":
+                worst_bf16 = max(worst_bf16, rel)
+                if rel > tol / 2:
+                    raise SystemExit(f"ssd_scan_fwd bf16 error {rel} is above half the tolerance")
+    print(f"[kernels] ssd_scan_fwd largest bf16 error at the test shapes: {worst_bf16:.3e} of 3e-2 "
+          "(|kernel - plain| / (1 + |plain|), the tolerance's own measure)")
+
+    # the shape the serving path gives it: x, B, C bf16 from the conv, dt f32 from the softplus
+    s_cfg = cfg.ssm
+    h = s_cfg.expand * cfg.d_model // s_cfg.head_dim
+    b, s, p, n, chunk = BATCH, prompt_len, s_cfg.head_dim, s_cfg.d_state, min(s_cfg.chunk, prompt_len)
+    x, dt, A, B, C = inputs(b, s, h, p, n, torch.bfloat16, torch.float32)
+    y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    ry, rst = ref32(x, dt, A, B, C, chunk)
+    scale = ry.abs().max().item()
+    err = (y.float() - ry).abs().max().item()
+    floor = (ry.to(torch.bfloat16).float() - ry).abs().max().item()
+    st_err = (st - rst).abs().max().item()
+    print(f"[kernels] ssd_scan_fwd at the serving shape b={b} s={s} h={h} p={p} n={n} g=1 chunk={chunk} "
+          f"(x, B, C bf16, dt f32): y max_abs_err {err:.3e} (max |y| {scale:.3f}; rounding y to bf16 alone "
+          f"{floor:.3e}), final_state max_abs_err {st_err:.3e} (max |state| {rst.abs().max().item():.3f})")
+    if not (err <= 3e-2 * max(1.0, scale) and st_err <= 3e-4 * max(1.0, rst.abs().max().item())):
+        raise SystemExit("ssd_scan_fwd disagrees with ssd_scan_ref at the serving shape")
+    del ry, rst
+
+    ms = time_ms(lambda: ssd_scan_fwd(x, dt, A, B, C, chunk=chunk), iters=20)
+    plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, chunk=chunk), iters=3, warmup=1)
+    bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, "bfloat16")
+    flops = ssd_flops(b, s, h, p, n, chunk)
+    print(f"[kernels] ssd_scan_fwd at the serving shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+          f"of {flops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, library none (no PyTorch call computes "
+          f"the SSD scan), bound {bound_ms:.4f} ms by {bound_by}")
+    return {
+        "name": "ssd_scan_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:111",
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def plain_attention():
+    """Within the block, the models' attention goes through its plain version."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.launch.serve import make_inputs, stage_prefill_cache
     from repro_torch.models.layers import attention as attention_mod
-    from repro_torch.serve.decode import CausalLM
-
-    s = 512
-    gen = torch.Generator(device=model.device).manual_seed(3)
-    tokens = make_inputs(cfg, batch, s + 1, gen)["tokens"]
-    logits, cache = model.prefill({"tokens": tokens[:, :s]})
 
     def plain(q, k, v, *, causal=True):
         return attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
         ).transpose(1, 2)
 
-    def prefill_plain(m, inputs):
-        kernel_path = attention_mod.flash_attention
-        attention_mod.flash_attention = plain
-        try:
-            return m.prefill(inputs)
-        finally:
-            attention_mod.flash_attention = kernel_path
+    return _swapped(attention_mod, "flash_attention", plain)
 
-    plain_logits, plain_cache = prefill_plain(model, {"tokens": tokens[:, :s]})
-    # the yardstick for both: the same weights in float32 with the plain attention
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = CausalLM(cfg32, model.params).to(torch.float32)
-    true_logits, _ = prefill_plain(model32, {"tokens": tokens[:, :s]})
-    del model32
+
+def plain_ssd_scan():
+    """Within the block, the SSD layers' scan goes through its plain version."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    def plain(x, dt, A, B, C, *, chunk, initial_state=None):
+        return ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], chunk=chunk, initial_state=initial_state)
+
+    return _swapped(ssd_ops, "ssd_scan", plain)
+
+
+@contextlib.contextmanager
+def _swapped(module, name, replacement):
+    kept = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        yield
+    finally:
+        setattr(module, name, kept)
+
+
+def check_model_against_plain(model, cfg, batch: int, plain, max_stray, step_len: int, s: int = 512) -> None:
+    """The kernel path against the plain path and a float32 model at a prompt
+    the plain version fits (``s``), and prefill(``step_len``) + staged cache +
+    one decode step against a prefill of one more token, on the card.
+
+    ``max_stray``, when given, also bounds the bf16 kernel path's distance
+    from the float32 model by that share of the largest logit.
+    """
+    import torch
+
+    from repro_torch.launch.serve import make_inputs, stage_prefill_cache
+    from repro_torch.serve.decode import CausalLM
+
+    gen = torch.Generator(device=model.device).manual_seed(3)
+    tokens = make_inputs(cfg, batch, s + 1, gen)["tokens"]
+    logits, cache = model.prefill({"tokens": tokens[:, :s]})
+    with plain():
+        plain_logits, plain_cache = model.prefill({"tokens": tokens[:, :s]})
+    # the yardstick for both: the same weights in float32 through the plain version
+    model32 = CausalLM(dataclasses.replace(cfg, dtype="float32"), model.params).to(torch.float32)
+    with plain():
+        true_logits, _ = model32.prefill({"tokens": tokens[:, :s]})
     err = (logits - plain_logits).abs().max().item()
     err_kernel = (logits - true_logits).abs().max().item()
     err_plain = (plain_logits - true_logits).abs().max().item()
     scale = true_logits.abs().max().item()
-    last_k = lambda c: c["blocks"]["pos_0"]["k"][-1].float()
-    k_err = (last_k(cache) - last_k(plain_cache)).abs().max().item()
-    print(f"[serve] prefill({batch}x{s}) last logits (largest {scale:.2f}): kernel path vs plain attention "
-          f"{err:.3e}; against the float32 model: kernel path {err_kernel:.3e}, plain attention {err_plain:.3e}; "
-          f"last layer's cached k, kernel vs plain: {k_err:.3e}")
-    # 32 layers of bf16 activations: the two bf16 paths round at different
+    name, first = next((k, v) for k, v in cache["blocks"]["pos_0"].items())
+    leaf_err = (first[-1].float() - plain_cache["blocks"]["pos_0"][name][-1].float()).abs().max().item()
+    print(f"[serve] {cfg.name} prefill({batch}x{s}) last logits (largest {scale:.2f}): kernel path vs plain "
+          f"{err:.3e}; against the float32 model through the plain version: bf16 kernel path {err_kernel:.3e}, "
+          f"bf16 plain path {err_plain:.3e}; last layer's cached {name}, kernel vs plain: {leaf_err:.3e}")
+    # many layers of bf16 activations: the two bf16 paths round at different
     # places, so each is held to the float32 model, and the kernel path may
     # not stray further from it than the plain bf16 path does (x1.5 for the
     # spread between two draws of rounding noise)
-    if not (err_kernel <= 1.5 * err_plain + 1e-2 and err_kernel <= 5e-2 * max(1.0, scale)):
-        raise SystemExit("the kernel path disagrees with the plain attention")
+    if not err_kernel <= 1.5 * err_plain + 1e-2:
+        raise SystemExit(f"{cfg.name}: the kernel path strays further from float32 than the plain path")
+    if max_stray is not None and not err_kernel <= max_stray * max(1.0, scale):
+        raise SystemExit(f"{cfg.name}: the kernel path strays from the float32 model by {err_kernel}")
 
-    # prefill s tokens, stage, decode token s + 1  ==  prefill of s + 1 tokens
-    # (513 is no multiple of any tile: the ragged edge on the serving path)
-    big = stage_prefill_cache(cache, model.init_cache(batch, s + 8), s)
-    position = torch.full((batch,), s, dtype=torch.int32, device=model.device)
-    _next, step_logits, _ = model.decode_step(big, tokens[:, s : s + 1], position)
-    longer_logits, _ = model.prefill({"tokens": tokens})
+    # prefill n tokens, stage, decode token n + 1  ==  prefill of n + 1 tokens
+    n = step_len
+
+    def step_against_longer(m):
+        small = m.prefill({"tokens": tokens[:, :n]})[1]
+        big = stage_prefill_cache(small, m.init_cache(batch, n + 8), n)
+        position = torch.full((batch,), n, dtype=torch.int32, device=m.device)
+        return m.decode_step(big, tokens[:, n : n + 1], position)[1], m.prefill({"tokens": tokens[:, : n + 1]})[0]
+
+    step_logits, longer_logits = step_against_longer(model)
     err = (step_logits - longer_logits).abs().max().item()
-    print(f"[serve] prefill({s}) + staged cache + one decode step vs prefill({s + 1}): max_abs_err {err:.3e}")
-    # two bf16 paths again (decode attention is plain PyTorch, prefill the kernel)
+    print(f"[serve] {cfg.name} prefill({n}) + staged cache + one decode step vs prefill({n + 1}): max_abs_err {err:.3e}")
+    # two bf16 paths again (the decode step is plain PyTorch, the prefill the kernel)
     if not err <= 5e-2 * max(1.0, longer_logits.abs().max().item()):
-        raise SystemExit("decode against the staged prefill cache disagrees with a longer prefill")
+        raise SystemExit(f"{cfg.name}: decode against the staged prefill cache disagrees with a longer prefill")
+    # the same in float32 through the kernels, where the staged cache must be exact
+    step32, longer32 = step_against_longer(model32)
+    with plain():
+        plain32 = model32.prefill({"tokens": tokens[:, : n + 1]})[0]
+    e32 = (step32 - longer32).abs().max().item()
+    e_plain = (longer32 - plain32).abs().max().item()
+    print(f"[serve] {cfg.name} float32 through the kernels: prefill({n}) + staged cache + one decode step vs "
+          f"prefill({n + 1}) {e32:.3e}; prefill({n + 1}) against the plain version {e_plain:.3e}")
+    if not (e32 <= 1e-3 * max(1.0, scale) and e_plain <= 1e-3 * max(1.0, scale)):
+        raise SystemExit(f"{cfg.name}: the float32 kernel path disagrees")
+    del model32
+    torch.cuda.empty_cache()
+
+
+def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int) -> int:
+    """Phase 4 for one model: returns how often ``kernel`` launched in its served request."""
+    import torch
+
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.decode import CausalLM
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = CausalLM(cfg, init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16))
+    n_params = sum(t.numel() for t in model.buffers())
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.2f} B parameters in bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
+    check_model_against_plain(model, cfg, BATCH, plain, max_stray, step_len)
+
+    inputs = make_inputs(cfg, BATCH, PROMPT_LEN, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    for counted in counters.values():
+        counted.launches = 0
+    result = serve(model, inputs, GEN)
+    launches = {name: counted.launches for name, counted in counters.items()}
+    if launches[kernel] != cfg.n_layers:
+        raise SystemExit(f"{cfg.name}: prefill launched {kernel} {launches[kernel]} times, "
+                         f"not once per layer ({cfg.n_layers})")
+    if result["prefill_logits"].shape != (BATCH, cfg.vocab_size) or result["tokens"].shape != (BATCH, GEN + 1):
+        raise SystemExit(f"{cfg.name}: serve returned the wrong shapes")
+    if not (torch.isfinite(result["prefill_logits"]).all() and torch.isfinite(result["last_logits"]).all()):
+        raise SystemExit(f"{cfg.name}: serve produced logits that are not finite")
+    if not ((result["tokens"] >= 0) & (result["tokens"] < cfg.vocab_size)).all():
+        raise SystemExit(f"{cfg.name}: serve produced token ids outside the vocabulary")
+    tokens_in = BATCH * PROMPT_LEN
+    print(f"[serve] {cfg.name} prefill {result['prefill_s'] * 1e3:.1f} ms ({tokens_in / result['prefill_s']:.0f} tok/s), "
+          f"decode {result['decode_s'] / GEN * 1e3:.2f} ms/step ({GEN * BATCH / result['decode_s']:.1f} tok/s), "
+          f"kernel launches {launches}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, result
+    torch.cuda.empty_cache()
+    return launches[kernel]
 
 
 def main() -> int:
@@ -240,9 +455,7 @@ def main() -> int:
     from repro_torch.compat import card_name_and_power_limit
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.launch.serve import make_inputs, serve
-    from repro_torch.models.lm import init_lm
-    from repro_torch.serve.decode import CausalLM
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t_start = time.perf_counter()
     # ---- 1. device ----------------------------------------------------------
@@ -251,50 +464,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
-    dev = torch.device("cuda")
 
-    # ---- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    flash_kernel.build()
-    print(f"[build] flash_attention_fwd.cu with nvcc for sm_90a: {time.perf_counter() - t0:.1f} s (set-up)")
+    # ---- 2. build: one nvcc a source, all at once ----------------------------
+    def timed_build(kernel_module):
+        t0 = time.perf_counter()
+        kernel_module.build()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        builds = {name: pool.submit(timed_build, module) for name, module in
+                  (("flash_attention_fwd.cu", flash_kernel), ("ssd_scan_fwd.cu", ssd_kernel))}
+        for name, future in builds.items():
+            print(f"[build] {name} with nvcc for sm_90a: {future.result():.1f} s (set-up; built side by side)")
 
     # ---- 3. kernels ---------------------------------------------------------
-    cfg = get_config("phi4-mini-3.8b")
-    k1 = check_kernels(PROMPT_LEN, cfg)
+    phi4, mamba2 = get_config("phi4-mini-3.8b"), get_config("mamba2-1.3b")
+    k1 = check_attention_kernel(PROMPT_LEN, phi4)
+    k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
 
     # ---- 4. serve -----------------------------------------------------------
-    t0 = time.perf_counter()
-    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
-    model = CausalLM(cfg, params)
-    n_params = sum(t.numel() for t in model.buffers())
-    torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
-          f"{n_params / 1e9:.2f} B parameters in bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
-    check_model_against_plain_attention(model, cfg, BATCH)
-
-    inputs = make_inputs(cfg, BATCH, PROMPT_LEN, torch.Generator(device=dev).manual_seed(1))
-    torch.cuda.reset_peak_memory_stats()
-    flash_kernel.flash_attention_fwd.launches = 0
-    result = serve(model, inputs, GEN)
-    k1["launches"] = flash_kernel.flash_attention_fwd.launches
-    if k1["launches"] != cfg.n_layers:
-        raise SystemExit(f"prefill launched the attention kernel {k1['launches']} times, not once per layer ({cfg.n_layers})")
-    if result["prefill_logits"].shape != (BATCH, cfg.vocab_size) or result["tokens"].shape != (BATCH, GEN + 1):
-        raise SystemExit("serve returned the wrong shapes")
-    if not (torch.isfinite(result["prefill_logits"]).all() and torch.isfinite(result["last_logits"]).all()):
-        raise SystemExit("serve produced logits that are not finite")
-    if not ((result["tokens"] >= 0) & (result["tokens"] < cfg.vocab_size)).all():
-        raise SystemExit("serve produced token ids outside the vocabulary")
-    tokens_in = BATCH * PROMPT_LEN
-    print(f"[serve] prefill {result['prefill_s'] * 1e3:.1f} ms ({tokens_in / result['prefill_s']:.0f} tok/s), "
-          f"decode {result['decode_s'] / GEN * 1e3:.2f} ms/step "
-          f"({GEN * BATCH / result['decode_s']:.1f} tok/s), "
-          f"attention kernel launches {k1['launches']}, "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counters = {"flash_attention_fwd": flash_kernel.flash_attention_fwd, "ssd_scan_fwd": ssd_kernel.ssd_scan_fwd}
+    # 513 is no multiple of any attention tile: the ragged edge on the serving path
+    k1["launches"] = serve_at_full_width(phi4, "flash_attention_fwd", counters, plain_attention, 5e-2, 512)
+    # the SSD chunk must divide the prompt: 255 and 256 are one chunk each (255 the ragged one).
+    # 48 layers of random SSD weights in bf16 stray from float32 further than 5 % of the
+    # largest logit on either path, so only the plain path bounds the kernel's
+    k2["launches"] = serve_at_full_width(mamba2, "ssd_scan_fwd", counters, plain_ssd_scan, None, 255)
 
     # ---- 5. result ----------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -19,7 +19,9 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_library"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "build_dir", "load_library", "rows_aligned"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,3 +74,14 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _LOADED[out] = lib
     return lib
+
+
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Last dim contiguous and every row on a 16-byte boundary, as the kernels'
+    16-byte copies need; a wrapper hands any other tensor over as a contiguous copy."""
+    per16 = 16 // x.element_size()
+    return (
+        x.stride(-1) == 1
+        and x.data_ptr() % 16 == 0
+        and all(s % per16 == 0 for s in x.stride()[:-1])
+    )

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._build import load_library
+from .._build import load_library, rows_aligned
 
 __all__ = ["HEAD_DIMS", "build", "flash_attention_fwd"]
 
@@ -41,16 +41,6 @@ def build(source: Path = _SOURCE):
                    ctypes.c_int, ptr]  # causal stream
     fn.restype = ctypes.c_int
     return fn
-
-
-def _rows_aligned(x: torch.Tensor) -> bool:
-    """Head dim contiguous and every row on a 16-byte boundary (the kernel's 16-byte copies)."""
-    per16 = 16 // x.element_size()
-    return (
-        x.stride(-1) == 1
-        and x.data_ptr() % 16 == 0
-        and all(s % per16 == 0 for s in x.stride()[:-1])
-    )
 
 
 def flash_attention_fwd(
@@ -86,10 +76,10 @@ def flash_attention_fwd(
     if causal and sq != sk:
         raise ValueError(f"causal attention needs sq == sk, got {sq} and {sk}")
 
-    q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
+    q, k, v = (x if rows_aligned(x) else x.contiguous() for x in (q, k, v))
     if out is None:
         out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device or not _rows_aligned(out):
+    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device or not rows_aligned(out):
         raise ValueError("out must match q in shape, type and device, with aligned rows")
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(

@@ -4,7 +4,8 @@
         --batch 4 --prompt-len 4096 --gen 32
 
 runs on the card and raises if there is none; add ``--smoke --device cpu`` for
-the reduced config on the CPU.  Counterpart of ``repro/launch/serve.py``, with
+the reduced config on the CPU.  ``--arch mamba2-1.3b`` serves the SSD model
+(its prefill scan runs the SSD kernel on the card).  Counterpart of ``repro/launch/serve.py``, with
 one difference: the prefill cache is staged into the decode cache, so the
 generated tokens attend to the prompt.
 """
@@ -26,14 +27,21 @@ from repro_torch.serve.decode import CausalLM
 __all__ = ["stage_prefill_cache", "make_inputs", "serve", "main"]
 
 
+# cache leaves without a sequence axis: an SSD layer's state, copied whole
+_STATE_LEAVES = ("ssm", "conv")
+
+
 def stage_prefill_cache(prefill_cache: Any, cache: Any, prompt_len: int) -> Any:
-    """Copy a prefill cache (sequence axis ``prompt_len``) into the first
-    ``prompt_len`` positions of a longer decode cache, in place."""
-    if isinstance(cache, dict):
-        for key, value in cache.items():
+    """Copy a prefill cache into a decode cache, in place: an attention leaf
+    (sequence axis ``prompt_len``) into the first ``prompt_len`` positions of
+    the longer one, an SSD state leaf whole."""
+    for key, value in cache.items():
+        if isinstance(value, dict):
             stage_prefill_cache(prefill_cache[key], value, prompt_len)
-        return cache
-    cache[..., :prompt_len, :, :].copy_(prefill_cache)  # (..., b, S, kvh, hd)
+        elif key in _STATE_LEAVES:
+            value.copy_(prefill_cache[key])  # (..., b, h, p, n) or (..., b, w, conv_dim)
+        else:
+            value[..., :prompt_len, :, :].copy_(prefill_cache[key])  # (..., b, S, kvh, hd)
     return cache
 
 

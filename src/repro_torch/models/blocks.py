@@ -1,7 +1,8 @@
-"""Decoder blocks: sequential / parallel-residual, dense FFN.
+"""Decoder blocks: sequential / parallel-residual, attention or SSD mixer, dense FFN.
 
-Counterpart of ``repro/models/blocks.py``.  A *block* is one transformer
-layer: mixer (attention) + FFN (dense MLP), pre-norm residual.
+Counterpart of ``repro/models/blocks.py``.  A *block* is one layer: mixer
+(attention or Mamba-2 SSD) + FFN (dense MLP, absent when ``d_ff == 0``),
+pre-norm residual.
 ``command-r``-style architectures use a parallel residual (one input norm,
 attention and MLP both read it).
 
@@ -9,7 +10,7 @@ Blocks are grouped as in the JAX package: :func:`group_pattern` returns the
 periodic (kind, is_moe) pattern of one group, and the parameters of all
 groups are stacked on a leading axis.
 
-SSD mixers (mamba2, jamba) and MoE FFNs are not ported yet: they raise
+MoE FFNs (jamba, deepseek, qwen3-moe) are not ported yet: they raise
 ``NotImplementedError``.
 """
 
@@ -22,12 +23,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from .layers.attention import attention_apply, init_attention, init_mla, mla_apply
 from .layers.basics import apply_norm, init_mlp, init_norm, mlp_apply
+from .layers.ssm import init_ssm, ssm_apply
 
 Params = Dict[str, torch.Tensor]
 
 __all__ = ["group_pattern", "init_block", "block_apply", "prelude_layers"]
 
-_SSM_LATER = "the SSD mixer (mamba2-1.3b, jamba-v0.1-52b) is not ported yet: it comes with the SSD slice of the port"
 _MOE_LATER = "the MoE FFN is not ported yet: it comes with the MLA/MoE slice of the port"
 
 
@@ -60,7 +61,7 @@ def init_block(
             else init_attention(gen, cfg, dtype, device)
         )
     else:
-        raise NotImplementedError(_SSM_LATER)
+        p["mixer"] = init_ssm(gen, cfg, dtype, device)
     if is_moe:
         raise NotImplementedError(_MOE_LATER)
     elif cfg.d_ff > 0:
@@ -76,13 +77,13 @@ def _mixer(
     kind: str,
     x: torch.Tensor,
     positions: Optional[torch.Tensor],
-    kv_sink: Optional[Dict[str, torch.Tensor]],
+    cache_sink: Optional[Dict[str, torch.Tensor]],
 ) -> torch.Tensor:
     if kind == "attn":
         if cfg.mla is not None:
             return mla_apply(p, cfg, x, positions)
-        return attention_apply(p, cfg, x, positions, kv_sink=kv_sink)
-    raise NotImplementedError(_SSM_LATER)
+        return attention_apply(p, cfg, x, positions, kv_sink=cache_sink)
+    return ssm_apply(p, cfg, x, state_sink=cache_sink)
 
 
 def _ffn(p: Params, cfg: ModelConfig, is_moe: bool, x: torch.Tensor) -> torch.Tensor:
@@ -98,21 +99,23 @@ def block_apply(
     kind: str,
     is_moe: bool,
     positions: Optional[torch.Tensor] = None,
-    kv_sink: Optional[Dict[str, torch.Tensor]] = None,
+    cache_sink: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One layer, full-sequence path (prefill).
 
-    ``kv_sink``, when given, receives the attention layer's ``"k"`` and ``"v"``.
+    ``cache_sink``, when given, receives what the layer leaves in the decode
+    cache: an attention layer's ``"k"`` and ``"v"``, an SSD layer's ``"ssm"``
+    and ``"conv"`` state.
     """
     has_ffn = "ffn" in p
     if cfg.parallel_block:
         h = apply_norm(p["norm1"], x, cfg.norm)
-        out = x + _mixer(p["mixer"], cfg, kind, h, positions, kv_sink)
+        out = x + _mixer(p["mixer"], cfg, kind, h, positions, cache_sink)
         if has_ffn:
             out = out + _ffn(p["ffn"], cfg, is_moe, h)
         return out
     h = apply_norm(p["norm1"], x, cfg.norm)
-    x = x + _mixer(p["mixer"], cfg, kind, h, positions, kv_sink)
+    x = x + _mixer(p["mixer"], cfg, kind, h, positions, cache_sink)
     if has_ffn:
         h = apply_norm(p["norm2"], x, cfg.norm)
         x = x + _ffn(p["ffn"], cfg, is_moe, h)

@@ -108,7 +108,7 @@ def lm_forward(
     if positions is None:
         positions = torch.arange(s, device=x.device)
     if not cfg.use_rope:
-        # learned-position-free archs (musicgen backbone): sinusoidal adds
+        # archs without rope (musicgen backbone, mamba2): sinusoidal adds
         x = x + sinusoidal_positions(positions, cfg.d_model, dtype)[None]
 
     pattern = group_pattern(cfg)

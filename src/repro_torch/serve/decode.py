@@ -5,14 +5,17 @@ stacked parameter layout: one entry per group position, stacked over groups
 (leading ``G`` axis), plus unstacked prelude entries.  Cache kinds:
 
   * GQA attention:  ``{"k","v"}: (G, b, S, kv_heads, head_dim)``
+  * SSD (mamba2):   ``{"ssm": (G, b, H, P, N) float32, "conv": (G, b, w, conv_dim)}``
+                    -- O(1)-size state, no sequence axis at all.
 
-The MLA latent cache and the SSD state cache come with their slices.
+The MLA latent cache comes with its slice.
 ``cache_specs`` and every ``NamedSharding`` of the JAX module are sharding:
 they wait for the sharding slice.  The factories keep their names and take a
 ``device`` where the JAX ones take a mesh.
 
 Decode attention (``_gqa_decode``) is einsum + softmax in the JAX package,
-not a Pallas kernel, and is plain PyTorch here.
+not a Pallas kernel, and is plain PyTorch here; so is the SSD decode step
+(``ssm_decode_step``, the token-by-token recurrence).
 
 :class:`CausalLM` is the one ``nn.Module`` of the port: it owns a parameter
 tree and exposes ``prefill`` / ``decode_step`` / ``.to(device)``.
@@ -20,7 +23,7 @@ tree and exposes ``prefill`` / ``decode_step`` / ``.to(device)``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import block_apply, group_pattern, prelude_layers
 from repro_torch.models.layers.attention import attention_qkv
 from repro_torch.models.layers.basics import apply_norm, dense, embed, mlp_apply, unembed
+from repro_torch.models.layers.ssm import ssm_decode_step, ssm_state_shapes
 from repro_torch.models.lm import sinusoidal_positions, tree_index
 
 __all__ = [
@@ -41,7 +45,6 @@ __all__ = [
 ]
 
 _MLA_LATER = "the MLA latent cache is not ported yet: it comes with the MLA/MoE slice of the port"
-_SSM_LATER = "the SSD state cache is not ported yet: it comes with the SSD slice of the port"
 _MOE_LATER = "the MoE FFN is not ported yet: it comes with the MLA/MoE slice of the port"
 
 
@@ -56,7 +59,8 @@ def _layer_cache_shape(
     """{name: (shape, dtype)} for one (unstacked) layer."""
     dt = torch_dtype(cfg.dtype)
     if kind == "ssm":
-        raise NotImplementedError(_SSM_LATER)
+        sh = ssm_state_shapes(cfg, batch)
+        return {"ssm": (sh["ssm"], torch.float32), "conv": (sh["conv"], dt)}
     if cfg.mla is not None:
         raise NotImplementedError(_MLA_LATER)
     hd = cfg.resolved_head_dim
@@ -139,9 +143,17 @@ def _ffn_decode(p, cfg: ModelConfig, is_moe: bool, x):
     return mlp_apply(p, x, cfg.act)
 
 
+def _ssm_decode(p, cfg: ModelConfig, x, cache):
+    """One SSD step; writes the new state into ``cache`` in place and returns it."""
+    out, new = ssm_decode_step(p, cfg, x, cache)
+    cache["ssm"].copy_(new["ssm"])
+    cache["conv"].copy_(new["conv"])
+    return out, cache
+
+
 def _mixer_decode(p, cfg: ModelConfig, kind: str, h, cache, position):
-    if kind != "attn":
-        raise NotImplementedError(_SSM_LATER)
+    if kind == "ssm":
+        return _ssm_decode(p, cfg, h, cache)
     if cfg.mla is not None:
         raise NotImplementedError(_MLA_LATER)
     return _gqa_decode(p, cfg, h, cache, position)
@@ -168,13 +180,15 @@ def _block_decode(p, cfg: ModelConfig, kind: str, is_moe: bool, x, cache, positi
 # ---------------------------------------------------------------------------
 
 
-def make_serve_step(cfg: ModelConfig, device, batch: int, max_seq: int):
+def make_serve_step(cfg: ModelConfig, device, batch: int, max_seq: Optional[int]):
     """Returns ``serve_fn`` (the JAX factory's tuple of shardings is gone).
 
     ``serve_fn(params, cache, tokens, position) -> (next_tokens, logits_f32,
     cache)``: one decode step for the whole batch.  ``serve_fn`` **mutates**
-    the cache it is given (the new key and value of every layer are written
-    at ``position``) and returns that same cache.
+    the cache it is given (the new key and value of every attention layer
+    are written at ``position``, every SSD layer's state is replaced) and
+    returns that same cache.  ``max_seq`` (the cache's sequence length; None
+    for a model without attention) only names the cache the step is made for.
     """
     device = resolve_device(device)
     pattern = group_pattern(cfg)
@@ -225,9 +239,11 @@ def make_prefill(cfg: ModelConfig, device, batch: int, seq: int):
     Returns ``prefill_fn`` (the JAX factory's tuple of shardings is gone).
     ``prefill_fn(params, batch_inputs) -> (last_logits, cache)``.
 
-    Each layer's q, k, v are computed once and feed both the cache and the
-    attention (the JAX function computes them twice and leaves the merging to
-    XLA; PyTorch runs eagerly).
+    Each layer runs once and fills the cache from the same computation: an
+    attention layer's q, k, v, an SSD layer's scan (its final state) and conv
+    inputs.  The JAX function computes them twice per layer (for an SSD
+    layer, two chunked scans) and leaves the merging to XLA; PyTorch runs
+    eagerly.
     """
     device = resolve_device(device)
     pattern = group_pattern(cfg)
@@ -236,11 +252,11 @@ def make_prefill(cfg: ModelConfig, device, batch: int, seq: int):
     dtype = torch_dtype(cfg.dtype)
 
     def layer_with_cache(p, kind, is_moe, x, positions, cache):
-        """block_apply, with the layer's k and v copied into ``cache``."""
+        """block_apply, with what the layer leaves for decoding copied into ``cache``."""
         sink: Dict[str, torch.Tensor] = {}
-        x = block_apply(p, cfg, x, kind, is_moe, positions, kv_sink=sink)
-        cache["k"].copy_(sink["k"])
-        cache["v"].copy_(sink["v"])
+        x = block_apply(p, cfg, x, kind, is_moe, positions, cache_sink=sink)
+        for name, leaf in cache.items():
+            leaf.copy_(sink[name])
         return x
 
     @torch.inference_mode()
@@ -342,8 +358,13 @@ class CausalLM(nn.Module):
         return init_cache(self.cfg, batch, max_seq, self.device)
 
 
-def _cache_len(cache: Any) -> int:
-    leaf = cache
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return leaf.shape[-3]
+def _cache_len(cache: Any) -> Optional[int]:
+    """The sequence length of the cache's attention leaves; None if it has none."""
+    if isinstance(cache, dict):
+        if "k" in cache:
+            return cache["k"].shape[-3]  # (..., b, S, kvh, hd)
+        for value in cache.values():
+            found = _cache_len(value)
+            if found is not None:
+                return found
+    return None

@@ -16,8 +16,12 @@ import repro_torch
 from repro_torch.launch import serve
 serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",
             "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "12", "--gen", "3"])
 import repro_torch.convert, repro_torch.compat
 import repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.ssd_scan.ops, repro_torch.kernels.ssd_scan.kernel
+import repro_torch.models.layers.ssm
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("PROBE-OK")
@@ -31,7 +35,7 @@ def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "PROBE-OK" in proc.stdout
-    assert "[serve] decoded 3 tokens x 2 seqs" in proc.stdout
+    assert proc.stdout.count("[serve] decoded 3 tokens x 2 seqs") == 2
 
 
 def test_no_import_statement_names_jax_or_repro():

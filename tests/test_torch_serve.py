@@ -1,4 +1,4 @@
-"""The first slice as a whole: the port's forward, prefill and decode step
+"""The slices as a whole: the port's forward, prefill and decode step
 against the JAX package's, from the same parameters and the same inputs.
 
 Parameters are drawn by the JAX package's ``init_lm`` and converted; inputs
@@ -27,23 +27,37 @@ from repro_torch.serve import decode as tdec
 
 from _torch_parity import close, jax_to_torch_params, normal, tree_close
 
-# the five dense archs this slice serves, one per code path: GQA + partial
-# rotary; MHA + layernorm; qkv bias; parallel block + tied head; no rope +
-# gelu + embeddings in
+# the archs the port serves, one per code path: GQA + partial rotary; MHA +
+# layernorm; qkv bias; parallel block + tied head; no rope + gelu + embeddings
+# in; SSD mixer, no FFN, sinusoidal positions, a state cache
 ARCHS = [
     "phi4-mini-3.8b",
     "stablelm-3b",
     "codeqwen1.5-7b",
     "command-r-plus-104b",
     "musicgen-medium",
+    "mamba2-1.3b",
 ]
+# the SSD smoke config with chunks of 4 tokens, so that the scan carries its
+# state across chunks at S = 12 (the plain config's chunk covers the prompt)
+CHUNKED = ["mamba2-1.3b@chunk4"]
 TOL = 2e-4
 B, S, MAX_SEQ = 2, 12, 16
 
 
+def _configs(arch, dtype="float32"):
+    """(jax config, torch config) of a smoke arch; ``name@chunkN`` sets the SSD chunk."""
+    name, _, chunk = arch.partition("@chunk")
+    jcfg = dataclasses.replace(jax_smoke_config(name), dtype=dtype)
+    tcfg = dataclasses.replace(get_smoke_config(name), dtype=dtype)
+    if chunk:
+        jcfg = dataclasses.replace(jcfg, ssm=dataclasses.replace(jcfg.ssm, chunk=int(chunk)))
+        tcfg = dataclasses.replace(tcfg, ssm=dataclasses.replace(tcfg.ssm, chunk=int(chunk)))
+    return jcfg, tcfg
+
+
 def _setup(arch, dtype="float32"):
-    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype=dtype)
-    tcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    jcfg, tcfg = _configs(arch, dtype)
     jparams = jlm.init_lm(jax.random.PRNGKey(0), jcfg, jnp.dtype(dtype))
     tparams = jax_to_torch_params(jparams)
     rng = np.random.default_rng(1)
@@ -59,7 +73,7 @@ def _inputs(cfg, tokens, emb):
     return {"tokens": jnp.asarray(tokens)}, {"tokens": torch.from_numpy(tokens).long()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + CHUNKED)
 def test_lm_forward_matches_jax(arch):
     jcfg, tcfg, jparams, tparams, tokens, emb = _setup(arch)
     jin, tin = _inputs(jcfg, tokens, emb)
@@ -71,7 +85,19 @@ def test_lm_forward_matches_jax(arch):
     close(tl, jlm.lm_logits(jparams, jcfg, jh), TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _stage_jax(big, small):
+    """The JAX side of ``stage_prefill_cache``: attention leaves into the first
+    S positions, SSD state leaves (no sequence axis) whole."""
+
+    def put(path, big_leaf, small_leaf):
+        if path[-1].key in ("ssm", "conv"):
+            return small_leaf
+        return big_leaf.at[..., :S, :, :].set(small_leaf)
+
+    return jax.tree_util.tree_map_with_path(put, big, small)
+
+
+@pytest.mark.parametrize("arch", ARCHS + CHUNKED)
 def test_prefill_and_serve_step_match_jax(arch):
     jcfg, tcfg, jparams, tparams, tokens, emb = _setup(arch)
     jin, tin = _inputs(jcfg, tokens, emb)
@@ -81,11 +107,7 @@ def test_prefill_and_serve_step_match_jax(arch):
         jlogits, jcache = jax.jit(jprefill)(jparams, jin)
         jserve, _, _, _ = jdec.make_serve_step(jcfg, mesh, B, MAX_SEQ)
         # stage the prefill cache into a max_seq cache, then one decode step
-        jbig = jax.tree.map(
-            lambda big, small: big.at[..., :S, :, :].set(small),
-            jdec.init_cache(jcfg, B, MAX_SEQ),
-            jcache,
-        )
+        jbig = _stage_jax(jdec.init_cache(jcfg, B, MAX_SEQ), jcache)
         jnext = jnp.argmax(jlogits, -1).astype(jnp.int32)
         jpos = jnp.full((B,), S, jnp.int32)
         jnext2, jlogits2, jbig2 = jax.jit(jserve)(jparams, jbig, jnext[:, None], jpos)
@@ -126,7 +148,7 @@ def test_slice_in_bfloat16_matches_jax():
     tree_close(tcache, jcache, 5e-2)  # four layers of bf16 rounding ahead of the last leaf
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + CHUNKED)
 def test_teacher_forced_decode_matches_forward(arch):
     """Twin of tests/test_serve.py: the prompt fed token by token through
     ``serve_fn`` gives the last-position logits of one full forward."""
@@ -168,6 +190,52 @@ def test_prefill_stage_decode_equals_forward_of_one_more_token(arch):
     close(logits, ref_logits, TOL)
 
 
+def test_ssd_slice_in_bfloat16_matches_jax():
+    """bf16 end to end through the SSD mixer, as the launcher runs it: 3e-2 on
+    the last logits (bf16 projections, conv and scan output, rounded at other
+    places by the two frameworks)."""
+    jcfg, tcfg, jparams, tparams, tokens, emb = _setup("mamba2-1.3b@chunk4", "bfloat16")
+    jin, tin = _inputs(jcfg, tokens, emb)
+    mesh = make_host_mesh(data=1, model=1)
+    with mesh:
+        jprefill, _, _, _ = jdec.make_prefill(jcfg, mesh, B, S)
+        jlogits, jcache = jax.jit(jprefill)(jparams, jin)
+    tlogits, tcache = tdec.make_prefill(tcfg, "cpu", B, S)(tparams, tin)
+    close(tlogits, jlogits, 3e-2)
+    assert tcache["blocks"]["pos_0"]["ssm"].dtype == torch.float32
+    assert tcache["blocks"]["pos_0"]["conv"].dtype == torch.bfloat16
+    tree_close(tcache, jcache, 5e-2)  # four layers of bf16 rounding ahead of the last leaf
+
+
+def test_stage_copies_ssd_state_whole_and_attention_by_position():
+    """An SSD leaf has no sequence axis: a prompt shorter than the head count
+    must not cut its head axis (8 heads in the smoke config, prompt 4)."""
+    _, cfg, _, params, tokens, _ = _setup("mamba2-1.3b")
+    model = tdec.CausalLM(cfg, params)
+    _, small = model.prefill({"tokens": torch.from_numpy(tokens[:, :4]).long()})
+    assert small["blocks"]["pos_0"]["ssm"].shape[-3] == 8 > 4
+    big = stage_prefill_cache(small, model.init_cache(B, MAX_SEQ), 4)
+    for name in ("ssm", "conv"):
+        assert torch.equal(big["blocks"]["pos_0"][name], small["blocks"]["pos_0"][name])
+    _, acfg, _, aparams, _, _ = _setup("phi4-mini-3.8b")
+    amodel = tdec.CausalLM(acfg, aparams)
+    _, asmall = amodel.prefill({"tokens": torch.from_numpy(tokens[:, :4]).long()})
+    abig = stage_prefill_cache(asmall, amodel.init_cache(B, MAX_SEQ), 4)
+    k = abig["blocks"]["pos_0"]["k"]
+    assert torch.equal(k[:, :, :4], asmall["blocks"]["pos_0"]["k"])
+    assert not k[:, :, 4:].any()
+
+
+def test_cache_len_reads_an_attention_leaf_or_none():
+    """The decode cache's sequence length comes from an attention leaf, never
+    from the head axis of an SSD leaf that comes first."""
+    for arch, expect in [("phi4-mini-3.8b", MAX_SEQ), ("mamba2-1.3b", None), ("jamba-v0.1-52b", MAX_SEQ)]:
+        cache = tdec.cache_shapes(get_smoke_config(arch), B, MAX_SEQ)
+        assert tdec._cache_len(cache) == expect, arch
+    first = next(iter(tdec.cache_shapes(get_smoke_config("jamba-v0.1-52b"), B, MAX_SEQ)["blocks"].values()))
+    assert set(first) == {"ssm", "conv"}  # jamba's first leaf is an SSD state
+
+
 def test_init_lm_twin_has_the_jax_tree():
     for arch in ARCHS:
         jcfg, tcfg, jparams, _, _, _ = _setup(arch)
@@ -182,7 +250,7 @@ def _map(fn, tree):
 
 
 def test_cache_shapes_match_jax():
-    for arch in ARCHS:
+    for arch in ARCHS + ["jamba-v0.1-52b"]:
         jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
         jshapes = jax.tree.map(lambda s: (s.shape, str(s.dtype)), jdec.cache_shapes(jcfg, 3, 20))
         tshapes = _map(
@@ -214,13 +282,13 @@ def test_launcher_functions_run_the_slice_on_the_cpu():
     assert [line.split()[1].split("(")[0] for line in lines] == ["prefill", "decoded", "sample"]
 
 
-@pytest.mark.parametrize("arch,what", [("mamba2-1.3b", "SSD"), ("jamba-v0.1-52b", "SSD"),
-                                       ("deepseek-v2-lite-16b", "MLA"), ("qwen3-moe-30b-a3b", "MoE")])
+@pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "MoE"), ("deepseek-v2-lite-16b", "MLA"),
+                                       ("qwen3-moe-30b-a3b", "MoE")])
 def test_unported_archs_raise_and_name_their_slice(arch, what):
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match=what):
         tlm.init_lm(torch.Generator().manual_seed(0), cfg)
-    if what != "MoE":
+    if what == "MLA":
         with pytest.raises(NotImplementedError, match=what):
             tdec.cache_shapes(cfg, 1, 8)
     assert tblocks.group_pattern(cfg)  # the pattern itself is config arithmetic and works
