@@ -10,11 +10,17 @@ non-zero exit if it fails:
 
 1. device:  the card's name and power limit; TF32 matmuls off.
 2. build:   every CUDA kernel of the port, from the sources in the checkout,
-            one ``nvcc`` a source, all started together.
+            one ``nvcc`` a source, all started together: flash attention
+            (K1), the SSD scan (K2), and the SCU barrier, notifier and
+            self-signal (K3-K5, one source).
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-            test shapes and at the shape the serving path gives it; its time
+            test shapes and at the shape its path gives it; its time
             beside the plain version's, one library call's (where PyTorch
-            has one) and its bound.
+            has one) and its bound.  K3 at 1 to the largest resident number
+            of parties and 10,000 back-to-back launches, K4 for every
+            target, K5 at sizes 1 to 2^20 and on an unaligned view, all
+            exact; beside K3's bound, its latency floor (hand-offs between
+            two SMs plus one launch, measured in the same run).
 4. serve:   each served model at its published width (random weights from a
             seed) through the launcher's functions: a batch of prompts is
             prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
@@ -26,8 +32,16 @@ non-zero exit if it fails:
             that the kernel path strays from a float32 model no further than
             the plain bf16 path does, and that prefill + staged cache + one
             decode step equals a prefill of one more token.
-5. result:  one ``{"kernels": [...]}`` line, the card line, and the last line
-            ``{"ok": true, "device": {...}}``.
+5. sync:    the chip-level barrier sweep (``repro_torch.launch.barriers``,
+            the paper's Fig. 5 at chip granularity) with 8 parties under all
+            seven registered policies: microseconds per barrier and the
+            overhead curve for each.  Checks that every party is released
+            with the count 8, that the ``scu`` policy launched K3 once a
+            barrier (16 a region a pass), and that K5 raised the arrival
+            words and K4 delivered the counts once a policy (every count
+            set to 0 just before, read just after).
+6. result:  one ``{"kernels": [...]}`` line (K1-K5), the card line, and the
+            last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -78,6 +92,13 @@ SSD_SHAPES = [
 # of its tolerance (it splits f32 operands into bf16 hi + lo and rounds only
 # y, where the reference rounds it).  The final state is f32 on both sides.
 SSD_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+
+# K3's party counts: 1, powers and non-powers of two, the paper's 8, and
+# more than one CTA an SM; the largest resident count is added at run time
+SCU_PARTIES = [1, 2, 3, 5, 6, 8, 64, 128]
+SCU_BACK_TO_BACK = 10_000
+SCU_SIGNAL_SIZES = [8, 1, 7, 4099, 2**20]
+SWEEP_PARTIES = 8  # the paper's eight-core cluster
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -301,6 +322,161 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
     }
 
 
+def check_scu_kernels() -> list:
+    """Phase 3 for K3-K5, the SCU barrier, notifier and self-signal.  Every
+    word is integer-valued, so every sum is exact in any order and each
+    kernel must equal its plain version exactly.  Returns their entries of
+    the kernels line, timed at the shapes the barrier sweep gives them."""
+    import torch
+
+    from repro_torch.kernels.scu_barrier import kernel as scu
+    from repro_torch.kernels.scu_barrier.ref import barrier_ref, notifier_ref, self_signal_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def words(*shape):
+        return torch.randint(0, 50, shape, generator=gen, device=dev).float()
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()  # a trap in the kernel surfaces here
+        err = (got - want).abs().max().item()
+        if got.shape != want.shape or err != 0:
+            raise SystemExit(f"{name} disagrees with its plain version: max abs err {err}")
+        return err
+
+    # K3 --------------------------------------------------------------------
+    most = scu.max_parties(0)
+    for n in SCU_PARTIES + [most]:
+        for shape in ((n,), (n, 3, 5)):
+            arrive = words(*shape)
+            exact(f"scu_barrier n={n} {shape}", scu.scu_barrier(arrive), barrier_ref(arrive))
+    try:
+        scu.scu_barrier(words(most + 1))
+    except ValueError:
+        pass
+    else:
+        raise SystemExit(f"scu_barrier took {most + 1} parties, more than fit on the card at once")
+    print(f"[kernels] scu_barrier exact at n = {SCU_PARTIES + [most]} (the last the largest resident "
+          f"group: one-warp CTAs, cooperative launch), words of shape () and (3, 5)")
+    batch = words(SCU_BACK_TO_BACK, 8)
+    outs = torch.empty_like(batch)
+    t0 = time.perf_counter()
+    for k in range(SCU_BACK_TO_BACK):
+        outs[k] = scu.scu_barrier(batch[k])
+    exact("scu_barrier back to back", outs, batch.sum(1, keepdim=True).expand_as(batch))
+    print(f"[kernels] scu_barrier {SCU_BACK_TO_BACK} back-to-back launches at n=8, every result exact "
+          f"({time.perf_counter() - t0:.2f} s on the host clock)")
+
+    n = SWEEP_PARTIES
+    arrive = torch.ones(n, device=dev)  # the sweep's arrival words
+    err3 = exact("scu_barrier at the sweep's shape", scu.scu_barrier(arrive), barrier_ref(arrive))
+    k3_ms = time_ms(lambda: scu.scu_barrier(arrive), iters=2000, warmup=20)
+    k3_plain = time_ms(lambda: barrier_ref(arrive), iters=2000, warmup=20)
+    k3_library = time_ms(lambda: arrive.sum(0, keepdim=True).expand_as(arrive), iters=2000, warmup=20)
+    # bytes: the n arrival words read once, the n counts written once; operations: n adds a party
+    k3_bound, k3_by = bound(8 * n, n * n, "float32")
+    handoff = scu.handoff_ms()
+    launch = scu.launch_ms(n)
+    rounds = (n - 1).bit_length()
+    print(f"[kernels] scu_barrier at n={n} (one word a party): kernel {k3_ms * 1e3:.2f} us, plain "
+          f"{k3_plain * 1e3:.2f} us, library (sum + expand) {k3_library * 1e3:.2f} us, bound "
+          f"{k3_bound * 1e3:.2e} us by {k3_by}; latency floor {rounds} hand-offs x {handoff * 1e3:.3f} us "
+          f"+ one empty cooperative launch of {n} CTAs {launch * 1e3:.2f} us = "
+          f"{(rounds * handoff + launch) * 1e3:.2f} us")
+
+    # K4 --------------------------------------------------------------------
+    for m in (1, 130):
+        payload = words(n, m)
+        for target in range(n):
+            exact(f"scu_notifier n={n} m={m} target={target}", scu.scu_notifier(payload, target),
+                  notifier_ref(payload, target))  # fmt: skip
+    print(f"[kernels] scu_notifier exact at n={n} for every target, rows of 1 and 130 words")
+    counts = torch.full((n, 1), float(n), device=dev)  # the sweep sends each party's count to party 0
+    err4 = exact("scu_notifier at the sweep's shape", scu.scu_notifier(counts, 0), notifier_ref(counts, 0))
+    k4_ms = time_ms(lambda: scu.scu_notifier(counts, 0), iters=2000, warmup=20)
+    k4_plain = time_ms(lambda: notifier_ref(counts, 0), iters=2000, warmup=20)
+    k4_bound, k4_by = bound(8 * n, n, "float32")
+    print(f"[kernels] scu_notifier at n={n}, one word a party, target 0: kernel {k4_ms * 1e3:.2f} us, plain "
+          f"{k4_plain * 1e3:.2f} us, library none (no one PyTorch call sends to one party), bound "
+          f"{k4_bound * 1e3:.2e} us by {k4_by}; latency floor one hand-off + one launch")
+
+    # K5 --------------------------------------------------------------------
+    for size in SCU_SIGNAL_SIZES:
+        x = torch.arange(size, dtype=torch.float32, device=dev)
+        exact(f"scu_self_signal size {size}", scu.scu_self_signal(x), self_signal_ref(x))
+    view = torch.arange(4100, dtype=torch.float32, device=dev)[1:]
+    exact("scu_self_signal on an unaligned view", scu.scu_self_signal(view), self_signal_ref(view))
+    print(f"[kernels] scu_self_signal exact at arange of {SCU_SIGNAL_SIZES} and on a view one element "
+          "off the 16-byte boundary")
+    big = torch.arange(2**20, dtype=torch.float32, device=dev)
+    big_ms = time_ms(lambda: scu.scu_self_signal(big), iters=200, warmup=5)
+    big_bound, _ = bound(8 * big.numel(), big.numel(), "float32")
+    print(f"[kernels] scu_self_signal at 2^20 floats: kernel {big_ms * 1e3:.2f} us, library (x + 1) "
+          f"{time_ms(lambda: big + 1, iters=200, warmup=5) * 1e3:.2f} us, bound {big_bound * 1e3:.2f} us by bytes")
+    zeros = torch.zeros(n, device=dev)  # the sweep's arrival events
+    err5 = exact("scu_self_signal at the sweep's shape", scu.scu_self_signal(zeros), self_signal_ref(zeros))
+    k5_ms = time_ms(lambda: scu.scu_self_signal(zeros), iters=2000, warmup=20)
+    k5_plain = time_ms(lambda: self_signal_ref(zeros), iters=2000, warmup=20)
+    k5_bound, k5_by = bound(8 * n, n, "float32")
+    print(f"[kernels] scu_self_signal at the sweep's shape ({n} floats): kernel {k5_ms * 1e3:.2f} us, plain and "
+          f"library (x + 1) {k5_plain * 1e3:.2f} us, bound {k5_bound * 1e3:.2e} us by {k5_by}")
+
+    source = "src/repro_torch/kernels/scu_barrier/csrc/scu_barrier.cu"
+    replaces = "src/repro/kernels/scu_barrier/kernel.py"
+    return [
+        {"name": "scu_barrier", "route": "cuda", "source": source, "replaces": f"{replaces}:79",
+         "launches": 0, "max_abs_err": err3, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_library},
+        {"name": "scu_notifier", "route": "cuda", "source": source, "replaces": f"{replaces}:112",
+         "launches": 0, "max_abs_err": err4, "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
+         "bound_by": k4_by, "library_ms": None},
+        {"name": "scu_self_signal", "route": "cuda", "source": source, "replaces": f"{replaces}:134",
+         "launches": 0, "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
+         "bound_by": k5_by, "library_ms": k5_plain},
+    ]  # fmt: skip
+
+
+def barrier_sweep(counters) -> dict:
+    """Phase 5: the chip-level barrier sweep under every policy; returns the
+    SCU kernels' launches in it."""
+    import torch
+
+    from repro_torch.launch.barriers import N_BARRIERS, REGION_SIZES, run
+    from repro_torch.sync import available_policies
+
+    names = available_policies()
+    for counted in counters.values():
+        counted.launches = 0
+    t0 = time.perf_counter()
+    result = run(parties=SWEEP_PARTIES, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    launches = {name: counted.launches for name, counted in counters.items()}
+    n = SWEEP_PARTIES
+    print(f"[sync] barrier sweep, {n} parties of (8, 128) f32, {N_BARRIERS} barriers a pass, "
+          f"{result['passes']} passes a region (one warm-up), all {len(names)} policies: "
+          f"{time.perf_counter() - t0:.1f} s")
+    print("[sync] region  " + "".join(f"{s:>9s}" for s in names) + "   (overhead against compute only)")
+    for i, region in enumerate(REGION_SIZES):
+        print(f"[sync] {region:6d}  " + "".join(f"{result['curves'][s][i][2] * 100:8.0f}%" for s in names))
+    print("[sync] us per (region + barrier) at region 1: "
+          + ", ".join(f"{s} {result['curves'][s][0][1]:.2f}" for s in names))
+    for s in names:
+        if result["counts"][s] != [float(n)] * n:
+            raise SystemExit(f"[sync] {s} released the parties with {result['counts'][s]}, not {n} each")
+        if result["notified"][s] != float(n * (n - 1)):
+            raise SystemExit(f"[sync] {s}: the notifier delivered {result['notified'][s]} to party 0, "
+                             f"not the {n - 1} other counts of {n}")
+    want = {"flash_attention_fwd": 0, "ssd_scan_fwd": 0,
+            "scu_barrier": result["passes"] * N_BARRIERS * len(REGION_SIZES),
+            "scu_notifier": len(names), "scu_self_signal": len(names)}  # fmt: skip
+    if launches != want:
+        raise SystemExit(f"[sync] kernel launches in the sweep {launches}, expected {want}")
+    print(f"[sync] every party released with {n} under every policy; kernel launches {launches} "
+          f"(scu_barrier {N_BARRIERS} a region a pass under the scu policy)")
+    return launches
+
+
 def plain_attention():
     """Within the block, the models' attention goes through its plain version."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -455,6 +631,7 @@ def main() -> int:
     from repro_torch.compat import card_name_and_power_limit
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.scu_barrier import kernel as scu_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t_start = time.perf_counter()
@@ -473,7 +650,8 @@ def main() -> int:
 
     with concurrent.futures.ThreadPoolExecutor() as pool:
         builds = {name: pool.submit(timed_build, module) for name, module in
-                  (("flash_attention_fwd.cu", flash_kernel), ("ssd_scan_fwd.cu", ssd_kernel))}
+                  (("flash_attention_fwd.cu", flash_kernel), ("ssd_scan_fwd.cu", ssd_kernel),
+                   ("scu_barrier.cu", scu_kernel))}
         for name, future in builds.items():
             print(f"[build] {name} with nvcc for sm_90a: {future.result():.1f} s (set-up; built side by side)")
 
@@ -481,9 +659,12 @@ def main() -> int:
     phi4, mamba2 = get_config("phi4-mini-3.8b"), get_config("mamba2-1.3b")
     k1 = check_attention_kernel(PROMPT_LEN, phi4)
     k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
+    k3, k4, k5 = check_scu_kernels()
 
     # ---- 4. serve -----------------------------------------------------------
-    counters = {"flash_attention_fwd": flash_kernel.flash_attention_fwd, "ssd_scan_fwd": ssd_kernel.ssd_scan_fwd}
+    counters = {"flash_attention_fwd": flash_kernel.flash_attention_fwd, "ssd_scan_fwd": ssd_kernel.ssd_scan_fwd,
+                "scu_barrier": scu_kernel.scu_barrier, "scu_notifier": scu_kernel.scu_notifier,
+                "scu_self_signal": scu_kernel.scu_self_signal}
     # 513 is no multiple of any attention tile: the ragged edge on the serving path
     k1["launches"] = serve_at_full_width(phi4, "flash_attention_fwd", counters, plain_attention, 5e-2, 512)
     # the SSD chunk must divide the prompt: 255 and 256 are one chunk each (255 the ragged one).
@@ -491,9 +672,14 @@ def main() -> int:
     # largest logit on either path, so only the plain path bounds the kernel's
     k2["launches"] = serve_at_full_width(mamba2, "ssd_scan_fwd", counters, plain_ssd_scan, None, 255)
 
-    # ---- 5. result ----------------------------------------------------------
+    # ---- 5. sync -------------------------------------------------------------
+    swept = barrier_sweep(counters)
+    for entry in (k3, k4, k5):
+        entry["launches"] = swept[entry["name"]]
+
+    # ---- 6. result ----------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

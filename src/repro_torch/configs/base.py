@@ -2,8 +2,7 @@
 
 The dataclasses, their fields, defaults and methods are those of the JAX
 package, so a config of one package equals the other's field by field.
-``input_specs`` and the ``sync_policy_*`` helpers are not here yet: they come
-with the slices that use them.
+``input_specs`` is not here yet: it comes with the slice that uses it.
 
 One :class:`ModelConfig` dataclass covers all ten assigned architecture
 families (dense / GQA / MLA / MoE / SSM / hybrid / audio / vlm backbones).
@@ -27,7 +26,30 @@ __all__ = [
     "ShapeConfig",
     "SHAPES",
     "shape_applicable",
+    "sync_policy_choices",
+    "validate_sync_policy",
 ]
+
+
+def sync_policy_choices() -> Tuple[str, ...]:
+    """Registered ``repro_torch.sync`` policy names -- the valid values for
+    every sync-policy config field / CLI flag (launchers build argparse
+    choices from this, so new registered disciplines appear everywhere at
+    once)."""
+    from repro_torch.sync import available_policies  # deferred: keep configs light
+
+    return available_policies()
+
+
+def validate_sync_policy(name: str) -> str:
+    """Canonicalize a sync-policy config value against the registry.
+
+    Returns the canonical (lowercase) registered name; raises ``KeyError``
+    naming the available policies for anything unknown.
+    """
+    from repro_torch.sync import canonical_name  # deferred: keep configs light
+
+    return canonical_name(name)
 
 
 @dataclasses.dataclass(frozen=True)

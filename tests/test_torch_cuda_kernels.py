@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.scu_barrier import ops as scu_ops
+from repro_torch.kernels.scu_barrier.kernel import max_parties, scu_barrier, scu_notifier, scu_self_signal
+from repro_torch.kernels.scu_barrier.ref import barrier_ref, notifier_ref, self_signal_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
@@ -195,3 +198,82 @@ def test_ssd_kernel_refuses_what_it_does_not_take(card):
     xl, dtl, Al, Bl, Cl = _scan_inputs(1, 512, 2, 64, 128, torch.bfloat16, card)
     with pytest.raises(ValueError, match="chunk"):
         ssd_scan_fwd(xl, dtl, Al, Bl, Cl, chunk=512)  # above the kernel's 256
+
+
+# ---------------------------------------------------------------------------
+# SCU barrier (K3), notifier (K4), self-signal (K5): exact, integer-valued words
+# ---------------------------------------------------------------------------
+
+
+def _words(shape, device, seed=5):
+    """Integer-valued float32 words: every sum of them is exact in any order."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 50, size=shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 8, 64, 128])
+@pytest.mark.parametrize("s", [(), (3, 5)])
+def test_scu_barrier_kernel_exact(card, n, s):
+    arrive = _words((n,) + s, card, seed=n)
+    before = scu_barrier.launches
+    out = scu_ops.barrier(arrive)
+    torch.cuda.synchronize()
+    assert scu_barrier.launches == before + 1
+    assert out.shape == arrive.shape
+    assert torch.equal(out, barrier_ref(arrive))
+
+
+def test_scu_barrier_kernel_at_the_largest_resident_group(card):
+    n = max_parties(card.index or 0)
+    assert n >= 132
+    arrive = _words((n,), card)
+    assert torch.equal(scu_barrier(arrive), barrier_ref(arrive))
+    with pytest.raises(ValueError, match="do not fit"):
+        scu_barrier(_words((n + 1,), card))
+
+
+def test_scu_barrier_kernel_back_to_back(card):
+    """Launches without a memset between them: the flags' epochs keep them apart."""
+    outs, refs = [], []
+    for k in range(1000):
+        arrive = _words((8,), card, seed=k)
+        outs.append(scu_barrier(arrive))
+        refs.append(barrier_ref(arrive))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(outs), torch.stack(refs))
+
+
+@pytest.mark.parametrize("m", [1, 130])
+def test_scu_notifier_kernel_every_target(card, m):
+    payload = _words((8, m), card)
+    for target in range(8):
+        before = scu_notifier.launches
+        out = scu_ops.notifier(payload, "x", target)
+        assert scu_notifier.launches == before + 1
+        assert torch.equal(out, notifier_ref(payload, target))
+
+
+@pytest.mark.parametrize("size", [8, 1, 7, 4099, 2**20])
+def test_scu_self_signal_kernel(card, size):
+    x = torch.arange(size, dtype=torch.float32, device=card)
+    before = scu_self_signal.launches
+    out = scu_ops.self_signal(x)
+    assert scu_self_signal.launches == before + 1
+    assert torch.equal(out, self_signal_ref(x))
+
+
+def test_scu_self_signal_kernel_unaligned_and_strided(card):
+    base = torch.arange(4099, dtype=torch.float32, device=card)
+    view = base[1:]  # 4 bytes off the 16-byte boundary
+    assert torch.equal(scu_self_signal(view), view + 1)
+    grid = base[:4096].reshape(64, 64).t()  # not contiguous
+    assert torch.equal(scu_self_signal(grid), grid + 1)
+
+
+def test_scu_kernels_refuse_what_they_do_not_take(card):
+    with pytest.raises(ValueError, match="float32"):
+        scu_barrier(torch.ones(4, dtype=torch.float64, device=card))
+    with pytest.raises(ValueError, match="target"):
+        scu_notifier(torch.ones(4, device=card), 4)
+    with pytest.raises(ValueError, match="float32"):
+        scu_self_signal(torch.ones(4, dtype=torch.bfloat16, device=card))

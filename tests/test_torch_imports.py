@@ -22,6 +22,13 @@ import repro_torch.convert, repro_torch.compat
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.ssd_scan.ops, repro_torch.kernels.ssd_scan.kernel
 import repro_torch.models.layers.ssm
+import repro_torch.sync, repro_torch.sync.axis, repro_torch.sync.api
+import repro_torch.core.scu.engine, repro_torch.core.scu.primitives
+import repro_torch.kernels.scu_barrier.ops, repro_torch.kernels.scu_barrier.kernel
+import repro_torch.parallel.sharding, repro_torch.configs.base
+from repro_torch.launch import barriers
+barriers.main(["--parties", "3", "--device", "cpu"])
+assert repro_torch.configs.base.sync_policy_choices() == repro_torch.sync.available_policies()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("PROBE-OK")
@@ -36,6 +43,7 @@ def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "PROBE-OK" in proc.stdout
     assert proc.stdout.count("[serve] decoded 3 tokens x 2 seqs") == 2
+    assert "== Chip-level barrier disciplines (3 parties on cpu) ==" in proc.stdout
 
 
 def test_no_import_statement_names_jax_or_repro():
