@@ -16,11 +16,16 @@ non-zero exit if it fails:
 3. kernels: each kernel against its plain PyTorch version on the card, at the
             test shapes and at the shape its path gives it; its time
             beside the plain version's, one library call's (where PyTorch
-            has one) and its bound.  K3 at 1 to the largest resident number
-            of parties and 10,000 back-to-back launches, K4 for every
-            target, K5 at sizes 1 to 2^20 and on an unaligned view, all
-            exact; beside K3's bound, its latency floor (hand-offs between
-            two SMs plus one launch, measured in the same run).
+            has one) and its bound.  K3 exact in its cluster form (n = 1 to
+            8, and 9 and 16 where the card allows a cluster of 16) and its
+            dissemination form (n = 64, 128 and the largest resident
+            group), words of shape () and (3, 5), at rows one word under
+            and one over the cluster form's cap, in 10,000 back-to-back
+            launches and in 1,000 that alternate the forms; on words that
+            are not integers every party's row bitwise the same in both
+            forms.  K4 for every target, K5 at sizes 1 to 2^20 and on an
+            unaligned view, all exact; beside K3's bound, the floor of the
+            form it takes at the sweep's shape (measured in the same run).
 4. serve:   each served model at its published width (random weights from a
             seed) through the launcher's functions: a batch of prompts is
             prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
@@ -93,10 +98,14 @@ SSD_SHAPES = [
 # y, where the reference rounds it).  The final state is f32 on both sides.
 SSD_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
 
-# K3's party counts: 1, powers and non-powers of two, the paper's 8, and
-# more than one CTA an SM; the largest resident count is added at run time
-SCU_PARTIES = [1, 2, 3, 5, 6, 8, 64, 128]
+# K3's party counts: in its cluster form 1, powers and non-powers of two and
+# the paper's 8 (9 and 16 are added where the card allows a cluster of 16);
+# in its dissemination form more than one CTA an SM, and the largest
+# resident count, added at run time
+SCU_CLUSTER_PARTIES = [1, 2, 3, 5, 6, 8]
+SCU_DISSEMINATION_PARTIES = [64, 128]
 SCU_BACK_TO_BACK = 10_000
+SCU_ALTERNATING = 1_000
 SCU_SIGNAL_SIZES = [8, 1, 7, 4099, 2**20]
 SWEEP_PARTIES = 8  # the paper's eight-core cluster
 
@@ -347,43 +356,78 @@ def check_scu_kernels() -> list:
 
     # K3 --------------------------------------------------------------------
     most = scu.max_parties(0)
-    for n in SCU_PARTIES + [most]:
-        for shape in ((n,), (n, 3, 5)):
-            arrive = words(*shape)
-            exact(f"scu_barrier n={n} {shape}", scu.scu_barrier(arrive), barrier_ref(arrive))
+    cluster_parties, row_cap = scu.cluster_limit(0)
+
+    def barrier_in(form, arrive):
+        """K3 on ``arrive``, which must take ``form``; exact against its plain version."""
+        n = arrive.shape[0]
+        got = scu.barrier_form(n, arrive[0].numel(), cluster_parties, row_cap)
+        if got != form:
+            raise SystemExit(f"scu_barrier took the {got} form for {tuple(arrive.shape)}, not the {form} form")
+        return exact(f"scu_barrier {form} form {tuple(arrive.shape)}", scu.scu_barrier(arrive), barrier_ref(arrive))
+
+    cluster_ns = SCU_CLUSTER_PARTIES + ([9, 16] if cluster_parties >= 16 else [])
+    for form, ns in (("cluster", cluster_ns), ("dissemination", SCU_DISSEMINATION_PARTIES + [most])):
+        for n in ns:
+            for shape in ((n,), (n, 3, 5)):
+                barrier_in(form, words(*shape))
+    for m, form in ((row_cap - 1, "cluster"), (row_cap + 1, "dissemination")):
+        barrier_in(form, words(SWEEP_PARTIES, m))
     try:
         scu.scu_barrier(words(most + 1))
     except ValueError:
         pass
     else:
         raise SystemExit(f"scu_barrier took {most + 1} parties, more than fit on the card at once")
-    print(f"[kernels] scu_barrier exact at n = {SCU_PARTIES + [most]} (the last the largest resident "
-          f"group: one-warp CTAs, cooperative launch), words of shape () and (3, 5)")
-    batch = words(SCU_BACK_TO_BACK, 8)
+    print(f"[kernels] scu_barrier exact in the cluster form at n = {cluster_ns} (cluster limit {cluster_parties}: "
+          f"{'the non-portable 16 taken' if cluster_parties >= 16 else 'the portable 8'}, rows of at most "
+          f"{row_cap} words) and the dissemination form at n = {SCU_DISSEMINATION_PARTIES + [most]} (the last the "
+          f"largest resident group), words of shape () and (3, 5); at n = {SWEEP_PARTIES} rows of {row_cap - 1} "
+          f"(cluster) and {row_cap + 1} words (dissemination)")
+    for shape in ((SWEEP_PARTIES, 37), (SWEEP_PARTIES, row_cap + 1), (64,), (64, 40)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        out = scu.scu_barrier(x)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out[:1].expand_as(out)):
+            raise SystemExit(f"scu_barrier gave the parties different rows at {shape}")
+        # the rounding bound of an n-term float32 sum, in any order
+        if not ((out - barrier_ref(x)).abs() <= shape[0] * 2.0**-23 * x.abs().sum(0, keepdim=True)).all():
+            raise SystemExit(f"scu_barrier strays from its plain version beyond rounding at {shape}")
+    print("[kernels] scu_barrier on normal random words: every party's row bitwise the same, in the cluster "
+          f"form at ({SWEEP_PARTIES}, 37) and the dissemination form at ({SWEEP_PARTIES}, {row_cap + 1}), (64,) "
+          "and (64, 40); within n 2^-23 sum|x| of the plain version")
+    batch = words(SCU_BACK_TO_BACK, SWEEP_PARTIES)
     outs = torch.empty_like(batch)
     t0 = time.perf_counter()
     for k in range(SCU_BACK_TO_BACK):
         outs[k] = scu.scu_barrier(batch[k])
     exact("scu_barrier back to back", outs, batch.sum(1, keepdim=True).expand_as(batch))
-    print(f"[kernels] scu_barrier {SCU_BACK_TO_BACK} back-to-back launches at n=8, every result exact "
-          f"({time.perf_counter() - t0:.2f} s on the host clock)")
+    print(f"[kernels] scu_barrier {SCU_BACK_TO_BACK} back-to-back launches at n={SWEEP_PARTIES} (cluster form), "
+          f"every result exact ({time.perf_counter() - t0:.2f} s on the host clock)")
+    small, big = words(SWEEP_PARTIES), words(64)
+    outs = [scu.scu_barrier(small if k % 2 == 0 else big) for k in range(SCU_ALTERNATING)]
+    for k, out in enumerate(outs):
+        exact("scu_barrier alternating forms", out, barrier_ref(small if k % 2 == 0 else big))
+    print(f"[kernels] scu_barrier {SCU_ALTERNATING} launches on one stream alternating the cluster form "
+          f"(n={SWEEP_PARTIES}) and the dissemination form (n=64), every result exact")
 
     n = SWEEP_PARTIES
     arrive = torch.ones(n, device=dev)  # the sweep's arrival words
+    k3_form = scu.barrier_form(n, 1, cluster_parties, row_cap)
     err3 = exact("scu_barrier at the sweep's shape", scu.scu_barrier(arrive), barrier_ref(arrive))
     k3_ms = time_ms(lambda: scu.scu_barrier(arrive), iters=2000, warmup=20)
     k3_plain = time_ms(lambda: barrier_ref(arrive), iters=2000, warmup=20)
     k3_library = time_ms(lambda: arrive.sum(0, keepdim=True).expand_as(arrive), iters=2000, warmup=20)
     # bytes: the n arrival words read once, the n counts written once; operations: n adds a party
     k3_bound, k3_by = bound(8 * n, n * n, "float32")
-    handoff = scu.handoff_ms()
-    launch = scu.launch_ms(n)
-    rounds = (n - 1).bit_length()
-    print(f"[kernels] scu_barrier at n={n} (one word a party): kernel {k3_ms * 1e3:.2f} us, plain "
-          f"{k3_plain * 1e3:.2f} us, library (sum + expand) {k3_library * 1e3:.2f} us, bound "
-          f"{k3_bound * 1e3:.2e} us by {k3_by}; latency floor {rounds} hand-offs x {handoff * 1e3:.3f} us "
-          f"+ one empty cooperative launch of {n} CTAs {launch * 1e3:.2f} us = "
-          f"{(rounds * handoff + launch) * 1e3:.2f} us")
+    floor = scu.cluster_floor_ms(n, 2)
+    print(f"[kernels] scu_barrier at n={n} (one word a party), {k3_form} form: kernel {k3_ms * 1e3:.2f} us a call, "
+          f"library (sum + expand) {k3_library * 1e3:.2f} us ({k3_ms / k3_library:.2f}x), plain "
+          f"{k3_plain * 1e3:.2f} us, bound {k3_bound * 1e3:.2e} us by {k3_by}; latency floor one launch of a "
+          f"cluster of {n} CTAs with two cluster.sync() {floor * 1e3:.2f} us")
+    wide = torch.ones(most, device=dev)
+    print(f"[kernels] scu_barrier at n={most} (dissemination form): kernel "
+          f"{time_ms(lambda: scu.scu_barrier(wide), iters=200, warmup=5) * 1e3:.2f} us a call")
 
     # K4 --------------------------------------------------------------------
     for m in (1, 130):
@@ -419,15 +463,16 @@ def check_scu_kernels() -> list:
     k5_ms = time_ms(lambda: scu.scu_self_signal(zeros), iters=2000, warmup=20)
     k5_plain = time_ms(lambda: self_signal_ref(zeros), iters=2000, warmup=20)
     k5_bound, k5_by = bound(8 * n, n, "float32")
-    print(f"[kernels] scu_self_signal at the sweep's shape ({n} floats): kernel {k5_ms * 1e3:.2f} us, plain and "
-          f"library (x + 1) {k5_plain * 1e3:.2f} us, bound {k5_bound * 1e3:.2e} us by {k5_by}")
+    print(f"[kernels] scu_self_signal at the sweep's shape ({n} floats): kernel {k5_ms * 1e3:.2f} us a call, plain "
+          f"and library (x + 1) {k5_plain * 1e3:.2f} us ({k5_ms / k5_plain:.2f}x), bound {k5_bound * 1e3:.2e} us "
+          f"by {k5_by}")
 
     source = "src/repro_torch/kernels/scu_barrier/csrc/scu_barrier.cu"
     replaces = "src/repro/kernels/scu_barrier/kernel.py"
     return [
         {"name": "scu_barrier", "route": "cuda", "source": source, "replaces": f"{replaces}:79",
          "launches": 0, "max_abs_err": err3, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_library},
+         "bound_by": k3_by, "library_ms": k3_library, "form": k3_form},
         {"name": "scu_notifier", "route": "cuda", "source": source, "replaces": f"{replaces}:112",
          "launches": 0, "max_abs_err": err4, "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},

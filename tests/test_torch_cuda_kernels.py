@@ -12,7 +12,14 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.scu_barrier import ops as scu_ops
-from repro_torch.kernels.scu_barrier.kernel import max_parties, scu_barrier, scu_notifier, scu_self_signal
+from repro_torch.kernels.scu_barrier.kernel import (
+    barrier_form,
+    cluster_limit,
+    max_parties,
+    scu_barrier,
+    scu_notifier,
+    scu_self_signal,
+)
 from repro_torch.kernels.scu_barrier.ref import barrier_ref, notifier_ref, self_signal_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
@@ -211,16 +218,55 @@ def _words(shape, device, seed=5):
     return torch.from_numpy(rng.integers(0, 50, size=shape).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 8, 64, 128])
+def _form(n, m, card):
+    return barrier_form(n, m, *cluster_limit(card.index or 0))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 64, 128])
 @pytest.mark.parametrize("s", [(), (3, 5)])
 def test_scu_barrier_kernel_exact(card, n, s):
+    """n <= 8: the cluster form on every Hopper card; 64 and 128: dissemination."""
     arrive = _words((n,) + s, card, seed=n)
+    assert _form(n, arrive[0].numel(), card) == ("cluster" if n <= 8 else "dissemination")
     before = scu_barrier.launches
     out = scu_ops.barrier(arrive)
     torch.cuda.synchronize()
     assert scu_barrier.launches == before + 1
     assert out.shape == arrive.shape
     assert torch.equal(out, barrier_ref(arrive))
+
+
+def test_scu_barrier_kernel_non_portable_cluster(card):
+    """9 to 16 parties take the cluster form where the card allows 16, else dissemination."""
+    parties, _ = cluster_limit(card.index or 0)
+    assert parties in (8, 16)
+    for n in range(9, 17):
+        arrive = _words((n, 3), card, seed=n)
+        assert _form(n, 3, card) == ("cluster" if parties == 16 else "dissemination")
+        assert torch.equal(scu_barrier(arrive), barrier_ref(arrive)), n
+
+
+@pytest.mark.parametrize("n", [1, 8])
+def test_scu_barrier_kernel_at_both_edges_of_the_row_cap(card, n):
+    _, cap = cluster_limit(card.index or 0)
+    for m, form in ((cap - 1, "cluster"), (cap, "cluster"), (cap + 1, "dissemination")):
+        arrive = _words((n, m), card, seed=m)
+        assert _form(n, m, card) == form
+        assert torch.equal(scu_barrier(arrive), barrier_ref(arrive)), (n, m)
+
+
+@pytest.mark.parametrize("shape", [(8, 37), (16, 5), (64,), (64, 40), (8, 12289)])
+def test_scu_barrier_kernel_rows_bitwise_identical(card, shape):
+    """On words that are not integers the order of the sum shows in the last
+    bits: every party still gets the same bits, in either form.  Against the
+    plain version: the rounding bound of an n-term float32 sum."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(shape, dtype=np.float32)).to(card)
+    out = scu_barrier(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out[:1].expand_as(out))
+    n = shape[0]
+    bound = n * 2.0**-23 * x.abs().sum(0, keepdim=True)
+    assert ((out - barrier_ref(x)).abs() <= bound).all()
 
 
 def test_scu_barrier_kernel_at_the_largest_resident_group(card):
@@ -241,6 +287,32 @@ def test_scu_barrier_kernel_back_to_back(card):
         refs.append(barrier_ref(arrive))
     torch.cuda.synchronize()
     assert torch.equal(torch.stack(outs), torch.stack(refs))
+
+
+def test_scu_barrier_kernel_forms_alternating_on_one_stream(card):
+    small, big = _words((8,), card, seed=1), _words((64,), card, seed=2)
+    assert (_form(8, 1, card), _form(64, 1, card)) == ("cluster", "dissemination")
+    outs = [scu_barrier(small if k % 2 == 0 else big) for k in range(1000)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, barrier_ref(small if k % 2 == 0 else big)) for k, o in enumerate(outs))
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_scu_kernels_launch_on_the_callers_stream(card, n):
+    """Inputs written on a side stream held back by a sleep: a kernel that
+    launched anywhere else would read them before they are written."""
+    src = _words((n,), card, seed=9)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        arrive = torch.zeros_like(src)
+        torch.cuda._sleep(50_000_000)
+        arrive.copy_(src)
+        out = scu_barrier(arrive)
+        signalled = scu_self_signal(arrive)
+    torch.cuda.synchronize()
+    assert torch.equal(out, barrier_ref(src))
+    assert torch.equal(signalled, src + 1)
 
 
 @pytest.mark.parametrize("m", [1, 130])
@@ -277,3 +349,7 @@ def test_scu_kernels_refuse_what_they_do_not_take(card):
         scu_notifier(torch.ones(4, device=card), 4)
     with pytest.raises(ValueError, match="float32"):
         scu_self_signal(torch.ones(4, dtype=torch.bfloat16, device=card))
+    with pytest.raises(ValueError, match="at least one word"):
+        scu_barrier(torch.ones(0, 3, device=card))
+    with pytest.raises(ValueError, match="non-empty"):
+        scu_self_signal(torch.ones(0, device=card))

@@ -64,16 +64,27 @@ def test_chip_barrier_equals_the_oracle(name, n):
     assert torch.equal(get_policy(name).chip_barrier(ones, "x"), torch.full((n,), float(n)))
 
 
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("s", [(), (3,), (2, 3)])
+def test_barrier_equals_the_jax_oracle(n, s):
+    """``ops.barrier`` (K3's entry) against the reference's ``psum`` oracle."""
+    words = _words((n,) + s, seed=7 * n + len(s))
+    want = _jax_on_axis(jax_ops.ref_barrier_count, words)
+    np.testing.assert_array_equal(ops.barrier(torch.from_numpy(words)).numpy(), want)
+
+
 @pytest.mark.parametrize("target", range(4))
-def test_notifier_equals_the_jax_notifier(target):
-    words = _words((4, 5), seed=target)
+@pytest.mark.parametrize("s", [(5,), (), (2, 3)])
+def test_notifier_equals_the_jax_notifier(target, s):
+    words = _words((4,) + s, seed=target)
     want = _jax_on_axis(lambda v, ax: jax_ops.notifier(v, ax, target), words)
     got = ops.notifier(torch.from_numpy(words), "x", target)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_self_signal_equals_the_pallas_kernel_in_interpret_mode():
-    x = np.arange(8, dtype=np.float32)
+@pytest.mark.parametrize("shape", [(8,), (1,), (7,), (130,), (3, 5)])
+def test_self_signal_equals_the_pallas_kernel_in_interpret_mode(shape):
+    x = np.arange(int(np.prod(shape)), dtype=np.float32).reshape(shape)
     want = np.asarray(scu_self_signal_kernel(jnp.asarray(x), interpret=True))
     got = ops.self_signal(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
