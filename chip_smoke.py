@@ -16,8 +16,11 @@ non-zero exit if it fails:
 3. kernels: each kernel against its plain PyTorch version on the card, at the
             test shapes and at the shape its path gives it; its time
             beside the plain version's, one library call's (where PyTorch
-            has one) and its bound.  K3 exact in its cluster form (n = 1 to
-            8, and 9 and 16 where the card allows a cluster of 16) and its
+            has one) and its bound.  K1 names the path each shape took
+            (``wgmma``, ``mma_sync`` or ``f32``) and is also timed at
+            musicgen's heads (24 of 64) beside SDPA and its bound.  K3
+            exact in its cluster form (n = 1 to 8, and 9 and 16 where the
+            card allows a cluster of 16) and its
             dissemination form (n = 64, 128 and the largest resident
             group), words of shape () and (3, 5), at rows one word under
             and one over the cluster form's cap, in 10,000 back-to-back
@@ -69,7 +72,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # (b, h, kvh, s, d, causal): the four shapes of tests/test_kernels.py, one
-# ragged length, the non-causal case, head dim 80 and the smoke configs' 16
+# ragged length, the non-causal case, llava's 7 q heads a kv head at a ragged
+# length, head dim 80 and the smoke configs' 16
 KERNEL_SHAPES = [
     (1, 4, 4, 128, 64, True),
     (2, 8, 2, 256, 64, True),
@@ -77,9 +81,13 @@ KERNEL_SHAPES = [
     (1, 2, 2, 512, 64, True),
     (2, 6, 2, 200, 128, True),
     (1, 2, 2, 128, 64, False),
+    (1, 7, 1, 333, 128, True),
     (1, 4, 4, 200, 80, True),
     (2, 4, 2, 130, 16, True),
 ]
+# musicgen-medium's attention (24 heads of 64, no GQA) at the serving request's
+# length: K1's other Hopper head dim, timed beside the serving shape
+MUSICGEN_HEADS = (24, 24, 64)
 # float32: the same f32 arithmetic in another order.  bfloat16: p and the
 # output are rounded to 8 bits of mantissa at different places on each side.
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -166,7 +174,7 @@ def check_attention_kernel(prompt_len: int, cfg) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, kernel_path
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
 
@@ -186,55 +194,60 @@ def check_attention_kernel(prompt_len: int, cfg) -> dict:
             lse_err = (lse - attention_ref_lse(q, k, causal=causal)).abs().max().item()
             tol = KERNEL_TOL[name]
             print(f"[kernels] flash_attention_fwd b={b} h={h} kvh={kvh} s={s} d={d} causal={causal} "
-                  f"{name}: max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}")
+                  f"{name}, {kernel_path(dtype, d)} path: max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}")
             if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
                 raise SystemExit(f"flash_attention_fwd disagrees with attention_ref: {err}")
             if not lse_err <= 1e-4 * max(1.0, lse.abs().max().item()):
                 raise SystemExit(f"flash_attention_fwd lse disagrees: {lse_err}")
 
-    # the shape the serving path gives it, in the models' (b, s, h, d) layout
-    b, h, kvh, d = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    s = prompt_len
-    q = draw(b, s, h, d, dtype=torch.bfloat16)
-    k = draw(b, s, kvh, d, dtype=torch.bfloat16)
-    v = draw(b, s, kvh, d, dtype=torch.bfloat16)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    out = flash_attention(q, k, v, causal=True)
-    _, lse = flash_attention_fwd(qt, kt, vt, causal=True)
-    torch.cuda.synchronize()
-    ref = attention_ref(qt, kt, vt, causal=True).transpose(1, 2)
-    err = (out.float() - ref.float()).abs().max().item()
-    lse_err = (lse - attention_ref_lse(qt, kt, causal=True)).abs().max().item()
-    tol = KERNEL_TOL["bfloat16"]
-    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) or not lse_err <= 2e-3:
-        raise SystemExit(f"flash_attention disagrees at the serving shape: {err}, lse {lse_err}")
-    del ref
+    def at_full_size(b, h, kvh, d, with_plain):
+        """The kernel through ``ops.flash_attention`` on the models' (b, s, h, d)
+        layout at the serving request's length: checked against the plain
+        version, then timed beside it, one SDPA call and the bound."""
+        s = prompt_len
+        q = draw(b, s, h, d, dtype=torch.bfloat16)
+        k = draw(b, s, kvh, d, dtype=torch.bfloat16)
+        v = draw(b, s, kvh, d, dtype=torch.bfloat16)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        out = flash_attention(q, k, v, causal=True)
+        _, lse = flash_attention_fwd(qt, kt, vt, causal=True)
+        torch.cuda.synchronize()
+        ref = attention_ref(qt, kt, vt, causal=True).transpose(1, 2)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - attention_ref_lse(qt, kt, causal=True)).abs().max().item()
+        tol = KERNEL_TOL["bfloat16"]
+        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) or not lse_err <= 2e-3:
+            raise SystemExit(f"flash_attention disagrees at b={b} s={s} h={h} kvh={kvh} d={d}: {err}, lse {lse_err}")
+        del ref
+        row = {"path": kernel_path(torch.bfloat16, d), "max_abs_err": err,
+               "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)}
+        row["plain_ms"] = (time_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=3, warmup=1)
+                           if with_plain else None)
+        # the yardstick: one library call for the same function; the port never calls it
+        row["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+        row["bound_ms"], row["bound_by"] = attention_bound(b, h, kvh, s, s, d, True, "bfloat16")
+        flops = 4 * d * b * h * (s * (s + 1) // 2)
+        plain = f"plain {row['plain_ms']:.3f} ms, " if with_plain else ""
+        print(f"[kernels] flash_attention_fwd b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal, {row['path']} path: "
+              f"max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}; kernel {row['ms']:.3f} ms "
+              f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, {row['bound_ms'] / row['ms'] * 100:.0f} % of the bound's "
+              f"rate), {plain}library (SDPA) {row['library_ms']:.3f} ms ({row['ms'] / row['library_ms']:.2f}x), "
+              f"bound {row['bound_ms']:.3f} ms by {row['bound_by']}")
+        return row
 
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
-    plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=3, warmup=1)
-    # the yardstick: one library call for the same function; the port never calls it
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-        iters=20,
-    )
-    bound_ms, bound_by = attention_bound(b, h, kvh, s, s, d, True, "bfloat16")
-    flops = 4 * d * b * h * (s * (s + 1) // 2)
-    print(f"[kernels] flash_attention_fwd at the serving shape b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal: "
-          f"max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}; kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), "
-          f"plain {plain_ms:.3f} ms, library (SDPA) {library_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}")
+    # the shape the serving path gives it, then musicgen's heads at the same length
+    serving = at_full_size(BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, with_plain=True)
+    d64 = at_full_size(BATCH, *MUSICGEN_HEADS, with_plain=False)
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:126",
         "launches": 0,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        **{key: serving[key] for key in ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+        "d64": {key: d64[key] for key in ("path", "ms", "library_ms", "bound_ms")},
     }
 
 

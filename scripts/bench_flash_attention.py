@@ -9,6 +9,11 @@ Needs an NVIDIA GPU and ``nvcc``.  Inputs are bf16, causal, in the models'
 ``--other`` a second CUDA source with the same C interface (an earlier
 version of the kernel, say) is built too, checked against the same plain
 version, and timed in turns with the checkout's: other, this, this, other.
+Each time is printed with its rate and its share of the bound's rate.  To
+hold the kernel against an earlier commit's source:
+
+    git show <commit>:src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu > /tmp/k1_old.cu
+    PYTHONPATH=src python3 scripts/bench_flash_attention.py --other /tmp/k1_old.cu
 """
 
 from __future__ import annotations
@@ -55,8 +60,10 @@ def main() -> None:
     qt, kt, vt = (x.transpose(1, 2) for x in (draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d)))
     ref = attention_ref(qt, kt, vt, causal=True).float()
     flops = 4 * d * b * h * (s * (s + 1) // 2)
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
     print(card_name_and_power_limit())
-    print(f"b={b} h={h} kvh={kvh} s={s} d={d} bf16 causal; bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms by operations")
+    print(f"b={b} h={h} kvh={kvh} s={s} d={d} bf16 causal, {flash_kernel.kernel_path(torch.bfloat16, d)} path; "
+          f"bound {bound_ms:.3f} ms by operations")
 
     this_build = flash_kernel.build
     builds = {"this": this_build}
@@ -78,11 +85,13 @@ def main() -> None:
             raise SystemExit("the kernel disagrees with its plain version")
 
     order = ["other", "this", "this", "other"] if args.other is not None else ["this", "this"]
+    def report(name, ms):
+        print(f"{name}: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s  {bound_ms / ms * 100:.1f} % of the bound's rate")
+
     for which in order:
-        ms = time_ms(lambda: run(which))
-        print(f"{which:5s}: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s")
-    sdpa = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
-    print(f"library (one SDPA call): {sdpa:.3f} ms  {flops / sdpa / 1e9:.1f} TFLOP/s")
+        report(f"{which:5s}", time_ms(lambda: run(which)))
+    report("library (one SDPA call)",
+           time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)))
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ warms up, then traces one prefill and ``--steps`` decode steps with
 ``torch.profiler`` and prints, for each phase: the wall time (host clock
 around a synchronised region), the device's busy time (the sum of kernel
 times) and idle share, and the kernels by total device time.  Kernel names
-are the device's own; ``flash_fwd_bf16`` is this repo's attention kernel and
+are the device's own; ``flash_fwd_hopper`` is this repo's attention kernel
+at head dims 64 and 128 (``flash_fwd_bf16`` at 16 and 80) and
 ``ssd_scan_bf16`` its SSD-scan kernel (``--arch mamba2-1.3b``).
 """
 

@@ -2,40 +2,70 @@
 //
 // Replaces the TPU kernel `flash_attention_fwd` / `_kernel` of
 // src/repro/kernels/flash_attention/kernel.py (the `pl.pallas_call` there).
-// Same function: softmax(q k^T / sqrt(d) [causal]) v by online softmax over
-// KV tiles with an f32 running max `m`, denominator `l` and accumulator,
-// GQA by index (kv head = h / (h / kvh)), final divide by max(l, 1e-30).
-// It also writes lse = m + log(max(l, 1e-30)), which the Pallas kernel does
-// not, because the backward pass of a later slice recomputes from it.
+// Same function: softmax(q k^T / sqrt(d) [causal, -1e30]) v by online
+// softmax over KV tiles with an f32 running max `m`, denominator `l` and
+// accumulator, GQA by index (kv head = h / (h / kvh)), final divide by
+// max(l, 1e-30).  It also writes lse = m + log(max(l, 1e-30)), which the
+// Pallas kernel does not, because the backward pass of a later slice
+// recomputes from it.
 //
 // What changed against the TPU form.  The Pallas grid runs its innermost KV
 // axis in order on one core and carries m / l / acc in VMEM scratch from one
-// grid step to the next.  Blocks of a CUDA grid run in no order, so here one
-// thread block owns one (batch, q head, q tile) for its whole life and the
-// KV axis is a loop inside it; m, l and the accumulator never leave
-// registers.  The ragged edge (any sq, sk) is masked in the kernel: rows
-// past the end are zero-filled on load and never stored, keys past the end
-// get -inf and a guard keeps exp(-inf - -inf) out of the sums.
+// grid step to the next.  Blocks of a CUDA grid run in no order, so here a
+// (batch, q head, q tile) belongs to one CTA from start to end and the KV
+// axis is a loop inside it; m, l and the accumulator never leave registers.
+// Rows past sq are zero-filled on load and never stored; keys past sk get
+// -inf, and a guard keeps exp(-inf - -inf) out of the sums.
 //
 // What bounds it on an H100.  At the serving shape (b=4, h=24, kvh=8,
 // s=4096, d=128, bf16, causal) the work is 2*b*h*s^2*d = 4.1e11 FLOP against
 // 0.27 GB of compulsory traffic: 1500 FLOP per byte, far above the card's
-// 295, so the bound is operations: 0.42 ms at 989 TFLOP/s.  The design
-// answers with tensor cores for both products (`mma.sync.m16n8k16` bf16 with
-// f32 accumulation; the C fragment of q k^T is re-packed in registers as the
-// A fragment of p v, so p never touches shared memory), `ldmatrix` fragment
-// loads from padded, conflict-free rows, two m-tiles a warp so that each K/V
-// fragment read from shared memory feeds two products (with one, shared
-// memory bandwidth was the limit), `cp.async` double buffering so the next
-// K/V tile streams in during the current tile's products, two blocks an SM
-// so one block's softmax overlaps the other's products, and heavy (late)
-// causal q tiles launched first.  `wgmma`, TMA and warp specialisation,
-// which the card's full rate needs, are left for later.
+// 295, so the bound is the tensor cores: 0.42 ms at 989 TFLOP/s.  Only
+// `wgmma` reaches that rate, and it must be fed from shared memory without
+// the math warps spending registers or issue slots on loads.  Three kernels:
 //
-// f32 inputs take a separate kernel that multiplies in full f32 on the CUDA
-// cores (no TF32), because the reference upcasts before its dot products and
-// is held to 2e-5.  It is a correctness path, not a fast one.
+// - bf16, d = 64 and 128 (`flash_fwd_hopper`): a CTA of three warpgroups,
+//   128 q rows.  Warpgroup 0 is the producer: one thread issues TMA loads of
+//   Q once and of K and V through a ring of stages (two at d = 128, four at
+//   d = 64), each stage with a full and an empty mbarrier for K and for V;
+//   the group drops to 24 registers (`setmaxnreg`), the consumers rise to
+//   240.  Warpgroups 1 and 2 are consumers of 64 q rows each.  S = Q K^T is
+//   a `wgmma` m64n128k16 with both operands in 128-byte-swizzled shared
+//   memory (K-major); the online softmax runs on the accumulator in
+//   registers in base 2 (`ex2.approx`, scale * log2(e) folded into one FMA);
+//   P is rounded to bf16 as the reference rounds it and repacked in
+//   registers from the accumulator layout into the A fragment of O += P V, a
+//   `wgmma` with A from registers and V read MN-major (transposed) from
+//   shared memory.  K is handed back to the producer as soon as S is waited
+//   on, V as soon as P V is.  The tensor maps are 4-D (d, s, head, batch)
+//   over the caller's strides, so the serving path's transposed (b, s, h, d)
+//   views are read with no copy; a 128-wide row takes two 64-element boxes
+//   (the 128-byte swizzle's span).
+//   The softmax (exp2 on the MUFU unit, FMAs, the row max) leaves the tensor
+//   cores idle unless products are queued, so each consumer issues S_j and
+//   P_{j-1} V_{j-1} together and runs the softmax of S_j while P V still
+//   runs (intra-warpgroup overlap).  That keeps S, P and O live at once, so
+//   the consumers need more than the 168 registers that 384 threads leave
+//   a thread: the kernel is built with `setmaxnreg`, which ptxas honours
+//   here.  (Two named barriers that made the consumers take turns at the
+//   tensor cores, ping-pong, gained nothing on top of the overlap at phi4's
+//   shape and were dropped.)  The kernel is persistent, one CTA an SM:
+//   while the consumers finish one q tile (its last P V and the store), the
+//   producer already loads the next tile's Q and first K/V stages.  Tiles
+//   are numbered heavy first (the last causal q tiles of every (b, h) before
+//   any lighter one) and dealt out in rounds, every other round in reverse,
+//   so every CTA gets about the same work.
+// - bf16, d = 16 and 80 (`flash_fwd_bf16`): the `mma.sync.m16n8k16` kernel
+//   with `ldmatrix` and `cp.async` double buffering (4 warps, 128 q rows).
+// - f32 (`flash_fwd_f32`): full-precision FMAs on the CUDA cores (no TF32),
+//   because the reference upcasts before its dot products and is held to
+//   2e-5.  It is a correctness path, not a fast one.
+//
+// `flash_attention_path(dtype, d)` says which kernel takes a call; the
+// wrapper's `kernel_path` is the same table.  No path falls back to
+// another: a tensor map that cannot be encoded is an error code.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -402,6 +432,510 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, head dims 64 and 128: the Hopper kernel.  A CTA is three warpgroups:
+// warpgroup 0 is the producer (one thread issues every TMA load; the group
+// gives its registers away), warpgroups 1 and 2 are consumers of 64 q rows
+// each.  Q is loaded once; K and V go through a ring of stages, each with a
+// full and an empty mbarrier for K and for V, so that K of a stage is handed
+// back as soon as Q K^T has read it and V as soon as P V has.
+// ---------------------------------------------------------------------------
+
+constexpr int kHBlockM = 128;  // q rows a CTA: two consumer warpgroups of 64
+constexpr int kHBlockN = 128;  // keys a KV tile
+constexpr int kHThreads = 384;
+constexpr int kRowBytes = 128;  // one 128-byte-swizzled box row: 64 bf16
+constexpr long long kWaitTrapCycles = 1LL << 34;  // ~8 s at 2 GHz: a lost barrier traps, not hangs
+
+template <int D>
+struct HopperCfg {
+    static constexpr int kStages = D == 64 ? 4 : 2;
+    static constexpr int kQBytes = kHBlockM * D * 2;
+    static constexpr int kKVBytes = kHBlockN * D * 2;  // one K or one V tile
+    static constexpr int kBarBytes = 8 * (2 + 4 * kStages);
+    // 1024 bytes of slack: the swizzled tiles must start on 1024-byte boundaries
+    static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    return done != 0;
+}
+
+// Waits for the phase of `bar` with parity `parity` to complete.  A wait
+// that outlasts kWaitTrapCycles is a lost barrier: it traps, and the launch
+// fails where the caller synchronises, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    if (mbar_try_wait(bar, parity)) return;
+    const long long start = clock64();
+    while (!mbar_try_wait(bar, parity)) {
+        if (clock64() - start > kWaitTrapCycles) __trap();
+    }
+}
+
+// One TMA box of a 4-D (d, s, head, batch) tensor map into shared memory;
+// completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1
+// (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+
+// The wgmma writes its accumulators and reads its register operands
+// asynchronously: these empty statements pin every use of them after the
+// wait (and before the next wgmma), where the compiler cannot move them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+    }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, shared, K-major) * B (128 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The online softmax of one consumer thread's two accumulator rows, row_a
+// and row_a + 8, in base 2.
+struct OnlineSoftmax {
+    float m_a, m_b;  // running max of the raw scores
+    float l_a, l_b;  // per-thread partial denominators; reduced at the end
+    float scale_log2;
+
+    __device__ explicit OnlineSoftmax(float scale_log2_)
+        : m_a(-INFINITY), m_b(-INFINITY), l_a(0.f), l_b(0.f), scale_log2(scale_log2_) {}
+
+    // Masks a tile of raw scores (keys from k0; `masked` says whether any
+    // key of it needs a mask), moves the running max, turns the scores into
+    // p = exp2(s * scale * log2(e) - m) in place and adds them to l.  Returns
+    // the factors that rescale the accumulator's rows.
+    template <int BN>
+    __device__ __forceinline__ void tile(float (&s)[BN / 2], int k0, int sk, bool causal,
+                                         int row_a, int tq, bool masked, float& alpha_a,
+                                         float& alpha_b) {
+        if (masked) {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) {
+                const int col = k0 + (i / 4) * 8 + tq * 2 + (i & 1);
+                const int row = row_a + ((i & 2) ? 8 : 0);
+                if (col >= sk) {
+                    s[i] = -INFINITY;  // never enters the max or the sum
+                } else if (causal && col > row) {
+                    s[i] = kNegCausal;
+                }
+            }
+        }
+        float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 4) {
+            mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
+            mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
+        }
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        // a row that has seen no key yet keeps m = -inf; subtract 0 instead so
+        // that exp2(-inf - -inf) never appears
+        const float ms_a = (mx_a == -INFINITY) ? 0.f : mx_a * scale_log2;
+        const float ms_b = (mx_b == -INFINITY) ? 0.f : mx_b * scale_log2;
+        alpha_a = ex2(m_a * scale_log2 - ms_a);
+        alpha_b = ex2(m_b * scale_log2 - ms_b);
+        m_a = mx_a;
+        m_b = mx_b;
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 4) {
+            s[i] = ex2(fmaf(s[i], scale_log2, -ms_a));
+            s[i + 1] = ex2(fmaf(s[i + 1], scale_log2, -ms_a));
+            s[i + 2] = ex2(fmaf(s[i + 2], scale_log2, -ms_b));
+            s[i + 3] = ex2(fmaf(s[i + 3], scale_log2, -ms_b));
+            sum_a += s[i] + s[i + 1];
+            sum_b += s[i + 2] + s[i + 3];
+        }
+        l_a = l_a * alpha_a + sum_a;
+        l_b = l_b * alpha_b + sum_b;
+    }
+};
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float alpha_a, float alpha_b) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+        acc[i] *= alpha_a;
+        acc[i + 1] *= alpha_a;
+        acc[i + 2] *= alpha_b;
+        acc[i + 3] *= alpha_b;
+    }
+}
+
+// p rounded to bf16 as the reference does: the accumulator fragments of two
+// neighbouring 8-key chunks are the A fragment of one k-step of P V
+template <int KS>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[KS][4], const float (&s)[KS * 8]) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+        pf[ks][0] = pack_bf16(s[8 * ks], s[8 * ks + 1]);
+        pf[ks][1] = pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
+        pf[ks][2] = pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
+        pf[ks][3] = pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHThreads, 1)
+    flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const Params p) {
+    using Cfg = HopperCfg<D>;
+    constexpr int STAGES = Cfg::kStages;
+    constexpr int BM = kHBlockM;
+    constexpr int BN = kHBlockN;
+    constexpr int BOXES = D / 64;  // 128-byte boxes a row
+
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t sK = sQ + Cfg::kQBytes;            // stage s at sK + s * kKVBytes
+    const uint32_t sV = sK + STAGES * Cfg::kKVBytes;  // stage s at sV + s * kKVBytes
+    const uint32_t bars = sV + STAGES * Cfg::kKVBytes;
+    const uint32_t full_q = bars;
+    const uint32_t empty_q = bars + 8;
+    auto full_k = [&](int s) { return bars + 8u * (2 + s); };
+    auto full_v = [&](int s) { return bars + 8u * (2 + STAGES + s); };
+    auto empty_k = [&](int s) { return bars + 8u * (2 + 2 * STAGES + s); };
+    auto empty_v = [&](int s) { return bars + 8u * (2 + 3 * STAGES + s); };
+
+    // Persistent: the work items go out in rounds of gridDim.x, one to a CTA,
+    // every other round in reverse (a CTA's k-th item is number_of(k)), so
+    // that the items of every CTA add up to about the same work.  Items are
+    // numbered heavy first: the q tiles from the last (the most keys under a
+    // causal mask) to the first, every (batch, head) at one q tile before any
+    // at the next, so the light items come last and even out the CTAs.
+    const int n_qtiles = (p.sq + BM - 1) / BM;
+    const int n_items = n_qtiles * p.b * p.h;
+    auto number_of = [&](int k) {
+        return static_cast<int>(k * gridDim.x + ((k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x));
+    };
+    struct Item {
+        int q0, head, batch, kvhead, n_tiles;
+    };
+    auto item = [&](int w) {
+        Item it;
+        const int bh = w % (p.b * p.h);
+        it.q0 = (n_qtiles - 1 - w / (p.b * p.h)) * BM;
+        it.batch = bh / p.h;
+        it.head = bh - it.batch * p.h;
+        it.kvhead = it.head / (p.h / p.kvh);
+        it.n_tiles = (p.sk + BN - 1) / BN;  // KV tiles; under the causal mask none above the diagonal
+        if (p.causal) it.n_tiles = min(it.n_tiles, (it.q0 + BM - 1) / BN + 1);
+        return it;
+    };
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_q, 1);
+        mbar_init(empty_q, 8);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_k(s), 1);
+            mbar_init(full_v(s), 1);
+            mbar_init(empty_k(s), 8);  // one arrival from each consumer warp
+            mbar_init(empty_v(s), 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // one role a warpgroup, warp-uniform as setmaxnreg needs it; the two
+    // branches never meet again
+    const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    if (role == 0) {
+        // ---- producer ---------------------------------------------------------
+        setmaxnreg_dec<24>();
+        if (threadIdx.x == 0) {
+            tma_prefetch(&tm_q);
+            tma_prefetch(&tm_k);
+            tma_prefetch(&tm_v);
+            int kv = 0;  // KV tiles loaded so far: its stage and phase
+            for (int n = 0; number_of(n) < n_items; ++n) {
+                const Item it = item(number_of(n));
+                mbar_wait(empty_q, (n & 1) ^ 1);  // the item before is done with Q
+                mbar_expect_tx(full_q, Cfg::kQBytes);
+#pragma unroll
+                for (int x = 0; x < BOXES; ++x) {
+                    tma_load_4d(sQ + x * BM * kRowBytes, &tm_q, full_q, x * 64, it.q0, it.head, it.batch);
+                }
+                for (int j = 0; j < it.n_tiles; ++j, ++kv) {
+                    const int s = kv % STAGES;
+                    const uint32_t phase = (kv / STAGES) & 1;
+                    mbar_wait(empty_k(s), phase ^ 1);
+                    mbar_expect_tx(full_k(s), Cfg::kKVBytes);
+#pragma unroll
+                    for (int x = 0; x < BOXES; ++x) {
+                        tma_load_4d(sK + s * Cfg::kKVBytes + x * BN * kRowBytes, &tm_k, full_k(s),
+                                    x * 64, j * BN, it.kvhead, it.batch);
+                    }
+                    mbar_wait(empty_v(s), phase ^ 1);
+                    mbar_expect_tx(full_v(s), Cfg::kKVBytes);
+#pragma unroll
+                    for (int x = 0; x < BOXES; ++x) {
+                        tma_load_4d(sV + s * Cfg::kKVBytes + x * BN * kRowBytes, &tm_v, full_v(s),
+                                    x * 64, j * BN, it.kvhead, it.batch);
+                    }
+                }
+            }
+        }
+    } else {
+        // ---- consumers ------------------------------------------------------------
+        setmaxnreg_inc<240>();
+        const int wg = role - 1;  // 0 or 1: q rows [q0 + 64 wg, q0 + 64 wg + 64) of an item
+        const int t = threadIdx.x & 127;
+        const int lane = t & 31;
+        const int tq = lane & 3;  // accumulator column pair within each 8
+        const int row0 = wg * 64 + (t >> 5) * 16 + (lane >> 2);  // and row0 + 8, from q0
+        const uint32_t q_base = sQ + wg * 64 * kRowBytes;
+
+        // S = Q K^T of stage s: Q and K both K-major in shared memory
+        auto issue_qk = [&](float (&acc)[BN / 2], int s) {
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t qoff = (kk / 4) * BM * kRowBytes + (kk % 4) * 32;
+                const uint32_t koff = (kk / 4) * BN * kRowBytes + (kk % 4) * 32;
+                wgmma_ss(acc, sw128_desc(q_base + qoff, 16, 1024),
+                         sw128_desc(sK + s * Cfg::kKVBytes + koff, 16, 1024), kk > 0);
+            }
+            wgmma_commit();
+        };
+        // O += P V of stage s: P from registers, V MN-major in shared memory
+        auto issue_pv = [&](float (&acc)[D / 2], const uint32_t (&pf)[BN / 16][4], int s) {
+#pragma unroll
+            for (int ks = 0; ks < BN / 16; ++ks) {
+                wgmma_rs(acc, pf[ks], sw128_desc(sV + s * Cfg::kKVBytes + ks * 16 * kRowBytes,
+                                                 BN * kRowBytes, 1024));
+            }
+            wgmma_commit();
+        };
+
+        int kv = 0;  // KV tiles consumed so far: its stage and phase
+        for (int n = 0; number_of(n) < n_items; ++n) {
+            const Item it = item(number_of(n));
+            const int wrow0 = it.q0 + wg * 64;
+            const int row_a = it.q0 + row0;
+            // keys past sk, or (causal) past this warpgroup's first row: mask
+            auto masked = [&](int k0) { return k0 + BN > p.sk || (p.causal && k0 + BN - 1 > wrow0); };
+
+            float oacc[D / 2];
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+            OnlineSoftmax sm(p.scale * kLog2e);
+            float sacc[BN / 2];
+            uint32_t pf[BN / 16][4];  // P of the tile before, in bf16
+
+            // S_j = Q K_j^T and O += P_{j-1} V_{j-1} are in flight together:
+            // the softmax of S_j runs while the tensor cores do the P V product
+            // of the tile before (intra-warpgroup overlap), and the other
+            // consumer's products fill in where this one waits.
+            mbar_wait(full_q, n & 1);
+            {
+                const int s = kv % STAGES;
+                mbar_wait(full_k(s), (kv / STAGES) & 1);
+                wgmma_fence();
+                issue_qk(sacc, s);
+                wgmma_wait<0>();
+                fence_regs(sacc);
+                if (lane == 0) {
+                    mbar_arrive(empty_k(s));
+                    if (it.n_tiles == 1) mbar_arrive(empty_q);  // Q is free for the next item
+                }
+                float alpha_a, alpha_b;  // the accumulator is still zero
+                sm.tile<BN>(sacc, 0, p.sk, p.causal, row_a, tq, masked(0), alpha_a, alpha_b);
+                pack_p(pf, sacc);
+            }
+            for (int j = 1; j < it.n_tiles; ++j) {
+                const int s = (kv + j) % STAGES;
+                const int sp = (kv + j - 1) % STAGES;
+                mbar_wait(full_k(s), ((kv + j) / STAGES) & 1);
+                mbar_wait(full_v(sp), ((kv + j - 1) / STAGES) & 1);
+                wgmma_fence();
+                issue_qk(sacc, s);
+                issue_pv(oacc, pf, sp);
+                wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
+                fence_regs(sacc);
+                if (lane == 0) {
+                    mbar_arrive(empty_k(s));
+                    if (j == it.n_tiles - 1) mbar_arrive(empty_q);
+                }
+                float alpha_a, alpha_b;
+                sm.tile<BN>(sacc, j * BN, p.sk, p.causal, row_a, tq, masked(j * BN), alpha_a, alpha_b);
+                wgmma_wait<0>();
+                fence_regs(oacc);
+                fence_regs(pf);
+                if (lane == 0) mbar_arrive(empty_v(sp));
+                rescale(oacc, alpha_a, alpha_b);
+                pack_p(pf, sacc);
+            }
+            const int sl = (kv + it.n_tiles - 1) % STAGES;
+            mbar_wait(full_v(sl), ((kv + it.n_tiles - 1) / STAGES) & 1);
+            wgmma_fence();
+            issue_pv(oacc, pf, sl);
+            wgmma_wait<0>();
+            fence_regs(oacc);
+            fence_regs(pf);
+            if (lane == 0) mbar_arrive(empty_v(sl));
+            kv += it.n_tiles;
+
+            // ---- epilogue: o / max(l, 1e-30) in bf16, lse ----------------------
+            float l_a = sm.l_a, l_b = sm.l_b;
+            const int row_b = row_a + 8;
+            l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+            l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+            l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+            l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+            const float den_a = fmaxf(l_a, 1e-30f);
+            const float den_b = fmaxf(l_b, 1e-30f);
+            const float inv_a = 1.f / den_a;
+            const float inv_b = 1.f / den_b;
+            __nv_bfloat16* gO =
+                static_cast<__nv_bfloat16*>(p.o) + it.batch * p.o_sb + it.head * p.o_sh;
+            float* lse = p.lse + ((long long)it.batch * p.h + it.head) * p.sq;
+            if (row_a < p.sq) {
+                __nv_bfloat16* orow = gO + (long long)row_a * p.o_ss + tq * 2;
+#pragma unroll
+                for (int c = 0; c < D / 8; ++c) {
+                    *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
+                        __floats2bfloat162_rn(oacc[4 * c] * inv_a, oacc[4 * c + 1] * inv_a);
+                }
+                if (tq == 0) lse[row_a] = sm.m_a * p.scale + logf(den_a);
+            }
+            if (row_b < p.sq) {
+                __nv_bfloat16* orow = gO + (long long)row_b * p.o_ss + tq * 2;
+#pragma unroll
+                for (int c = 0; c < D / 8; ++c) {
+                    *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
+                        __floats2bfloat162_rn(oacc[4 * c + 2] * inv_b, oacc[4 * c + 3] * inv_b);
+                }
+                if (tq == 0) lse[row_b] = sm.m_b * p.scale + logf(den_b);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // f32: full-precision FMAs on the CUDA cores.  256 threads as 16 x 16; thread
 // (ty, tx) owns q rows ty + 16 i, keys tx + 16 j and output columns tx + 16 c.
 // ---------------------------------------------------------------------------
@@ -573,6 +1107,23 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
 // launch
 // ---------------------------------------------------------------------------
 
+// Return codes of the C entry besides cudaError_t: the path does not take
+// this (dtype, d); libcuda has no cuTensorMapEncodeTiled; a tensor map
+// could not be encoded for these pointers and strides.
+constexpr int kErrNotBuilt = -1;
+constexpr int kErrNoEncoder = -2;
+constexpr int kErrTensorMap = -3;
+
+// Path ids, as kernel.py names them: 0 "f32", 1 "mma_sync", 2 "wgmma".
+int path_of(int dtype, int d) {
+    if (dtype == 0) return (d == 16 || d == 64 || d == 80 || d == 128) ? 0 : kErrNotBuilt;
+    if (dtype == 1) {
+        if (d == 64 || d == 128) return 2;
+        if (d == 16 || d == 80) return 1;
+    }
+    return kErrNotBuilt;
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int smem, int threads, int block_m, const Params& p,
                    cudaStream_t stream) {
@@ -596,13 +1147,84 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
     return launch(flash_fwd_f32<D>, f32_smem_bytes<D>(), 256, kF32Block, p, stream);
 }
 
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so that the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+    static EncodeTiled fn = [] {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
+                cudaSuccess ||
+            found != cudaDriverEntryPointSuccess) {
+            return static_cast<EncodeTiled>(nullptr);
+        }
+        return reinterpret_cast<EncodeTiled>(ptr);
+    }();
+    return fn;
+}
+
+// A 4-D (d, s, head, batch) bf16 map over strided memory, boxes of 64 x `rows`
+// with 128-byte swizzle; rows past `s` read as zeros.  The stride of an axis
+// of extent 1 is never followed, so it is replaced by a valid one.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int s, int heads,
+                int batch, long long ss, long long sh, long long sb, int rows) {
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)batch};
+    cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+    cuuint64_t packed = (cuuint64_t)d * 2;
+    for (int i = 0; i < 3; ++i) {
+        if (dims[i + 1] == 1) strides[i] = packed;
+        packed = strides[i] * dims[i + 1];
+    }
+    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_hopper(Params p, cudaStream_t stream) {
+    const EncodeTiled encode = encoder();
+    if (encode == nullptr) return kErrNoEncoder;
+    CUtensorMap tm_q, tm_k, tm_v;
+    if (!encode_map(encode, &tm_q, p.q, D, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, kHBlockM) ||
+        !encode_map(encode, &tm_k, p.k, D, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, kHBlockN) ||
+        !encode_map(encode, &tm_v, p.v, D, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, kHBlockN)) {
+        return kErrTensorMap;
+    }
+    constexpr int smem = HopperCfg<D>::kSmem;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_hopper<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int device = 0, sms = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n_items = (p.sq + kHBlockM - 1) / kHBlockM * p.b * p.h;
+    flash_fwd_hopper<D><<<min(n_items, sms), kHThreads, smem, stream>>>(tm_q, tm_k, tm_v, p);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns a cudaError_t as int (0 on success), or -1 for a head dim or type
-// that this file does not build.  `dtype`: 0 = float32, 1 = bfloat16.
-// Strides are in elements; the head dim must be contiguous, and for bf16
-// every row must start on a 16-byte boundary.  Nothing is allocated and
-// nothing synchronises: the launch goes onto `stream`.
+// Which kernel takes (dtype, d): 0 the f32 kernel, 1 the mma.sync kernel, 2
+// the wgmma kernel, -1 none.  kernel.py's `kernel_path` is the same table;
+// a card test holds the two together.
+extern "C" int flash_attention_path(int dtype, int d) { return path_of(dtype, d); }
+
+// Returns a cudaError_t as int (0 on success), -1 for a head dim or type
+// that this file does not build, -2 when libcuda has no tensor-map
+// encoder, -3 when a tensor map cannot be encoded for these pointers and
+// strides.  `dtype`: 0 = float32, 1 = bfloat16.  Strides are in elements;
+// the head dim must be contiguous, and for bf16 every row must start on a
+// 16-byte boundary.  Nothing is allocated and nothing synchronises: the
+// launch goes onto `stream`.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int dtype, int b, int h, int kvh, int sq,
                                    int sk, int d, const long long* strides, float scale,
@@ -633,25 +1255,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     p.scale = scale;
     p.causal = causal;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (dtype == 1) {
-        switch (d) {
-            case 16: err = launch_bf16<16>(p, s); break;
-            case 64: err = launch_bf16<64>(p, s); break;
-            case 80: err = launch_bf16<80>(p, s); break;
-            case 128: err = launch_bf16<128>(p, s); break;
-            default: return -1;
-        }
-    } else if (dtype == 0) {
-        switch (d) {
-            case 16: err = launch_f32<16>(p, s); break;
-            case 64: err = launch_f32<64>(p, s); break;
-            case 80: err = launch_f32<80>(p, s); break;
-            case 128: err = launch_f32<128>(p, s); break;
-            default: return -1;
-        }
-    } else {
-        return -1;
+    switch (path_of(dtype, d)) {
+        case 2:
+            return d == 64 ? launch_hopper<64>(p, s) : launch_hopper<128>(p, s);
+        case 1:
+            return static_cast<int>(d == 16 ? launch_bf16<16>(p, s) : launch_bf16<80>(p, s));
+        case 0:
+            switch (d) {
+                case 16: return static_cast<int>(launch_f32<16>(p, s));
+                case 64: return static_cast<int>(launch_f32<64>(p, s));
+                case 80: return static_cast<int>(launch_f32<80>(p, s));
+                default: return static_cast<int>(launch_f32<128>(p, s));
+            }
+        default:
+            return kErrNotBuilt;
     }
-    return static_cast<int>(err);
 }

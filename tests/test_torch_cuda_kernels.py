@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, PATHS, flash_attention_fwd, kernel_path
 from repro_torch.kernels.scu_barrier import ops as scu_ops
 from repro_torch.kernels.scu_barrier.kernel import (
     barrier_form,
@@ -88,6 +89,81 @@ def test_flash_ops_wrapper_layout_and_count(card):
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
     assert out.shape == q.shape and out.is_contiguous()
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+# The Hopper (wgmma + TMA) path at the head dims it takes: GQA groups 1, 3
+# (phi4) and 7 (llava, 56/8), lengths that are no multiple of its 128-row
+# tiles, and a grid of more than 132 CTAs (one an SM); bf16 2e-2, lse 1e-4.
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "b,h,kvh,s",
+    [
+        (1, 4, 4, 256),  # group 1
+        (2, 6, 2, 333),  # group 3, ragged
+        (1, 7, 1, 333),  # group 7, ragged
+        (3, 14, 2, 640),  # group 7, 3 x 14 x 5 = 210 CTAs
+    ],
+)
+@pytest.mark.parametrize("d", [128, 64])
+def test_flash_hopper_path_matches_plain(card, b, h, kvh, s, d, causal):
+    assert kernel_path(torch.bfloat16, d) == "wgmma"
+    q, k, v = _inputs(b, h, kvh, s, s, d, torch.bfloat16, card)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    ref_lse = attention_ref_lse(q, k, causal=causal)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sq,sk", [(70, 333), (300, 40)])
+def test_flash_hopper_path_cross_attention(card, sq, sk):
+    q, k, v = _inputs(1, 4, 2, sq, sk, 128, torch.bfloat16, card)
+    out, lse = flash_attention_fwd(q, k, v, causal=False)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=False)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    ref_lse = attention_ref_lse(q, k, causal=False)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [128, 64])
+def test_flash_hopper_path_strided_views_through_ops(card, d):
+    """The serving path's (b, s, h, d) tensors, read by the tensor maps as
+    strided views (no copy), launch the kernel once."""
+    rng = np.random.default_rng(1)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card, torch.bfloat16)
+    qkv = mk(2, 333, 6 + 2 + 2, d)  # one fused projection, sliced as the layers slice it
+    q, k, v = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+    before = flash_attention_fwd.launches
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    ref = attention_ref(q.transpose(1, 2).float(), k.transpose(1, 2).float(), v.transpose(1, 2).float())
+    assert out.shape == q.shape and out.is_contiguous()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.transpose(1, 2).cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_hopper_path_odd_strides(card):
+    """A broadcast kv head (stride 0) and a batch axis of extent 1 with a
+    stride no TMA map takes are still read right."""
+    q, k, v = _inputs(1, 4, 1, 200, 200, 128, torch.bfloat16, card)
+    k2, v2 = k.expand(1, 2, 200, 128), v.expand(1, 2, 200, 128)
+    q1 = q.as_strided(q.shape, (1, *q.stride()[1:]))
+    out, lse = flash_attention_fwd(q1, k2, v2, causal=True)
+    ref = attention_ref(q.float(), k2.float(), v2.float(), causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    ref_lse = attention_ref_lse(q, k2, causal=True)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_flash_path_table_is_the_sources(card):
+    """``kernel_path`` and the CUDA source's ``flash_attention_path`` agree on
+    every built (dtype, head dim), and both refuse an unbuilt one."""
+    fn = flash_kernel.build()
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for d in HEAD_DIMS:
+            assert PATHS[fn.path(code, d)] == kernel_path(dtype, d)
+        assert fn.path(code, 48) == -1
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):
