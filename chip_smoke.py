@@ -16,9 +16,14 @@ non-zero exit if it fails:
 3. kernels: each kernel against its plain PyTorch version on the card, at the
             test shapes and at the shape its path gives it; its time
             beside the plain version's, one library call's (where PyTorch
-            has one) and its bound.  K1 names the path each shape took
-            (``wgmma``, ``mma_sync`` or ``f32``) and is also timed at
-            musicgen's heads (24 of 64) beside SDPA and its bound.  K3
+            has one) and its bound.  K2 names the form each shape took
+            (``sequential``, or ``clusterK``: K CTAs a (batch, head)); the
+            test shapes take clusters of 2, 4 and 8, the serving shapes the
+            sequential form (the batch) and clusters of 2 (one prompt); it
+            is timed at jamba's SSD dims too.  K1 names the
+            path each shape took (``wgmma``, ``mma_sync`` or ``f32``) and is
+            also timed at musicgen's heads (24 of 64) beside SDPA and its
+            bound.  K3
             exact in its cluster form (n = 1 to 8, and 9 and 16 where the
             card allows a cluster of 16) and its
             dissemination form (n = 64, 128 and the largest resident
@@ -39,7 +44,10 @@ non-zero exit if it fails:
             per layer (every count set to 0 just before, read just after),
             that the kernel path strays from a float32 model no further than
             the plain bf16 path does, and that prefill + staged cache + one
-            decode step equals a prefill of one more token.
+            decode step equals a prefill of one more token.  mamba2 then
+            answers one prompt alone (K2 in clusters of 2, counted the same
+            way), and that prefill is timed in turns with K2's sequential
+            form, the form of a card without cluster launch.
 5. sync:    the chip-level barrier sweep (``repro_torch.launch.barriers``,
             the paper's Fig. 5 at chip granularity) with 8 parties under all
             seven registered policies: microseconds per barrier and the
@@ -93,14 +101,19 @@ MUSICGEN_HEADS = (24, 24, 64)
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 # (b, s, h, p, n, chunk): the three shapes of tests/test_kernels.py, one
-# ragged chunk and the smoke configs' dims in chunks of 11
+# ragged chunk, the smoke configs' dims in chunks of 11, and 16 tiles of two
+# heads; in bf16 they take clusters of 2, 2, 4, 4, 2 and 8 CTAs (`scan_form`)
 SSD_SHAPES = [
     (1, 128, 2, 32, 16, 32),
     (2, 128, 4, 64, 32, 64),
     (1, 256, 2, 64, 128, 128),
     (1, 255, 2, 64, 128, 255),
     (2, 132, 2, 16, 16, 11),
+    (1, 1024, 2, 64, 128, 256),
 ]
+# jamba-v0.1-52b's SSD layer (heads, head dim, state dim, chunk): d_model
+# 4096, expand 2, 64-wide heads, d_state 16, chunk 128
+JAMBA_SSD = (128, 64, 16, 128)
 # the figures of tests/test_kernels.py; the bf16 kernel must also hold half
 # of its tolerance (it splits f32 operands into bf16 hi + lo and rounds only
 # y, where the reference rounds it).  The final state is f32 on both sides.
@@ -116,6 +129,8 @@ SCU_BACK_TO_BACK = 10_000
 SCU_ALTERNATING = 1_000
 SCU_SIGNAL_SIZES = [8, 1, 7, 4099, 2**20]
 SWEEP_PARTIES = 8  # the paper's eight-core cluster
+# the one-prompt mamba2 prefill in K2's two forms: pairs timed in turns
+ONE_SEQUENCE_PAIRS = 10
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -256,6 +271,7 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -289,7 +305,9 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
             floor = (ry.to(dtype).float() - ry).abs().max().item()  # rounding y to the output type alone
             st_err = (st - rst).abs().max().item()
             tol = SSD_TOL[name]
-            print(f"[kernels] ssd_scan_fwd b={b} s={s} h={h} p={p} n={n} chunk={chunk} {name}: "
+            form = "f32" if name == "float32" else ssd_kernel.scan_form(
+                b, h, s, chunk, p, n, ssd_kernel.cluster_limit(p, n, 0)).name
+            print(f"[kernels] ssd_scan_fwd b={b} s={s} h={h} p={p} n={n} chunk={chunk} {name}, {form} form: "
                   f"y max_abs_err {err:.3e} (tol {tol:g}; max |y| {ry.abs().max().item():.3f}, rounding y to "
                   f"{name} alone {floor:.3e}), err/(1+|y|) {rel:.3e}, final_state max_abs_err {st_err:.3e} (tol 3e-4)")
             if not torch.allclose(y.float(), ry, rtol=tol, atol=tol):
@@ -303,32 +321,67 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
     print(f"[kernels] ssd_scan_fwd largest bf16 error at the test shapes: {worst_bf16:.3e} of 3e-2 "
           "(|kernel - plain| / (1 + |plain|), the tolerance's own measure)")
 
-    # the shape the serving path gives it: x, B, C bf16 from the conv, dt f32 from the softplus
+    # the shapes the serving path gives it: x, B, C bf16 from the conv, dt f32
+    # from the softplus; the batch of prompts (b h = 256 pairs: the sequential
+    # form) and one prompt alone (64 pairs: a chunk-parallel form).  Bound and
+    # TFLOP/s count the products at the kernel's own tile, the chunk it walks.
     s_cfg = cfg.ssm
     h = s_cfg.expand * cfg.d_model // s_cfg.head_dim
-    b, s, p, n, chunk = BATCH, prompt_len, s_cfg.head_dim, s_cfg.d_state, min(s_cfg.chunk, prompt_len)
-    x, dt, A, B, C = inputs(b, s, h, p, n, torch.bfloat16, torch.float32)
-    y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
-    torch.cuda.synchronize()
-    ry, rst = ref32(x, dt, A, B, C, chunk)
-    scale = ry.abs().max().item()
-    err = (y.float() - ry).abs().max().item()
-    floor = (ry.to(torch.bfloat16).float() - ry).abs().max().item()
-    st_err = (st - rst).abs().max().item()
-    print(f"[kernels] ssd_scan_fwd at the serving shape b={b} s={s} h={h} p={p} n={n} g=1 chunk={chunk} "
-          f"(x, B, C bf16, dt f32): y max_abs_err {err:.3e} (max |y| {scale:.3f}; rounding y to bf16 alone "
-          f"{floor:.3e}), final_state max_abs_err {st_err:.3e} (max |state| {rst.abs().max().item():.3f})")
-    if not (err <= 3e-2 * max(1.0, scale) and st_err <= 3e-4 * max(1.0, rst.abs().max().item())):
-        raise SystemExit("ssd_scan_fwd disagrees with ssd_scan_ref at the serving shape")
-    del ry, rst
+    s, p, n, chunk = prompt_len, s_cfg.head_dim, s_cfg.d_state, min(s_cfg.chunk, prompt_len)
+    limit = ssd_kernel.cluster_limit(p, n, 0)
 
-    ms = time_ms(lambda: ssd_scan_fwd(x, dt, A, B, C, chunk=chunk), iters=20)
-    plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, chunk=chunk), iters=3, warmup=1)
-    bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, "bfloat16")
-    flops = ssd_flops(b, s, h, p, n, chunk)
-    print(f"[kernels] ssd_scan_fwd at the serving shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
-          f"of {flops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, library none (no PyTorch call computes "
-          f"the SSD scan), bound {bound_ms:.4f} ms by {bound_by}")
+    def at_serving_shape(b):
+        form = ssd_kernel.scan_form(b, h, s, chunk, p, n, limit)
+        x, dt, A, B, C = inputs(b, s, h, p, n, torch.bfloat16, torch.float32)
+        y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        ry, rst = ref32(x, dt, A, B, C, chunk)
+        scale = ry.abs().max().item()
+        err = (y.float() - ry).abs().max().item()
+        rel = ((y.float() - ry).abs() / (1 + ry.abs())).max().item()
+        floor = (ry.to(torch.bfloat16).float() - ry).abs().max().item()
+        st_err = (st - rst).abs().max().item()
+        print(f"[kernels] ssd_scan_fwd at the serving shape b={b} s={s} h={h} p={p} n={n} g=1 chunk={chunk} "
+              f"(x, B, C bf16, dt f32), form {form.name} (CTAs a (batch, head): {form.cluster}; the card's "
+              f"cluster limit {limit}): y max_abs_err {err:.3e} (max |y| {scale:.3f}; rounding y to bf16 alone "
+              f"{floor:.3e}), err/(1+|y|) {rel:.3e}, final_state max_abs_err {st_err:.3e} (max |state| "
+              f"{rst.abs().max().item():.3f})")
+        if not (err <= 3e-2 * max(1.0, scale) and st_err <= 3e-4 * max(1.0, rst.abs().max().item())):
+            raise SystemExit(f"ssd_scan_fwd disagrees with ssd_scan_ref at the serving shape b={b}")
+        if rel > SSD_TOL["bfloat16"] / 2:
+            raise SystemExit(f"ssd_scan_fwd bf16 error {rel} at the serving shape b={b} is above half the tolerance")
+        del ry, rst
+        ms = time_ms(lambda: ssd_scan_fwd(x, dt, A, B, C, chunk=chunk), iters=20)
+        plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, chunk=chunk), iters=3, warmup=1)
+        bound_ms, bound_by = ssd_bound(b, s, h, p, n, ssd_kernel.TILE, "bfloat16")
+        flops = ssd_flops(b, s, h, p, n, ssd_kernel.TILE)
+        print(f"[kernels] ssd_scan_fwd at the serving shape b={b}, form {form.name}: kernel {ms:.3f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP at the tile of {ssd_kernel.TILE}, "
+              f"{bound_ms / ms * 100:.1f} % of the bound's rate), plain {plain_ms:.3f} ms, library none (no "
+              f"PyTorch call computes the SSD scan), bound {bound_ms:.4f} ms by {bound_by}")
+        return form, err, ms, plain_ms, bound_ms, bound_by
+
+    form, err, ms, plain_ms, bound_ms, bound_by = at_serving_shape(BATCH)
+    form1, _, ms1, _, bound1, _ = at_serving_shape(1)
+
+    # jamba's SSD dims (p=64, n=16, 128 heads, chunk 128) at the same request
+    b = BATCH
+    jh, jp, jn, jchunk = JAMBA_SSD
+    jx, jdt, jA, jB, jC = inputs(b, s, jh, jp, jn, torch.bfloat16, torch.float32)
+    jy, jst = ssd_scan_fwd(jx, jdt, jA, jB, jC, chunk=jchunk)
+    torch.cuda.synchronize()
+    jry, jrst = ref32(jx, jdt, jA, jB, jC, jchunk)
+    jerr = (jy.float() - jry).abs().max().item()
+    if not (jerr <= 3e-2 * max(1.0, jry.abs().max().item())
+            and (jst - jrst).abs().max().item() <= 3e-4 * max(1.0, jrst.abs().max().item())):
+        raise SystemExit("ssd_scan_fwd disagrees with ssd_scan_ref at jamba's serving shape")
+    del jry, jrst
+    jform = ssd_kernel.scan_form(b, jh, s, jchunk, jp, jn, ssd_kernel.cluster_limit(jp, jn, 0))
+    jms = time_ms(lambda: ssd_scan_fwd(jx, jdt, jA, jB, jC, chunk=jchunk), iters=20)
+    jbound, jby = ssd_bound(b, s, jh, jp, jn, ssd_kernel.TILE, "bfloat16")
+    print(f"[kernels] ssd_scan_fwd at jamba's dims b={b} s={s} h={jh} p={jp} n={jn} chunk={jchunk}, form "
+          f"{jform.name}: y max_abs_err {jerr:.3e}; kernel {jms:.3f} ms, bound {jbound:.4f} ms by {jby} "
+          f"({jbound / jms * 100:.1f} % of the bound's rate)")
     return {
         "name": "ssd_scan_fwd",
         "route": "cuda",
@@ -341,6 +394,11 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "form": form.name,
+        "form_one_sequence": form1.name,
+        "ms_one_sequence": ms1,
+        "bound_ms_one_sequence": bound1,
+        "launches_one_sequence": 0,
     }
 
 
@@ -638,8 +696,9 @@ def check_model_against_plain(model, cfg, batch: int, plain, max_stray, step_len
     torch.cuda.empty_cache()
 
 
-def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int) -> int:
-    """Phase 4 for one model: returns how often ``kernel`` launched in its served request."""
+def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int, one_sequence=None) -> int:
+    """Phase 4 for one model: returns how often ``kernel`` launched in its served request.
+    ``one_sequence``, where given, is then called with the model."""
     import torch
 
     from repro_torch.launch.serve import make_inputs, serve
@@ -674,9 +733,81 @@ def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int) 
     print(f"[serve] {cfg.name} prefill {result['prefill_s'] * 1e3:.1f} ms ({tokens_in / result['prefill_s']:.0f} tok/s), "
           f"decode {result['decode_s'] / GEN * 1e3:.2f} ms/step ({GEN * BATCH / result['decode_s']:.1f} tok/s), "
           f"kernel launches {launches}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del model, result
+    del result
+    if one_sequence is not None:
+        one_sequence(model)
+    del model
     torch.cuda.empty_cache()
     return launches[kernel]
+
+
+def serve_one_sequence(model, cfg, counters, entry) -> None:
+    """mamba2 answering one prompt of PROMPT_LEN alone, as a latency-bound
+    server does: 64 (batch, head) pairs, so K2 takes a chunk-parallel form.
+    Served once with the counts set to 0 just before and read just after;
+    then its prefill is timed in turns with the sequential form, which
+    ``scan_form`` gives a card without cluster launch (a cluster limit of 1)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.serve import make_inputs, serve
+
+    s_cfg = cfg.ssm
+    h, p, n = s_cfg.expand * cfg.d_model // s_cfg.head_dim, s_cfg.head_dim, s_cfg.d_state
+    form = ssd_kernel.scan_form(1, h, PROMPT_LEN, s_cfg.chunk, p, n, ssd_kernel.cluster_limit(p, n, 0))
+    if form.cluster == 1:
+        raise SystemExit(f"{cfg.name}: one prompt of {PROMPT_LEN} takes the sequential form on this card")
+    inputs = make_inputs(cfg, 1, PROMPT_LEN, torch.Generator(device=model.device).manual_seed(2))
+    for counted in counters.values():
+        counted.launches = 0
+    result = serve(model, inputs, GEN)
+    launches = {name: counted.launches for name, counted in counters.items()}
+    if launches["ssd_scan_fwd"] != cfg.n_layers:
+        raise SystemExit(f"{cfg.name}: one prompt launched ssd_scan_fwd {launches['ssd_scan_fwd']} times, "
+                         f"not once per layer ({cfg.n_layers})")
+    if result["prefill_logits"].shape != (1, cfg.vocab_size) or result["tokens"].shape != (1, GEN + 1):
+        raise SystemExit(f"{cfg.name}: serve returned the wrong shapes for one prompt")
+    if not (torch.isfinite(result["prefill_logits"]).all() and torch.isfinite(result["last_logits"]).all()):
+        raise SystemExit(f"{cfg.name}: serve produced logits that are not finite for one prompt")
+    if not ((result["tokens"] >= 0) & (result["tokens"] < cfg.vocab_size)).all():
+        raise SystemExit(f"{cfg.name}: serve produced token ids outside the vocabulary for one prompt")
+    print(f"[serve] {cfg.name} one prompt of {PROMPT_LEN}, K2 form {form.name}: prefill "
+          f"{result['prefill_s'] * 1e3:.1f} ms ({PROMPT_LEN / result['prefill_s']:.0f} tok/s), decode "
+          f"{result['decode_s'] / GEN * 1e3:.2f} ms/step, kernel launches {launches}")
+    entry["launches_one_sequence"] = launches["ssd_scan_fwd"]
+
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(inputs)[0]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, logits
+
+    def sequential():
+        return _swapped(ssd_kernel, "cluster_limit", lambda p, n, device_index: 1)
+
+    # ONE_SEQUENCE_PAIRS pairs, each form first in every other pair
+    times, last = {form.name: [], "sequential": []}, {}
+    for i in range(ONE_SEQUENCE_PAIRS):
+        for name in (form.name, "sequential")[:: 1 if i % 2 == 0 else -1]:
+            with sequential() if name == "sequential" else contextlib.nullcontext():
+                seconds, logits = prefill()
+            times[name].append(seconds * 1e3)
+            if not torch.isfinite(logits).all():
+                raise SystemExit(f"{cfg.name}: the {name} form's prefill of one prompt is not finite")
+            last[name] = logits
+    gap = (last[form.name] - last["sequential"]).abs().max().item()
+    wins = sum(a < b for a, b in zip(times[form.name], times["sequential"]))
+
+    def quartiles(ms):
+        q = torch.tensor(ms).quantile(torch.tensor([0.25, 0.5, 0.75])).tolist()
+        return f"median {q[1]:.2f} ms (quartiles {q[0]:.2f}-{q[2]:.2f})"
+
+    print(f"[serve] {cfg.name} prefill of one prompt of {PROMPT_LEN}, {ONE_SEQUENCE_PAIRS} pairs in turns: "
+          f"{form.name} {quartiles(times[form.name])}, sequential {quartiles(times['sequential'])}; "
+          f"{form.name} faster in {wins} of {ONE_SEQUENCE_PAIRS} pairs; last logits, the two forms apart by {gap:.3e}")
+    print(f"[serve] {cfg.name} one-prompt prefill ms, {form.name}: {[round(t, 2) for t in times[form.name]]}, "
+          f"sequential: {[round(t, 2) for t in times['sequential']]}")
 
 
 def main() -> int:
@@ -728,7 +859,9 @@ def main() -> int:
     # the SSD chunk must divide the prompt: 255 and 256 are one chunk each (255 the ragged one).
     # 48 layers of random SSD weights in bf16 stray from float32 further than 5 % of the
     # largest logit on either path, so only the plain path bounds the kernel's
-    k2["launches"] = serve_at_full_width(mamba2, "ssd_scan_fwd", counters, plain_ssd_scan, None, 255)
+    # then one prompt alone, where K2 takes a chunk-parallel form
+    k2["launches"] = serve_at_full_width(mamba2, "ssd_scan_fwd", counters, plain_ssd_scan, None, 255,
+                                         lambda model: serve_one_sequence(model, mamba2, counters, k2))
 
     # ---- 5. sync -------------------------------------------------------------
     swept = barrier_sweep(counters)

@@ -24,6 +24,7 @@ from repro_torch.kernels.scu_barrier.kernel import (
 from repro_torch.kernels.scu_barrier.ref import barrier_ref, notifier_ref, self_signal_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
@@ -281,6 +282,131 @@ def test_ssd_kernel_refuses_what_it_does_not_take(card):
     xl, dtl, Al, Bl, Cl = _scan_inputs(1, 512, 2, 64, 128, torch.bfloat16, card)
     with pytest.raises(ValueError, match="chunk"):
         ssd_scan_fwd(xl, dtl, Al, Bl, Cl, chunk=512)  # above the kernel's 256
+
+
+def _every_form(s, p, n):
+    """The bf16 kernel's cluster sizes at a sequence of s tokens: 1, 2, 3, 4
+    and 8 CTAs a (batch, head), each cut to the tiles there are and to the
+    card's cluster limit."""
+    tiles = -(-s // ssd_kernel.TILE)
+    limit = ssd_kernel.cluster_limit(p, n, 0)
+    return sorted({min(k, tiles, limit) for k in (1, 2, 3, 4, 8)})
+
+
+def _hold_every_form(x, dt, A, B, C, chunk, initial_state=None):
+    """Every form of the bf16 kernel against the plain version in float32:
+    y within 3e-2 and half of it in |kernel - plain| / (1 + |plain|), the
+    final state within 3e-4, as test_ssd_kernel_matches_plain holds them."""
+    ry, rst = _ref32(x, dt, A, B, C, chunk, initial_state=initial_state)
+    forms = _every_form(x.shape[1], x.shape[3], B.shape[2])
+    for k in forms:
+        before = ssd_scan_fwd.launches
+        y, st = ssd_kernel._scan(x, dt, A, B, C, chunk, initial_state, k)
+        torch.cuda.synchronize()
+        assert ssd_scan_fwd.launches == before + 1
+        assert torch.isfinite(y.float()).all() and torch.isfinite(st).all(), k
+        np.testing.assert_allclose(y.float().cpu().numpy(), ry.cpu().numpy(), rtol=3e-2, atol=3e-2, err_msg=f"k={k}")
+        np.testing.assert_allclose(st.cpu().numpy(), rst.cpu().numpy(), rtol=3e-4, atol=3e-4, err_msg=f"k={k}")
+        err = ((y.float() - ry).abs() / (1 + ry.abs())).max().item()
+        assert err <= 1.5e-2, (k, err)
+    return forms
+
+
+@pytest.mark.parametrize(
+    "b,s,h,p,n,chunk",
+    [
+        (2, 320, 3, 64, 128, 64),  # 5 tiles: no multiple of 2, 3, 4 or 8 CTAs
+        (1, 64, 2, 64, 128, 64),  # one tile: the sequential form only
+        (1, 255, 2, 64, 128, 255),  # one ragged chunk, 4 tiles, the last of 63 rows
+        (2, 132, 2, 16, 16, 11),  # the smoke configs' dims in chunks of 11: 3 tiles
+        (2, 48, 3, 64, 16, 12),  # jamba's dims in chunks of 12: one ragged tile
+        (1, 1024, 2, 64, 32, 256),  # 16 tiles: every cluster size up to the card's limit
+        (1, 2048, 1, 32, 16, 128),  # 32 tiles
+    ],
+)
+def test_ssd_kernel_every_form_matches_plain(card, b, s, h, p, n, chunk):
+    x, dt, A, B, C = _scan_inputs(b, s, h, p, n, torch.bfloat16, card, seed=s + n)
+    forms = _hold_every_form(x, dt, A, B, C, chunk)
+    assert forms[0] == 1
+
+
+def test_ssd_kernel_every_form_strided_views(card):
+    """x, B and C as views into one (b, s, h p + 2 n) tensor, as the conv leaves them."""
+    b, s, h, p, n = 2, 384, 3, 64, 128
+    x, dt, A, B, C = _scan_inputs(b, s, h, p, n, torch.bfloat16, card, seed=21)
+    xs = torch.cat([x.reshape(b, s, h * p), B, C], dim=-1)
+    xv, Bv, Cv = xs[..., : h * p].reshape(b, s, h, p), xs[..., h * p : h * p + n], xs[..., h * p + n :]
+    assert not xv.is_contiguous() and not Bv.is_contiguous()
+    _hold_every_form(xv, dt, A, Bv, Cv, 128)
+
+
+def test_ssd_kernel_every_form_hands_the_initial_state_on(card):
+    """An initial state enters the first segment and is handed across every
+    segment boundary; and the second half from the first half's final state
+    equals the whole, in every form."""
+    b, s, h, p, n = 2, 640, 2, 64, 128
+    x, dt, A, B, C = _scan_inputs(b, s, h, p, n, torch.bfloat16, card, seed=22)
+    init = torch.from_numpy(np.random.default_rng(23).standard_normal((b, h, p, n), dtype=np.float32)).to(card)
+    _hold_every_form(x, dt, A, B, C, 64, initial_state=init)
+    y, st = ssd_kernel._scan(x, dt, A, B, C, 64, None, 1)
+    for k in _every_form(320, p, n):
+        _, st1 = ssd_kernel._scan(x[:, :320], dt[:, :320], A, B[:, :320], C[:, :320], 64, None, k)
+        y2, st2 = ssd_kernel._scan(x[:, 320:], dt[:, 320:], A, B[:, 320:], C[:, 320:], 64, st1, k)
+        np.testing.assert_allclose(y2.float().cpu().numpy(), y[:, 320:].float().cpu().numpy(), rtol=3e-2, atol=3e-2)
+        np.testing.assert_allclose(st2.cpu().numpy(), st.cpu().numpy(), rtol=3e-4, atol=3e-4)
+
+
+def test_ssd_kernel_every_form_strong_decay(card):
+    """dt A about -50 a token: exp(cum) and every segment's decay underflow to
+    0; nothing is NaN and every form still matches."""
+    b, s, h, p, n = 1, 512, 2, 64, 128
+    x, _, _, B, C = _scan_inputs(b, s, h, p, n, torch.bfloat16, card, seed=24)
+    dt = torch.ones((b, s, h), device=card)
+    A = torch.tensor([-50.0, -20.0], device=card)
+    init = torch.ones((b, h, p, n), device=card)
+    _hold_every_form(x, dt, A, B, C, 256, initial_state=init)
+
+
+def test_ssd_kernel_more_clusters_than_fit_at_once(card):
+    """b h = 1024 (batch, head) pairs in clusters of up to the card's limit:
+    many more clusters than the card holds at once, so they run in waves
+    (``scan_form`` takes one CTA here; the clusters are held to show that
+    none waits on a cluster that has not started)."""
+    b, s, h, p, n = 16, 1024, 64, 64, 128
+    x, dt, A, B, C = _scan_inputs(b, s, h, p, n, torch.bfloat16, card, seed=25)
+    limit = ssd_kernel.cluster_limit(p, n, 0)
+    ry, rst = _ref32(x, dt, A, B, C, 256)
+    for k in sorted({1, 2, limit}):
+        y, st = ssd_kernel._scan(x, dt, A, B, C, 256, None, k)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(y.float().cpu().numpy(), ry.cpu().numpy(), rtol=3e-2, atol=3e-2)
+        np.testing.assert_allclose(st.cpu().numpy(), rst.cpu().numpy(), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("b,h,k", [(4, 64, 1), (1, 64, 2), (1, 32, 4), (1, 16, 8), (1, 2, 8)])
+def test_ssd_kernel_form_and_limit(card, b, h, k):
+    """The card's cluster limit is the portable 8 at every built shape; the
+    wrapper takes scan_form's form, which the number of (batch, head) pairs
+    sets (b h = 256 -> 1 CTA, 64 -> 2, 32 -> 4, 16 and 2 -> 8), bit for bit
+    the same as that form held by hand; a cluster the kernel does not take
+    raises."""
+    for p, n in ssd_kernel.SHAPES:
+        assert ssd_kernel.cluster_limit(p, n, 0) == 8
+    s = 1024
+    assert ssd_kernel.scan_form(b, h, s, 256, 64, 128, ssd_kernel.cluster_limit(64, 128, 0)).cluster == k
+    x, dt, A, B, C = _scan_inputs(b, s, h, 64, 128, torch.bfloat16, card, seed=b * h)
+    y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=256)
+    y_k, st_k = ssd_kernel._scan(x, dt, A, B, C, 256, None, k)
+    assert torch.equal(y, y_k) and torch.equal(st, st_k)
+    ry, rst = _ref32(x, dt, A, B, C, 256)
+    np.testing.assert_allclose(y.float().cpu().numpy(), ry.cpu().numpy(), rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(st.cpu().numpy(), rst.cpu().numpy(), rtol=3e-4, atol=3e-4)
+    with pytest.raises(ValueError, match="cluster"):
+        ssd_kernel._scan(x[:, :256], dt[:, :256], A, B[:, :256], C[:, :256], 256, None, 5)  # 4 tiles
+    with pytest.raises(ValueError, match="cluster"):
+        ssd_kernel._scan(x, dt, A, B, C, 256, None, 16)  # above the portable 8
+    with pytest.raises(ValueError, match="cluster"):
+        ssd_kernel._scan(x.float(), dt, A, B.float(), C.float(), 256, None, 2)
 
 
 # ---------------------------------------------------------------------------
