@@ -21,8 +21,10 @@ non-zero exit if it fails:
             test shapes take clusters of 2, 4 and 8, the serving shapes the
             sequential form (the batch) and clusters of 2 (one prompt); it
             is timed at jamba's SSD dims too.  K1 names the
-            path each shape took (``wgmma``, ``mma_sync`` or ``f32``) and is
-            also timed at musicgen's heads (24 of 64) beside SDPA and its
+            path each shape took (``wgmma``, ``mma_sync`` or ``f32``), is
+            checked at MLA's head dims (qk 192, v 128) too, and is also timed
+            at musicgen's heads (24 of 64), deepseek's MLA prefill (16 heads,
+            qk 192, v 128) and stablelm's head dim 80 beside SDPA and its
             bound.  K3
             exact in its cluster form (n = 1 to 8, and 9 and 16 where the
             card allows a cluster of 16) and its
@@ -37,14 +39,23 @@ non-zero exit if it fails:
 4. serve:   each served model at its published width (random weights from a
             seed) through the launcher's functions: a batch of prompts is
             prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
-            d_model 3072, vocab 200064) through the attention kernel, and
+            d_model 3072, vocab 200064) through the attention kernel;
             mamba2-1.3b (48 layers, d_model 2048, vocab 50280) through the
-            SSD-scan kernel.  Checks that the logits are finite and the tokens
-            in the vocabulary, that prefill launched the model's kernel once
-            per layer (every count set to 0 just before, read just after),
-            that the kernel path strays from a float32 model no further than
-            the plain bf16 path does, and that prefill + staged cache + one
-            decode step equals a prefill of one more token.  mamba2 then
+            SSD-scan kernel; deepseek-v2-lite-16b (27 layers: MLA through the
+            attention kernel at qk 192 / v 128, a dense prelude layer, 26 MoE
+            layers) and qwen3-moe-30b-a3b (48 GQA + MoE layers) whole; and
+            jamba-v0.1-52b cut to one group of 8 of its 32 layers (1
+            attention and 7 SSD layers, 4 MoE; the whole model does not fit
+            the card).  Checks that the logits are finite and the tokens in
+            the vocabulary, that prefill launched the attention kernel once
+            per attention layer and the SSD kernel once per SSD layer (every
+            count set to 0 just before, read just after), that the kernel
+            path strays from a float32 model no further than the plain bf16
+            path does (deepseek and qwen3-moe on their first 4 layers, whose
+            float32 copy fits beside the model; a MoE model's routing
+            differences between the paths are counted), and that prefill +
+            staged cache + one decode step equals a prefill of one more
+            token (a MoE model with capacity for every slot).  mamba2 then
             answers one prompt alone (K2 in clusters of 2, counted the same
             way), and that prefill is timed in turns with K2's sequential
             form, the form of a card without cluster launch.
@@ -92,6 +103,14 @@ KERNEL_SHAPES = [
     (1, 7, 1, 333, 128, True),
     (1, 4, 4, 200, 80, True),
     (2, 4, 2, 130, 16, True),
+]
+# (b, h, kvh, s, dqk, dv, causal): MLA's pair (deepseek-v2-lite: qk 192 = nope
+# 128 + rope 64, v 128, kvh = h = 16) at lengths shorter than one tile and one
+# past a multiple of every tile, causal and not
+KERNEL_PAIR_SHAPES = [
+    (1, 16, 16, 77, 192, 128, True),
+    (2, 16, 16, 513, 192, 128, True),
+    (1, 16, 16, 200, 192, 128, False),
 ]
 # musicgen-medium's attention (24 heads of 64, no GQA) at the serving request's
 # length: K1's other Hopper head dim, timed beside the serving shape
@@ -156,13 +175,20 @@ def bound(nbytes: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(b, h, kvh, sq, sk, d, causal, dtype_name):
-    """Bytes: q, k, v read once, out and lse written once.  Operations: two
-    products of 2*d each for every (query, key) pair that the mask keeps."""
-    size = 2 if dtype_name == "bfloat16" else 4
-    nbytes = size * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
+def attention_flops(b, h, sq, sk, d, dv, causal) -> int:
+    """Two products for every (query, key) pair that the mask keeps: q k^T
+    (2*d FLOP) and p v (2*dv FLOP)."""
     pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    return bound(nbytes, 4 * d * b * h * pairs, dtype_name)
+    return 2 * (d + dv) * b * h * pairs
+
+
+def attention_bound(b, h, kvh, sq, sk, d, causal, dtype_name, dv=None):
+    """Bytes: q, k (d wide), v (dv wide) read once, out (dv wide) and lse
+    written once.  Operations: ``attention_flops``."""
+    dv = d if dv is None else dv
+    size = 2 if dtype_name == "bfloat16" else 4
+    nbytes = size * (d * (b * h * sq + b * kvh * sk) + dv * (b * kvh * sk + b * h * sq)) + 4 * b * h * sq
+    return bound(nbytes, attention_flops(b, h, sq, sk, d, dv, causal), dtype_name)
 
 
 def ssd_flops(b, s, h, p, n, chunk) -> int:
@@ -184,8 +210,10 @@ def ssd_bound(b, s, h, p, n, chunk, dtype_name):
     return bound(nbytes, ssd_flops(b, s, h, p, n, chunk), dtype_name)
 
 
-def check_attention_kernel(prompt_len: int, cfg) -> dict:
-    """Phase 3 for K1, the flash-attention forward.  Returns its entry of the kernels line."""
+def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg) -> dict:
+    """Phase 3 for K1, the flash-attention forward.  Returns its entry of the
+    kernels line: timed at ``cfg``'s serving shape, musicgen's heads,
+    ``mla_cfg``'s MLA pair (qk 192, v 128) and ``d80_cfg``'s head dim 80."""
     import torch
     import torch.nn.functional as F
 
@@ -199,30 +227,33 @@ def check_attention_kernel(prompt_len: int, cfg) -> dict:
     def draw(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    for b, h, kvh, s, d, causal in KERNEL_SHAPES:
+    shapes = [(b, h, kvh, s, d, d, causal) for b, h, kvh, s, d, causal in KERNEL_SHAPES] + KERNEL_PAIR_SHAPES
+    for b, h, kvh, s, d, dv, causal in shapes:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            q, k, v = draw(b, h, s, d, dtype=dtype), draw(b, kvh, s, d, dtype=dtype), draw(b, kvh, s, d, dtype=dtype)
+            q, k, v = draw(b, h, s, d, dtype=dtype), draw(b, kvh, s, d, dtype=dtype), draw(b, kvh, s, dv, dtype=dtype)
             out, lse = flash_attention_fwd(q, k, v, causal=causal)
             torch.cuda.synchronize()
             ref = attention_ref(q, k, v, causal=causal)
             err = (out.float() - ref.float()).abs().max().item()
             lse_err = (lse - attention_ref_lse(q, k, causal=causal)).abs().max().item()
             tol = KERNEL_TOL[name]
-            print(f"[kernels] flash_attention_fwd b={b} h={h} kvh={kvh} s={s} d={d} causal={causal} "
-                  f"{name}, {kernel_path(dtype, d)} path: max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}")
+            dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
+            print(f"[kernels] flash_attention_fwd b={b} h={h} kvh={kvh} s={s} {dims} causal={causal} "
+                  f"{name}, {kernel_path(dtype, d, dv)} path: max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}")
             if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
                 raise SystemExit(f"flash_attention_fwd disagrees with attention_ref: {err}")
             if not lse_err <= 1e-4 * max(1.0, lse.abs().max().item()):
                 raise SystemExit(f"flash_attention_fwd lse disagrees: {lse_err}")
 
-    def at_full_size(b, h, kvh, d, with_plain):
+    def at_full_size(b, h, kvh, d, with_plain, dv=None):
         """The kernel through ``ops.flash_attention`` on the models' (b, s, h, d)
         layout at the serving request's length: checked against the plain
         version, then timed beside it, one SDPA call and the bound."""
         s = prompt_len
+        dv = d if dv is None else dv
         q = draw(b, s, h, d, dtype=torch.bfloat16)
         k = draw(b, s, kvh, d, dtype=torch.bfloat16)
-        v = draw(b, s, kvh, d, dtype=torch.bfloat16)
+        v = draw(b, s, kvh, dv, dtype=torch.bfloat16)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         out = flash_attention(q, k, v, causal=True)
         _, lse = flash_attention_fwd(qt, kt, vt, causal=True)
@@ -231,38 +262,56 @@ def check_attention_kernel(prompt_len: int, cfg) -> dict:
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - attention_ref_lse(qt, kt, causal=True)).abs().max().item()
         tol = KERNEL_TOL["bfloat16"]
+        dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) or not lse_err <= 2e-3:
-            raise SystemExit(f"flash_attention disagrees at b={b} s={s} h={h} kvh={kvh} d={d}: {err}, lse {lse_err}")
+            raise SystemExit(f"flash_attention disagrees at b={b} s={s} h={h} kvh={kvh} {dims}: {err}, lse {lse_err}")
         del ref
-        row = {"path": kernel_path(torch.bfloat16, d), "max_abs_err": err,
+        row = {"path": kernel_path(torch.bfloat16, d, dv), "max_abs_err": err,
                "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)}
         row["plain_ms"] = (time_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=3, warmup=1)
                            if with_plain else None)
-        # the yardstick: one library call for the same function; the port never calls it
-        row["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-        row["bound_ms"], row["bound_by"] = attention_bound(b, h, kvh, s, s, d, True, "bfloat16")
-        flops = 4 * d * b * h * (s * (s + 1) // 2)
+        # the yardstick: one library call for the same function; the port never calls it.
+        # SDPA takes dv != dqk on some of its backends; where none does, there is no such call.
+        try:
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+        except RuntimeError as refused:
+            if dv == d:
+                raise
+            print(f"[kernels] SDPA refuses dqk={d} dv={dv}: {str(refused).splitlines()[0]}")
+            row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = attention_bound(b, h, kvh, s, s, d, True, "bfloat16", dv)
+        flops = attention_flops(b, h, s, s, d, dv, True)
         plain = f"plain {row['plain_ms']:.3f} ms, " if with_plain else ""
-        print(f"[kernels] flash_attention_fwd b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal, {row['path']} path: "
+        library = ("none" if row["library_ms"] is None else
+                   f"{row['library_ms']:.3f} ms ({row['ms'] / row['library_ms']:.2f}x)")
+        print(f"[kernels] flash_attention_fwd b={b} s={s} h={h} kvh={kvh} {dims} bf16 causal, {row['path']} path: "
               f"max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}; kernel {row['ms']:.3f} ms "
               f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, {row['bound_ms'] / row['ms'] * 100:.0f} % of the bound's "
-              f"rate), {plain}library (SDPA) {row['library_ms']:.3f} ms ({row['ms'] / row['library_ms']:.2f}x), "
-              f"bound {row['bound_ms']:.3f} ms by {row['bound_by']}")
+              f"rate), {plain}library (SDPA) {library}, bound {row['bound_ms']:.3f} ms by {row['bound_by']}")
         return row
 
-    # the shape the serving path gives it, then musicgen's heads at the same length
+    # the shape the serving path gives it, then musicgen's heads at the same length,
+    # deepseek's MLA pair (its prefill's shape) and stablelm's head dim 80
     serving = at_full_size(BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, with_plain=True)
     d64 = at_full_size(BATCH, *MUSICGEN_HEADS, with_plain=False)
+    m = mla_cfg.mla
+    mla = at_full_size(BATCH, mla_cfg.n_heads, mla_cfg.n_kv_heads, m.qk_nope_dim + m.qk_rope_dim,
+                       with_plain=True, dv=m.v_head_dim)
+    d80 = at_full_size(BATCH, d80_cfg.n_heads, d80_cfg.n_kv_heads, d80_cfg.resolved_head_dim, with_plain=True)
+    keys = ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:126",
         "launches": 0,
-        **{key: serving[key] for key in ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")},
+        **{key: serving[key] for key in keys},
         "d64": {key: d64[key] for key in ("path", "ms", "library_ms", "bound_ms")},
+        # launches: one a layer of a deepseek prefill, filled in by the serving phase
+        "mla": {"model": mla_cfg.name, "launches": 0, **{key: mla[key] for key in keys}},
+        "d80": {"model": d80_cfg.name, **{key: d80[key] for key in keys}},
+        "launches_by_model": {},
     }
 
 
@@ -594,7 +643,7 @@ def barrier_sweep(counters) -> dict:
 
 
 def plain_attention():
-    """Within the block, the models' attention goes through its plain version."""
+    """Within the block, the models' attention (GQA and MLA) goes through its plain version."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.layers import attention as attention_mod
 
@@ -618,6 +667,13 @@ def plain_ssd_scan():
 
 
 @contextlib.contextmanager
+def plain_hybrid():
+    """Both of the above: jamba's attention and SSD layers."""
+    with plain_attention(), plain_ssd_scan():
+        yield
+
+
+@contextlib.contextmanager
 def _swapped(module, name, replacement):
     kept = getattr(module, name)
     setattr(module, name, replacement)
@@ -627,37 +683,169 @@ def _swapped(module, name, replacement):
         setattr(module, name, kept)
 
 
-def check_model_against_plain(model, cfg, batch: int, plain, max_stray, step_len: int, s: int = 512) -> None:
+def recorded_routing(into: list):
+    """Within the block, every MoE layer appends its (T, K) expert ids, sorted per token, to ``into``."""
+    from repro_torch.models.layers import moe as moe_mod
+
+    kept = moe_mod.router_topk
+
+    def record(logits, m):
+        weights, idx = kept(logits, m)
+        into.append(idx.sort(dim=-1).values)
+        return weights, idx
+
+    return _swapped(moe_mod, "router_topk", record)
+
+
+def pinned_routing(idx_list: list):
+    """Within the block, the MoE layers take, in their order, the expert ids
+    of ``idx_list`` ((T, K) each), with their router's own weights for them."""
+    import torch
+
+    from repro_torch.models.layers import moe as moe_mod
+
+    pinned_ids = iter(idx_list)
+
+    def pinned(logits, m):
+        idx = next(pinned_ids)
+        weights = torch.softmax(logits.float(), dim=-1).gather(-1, idx)
+        if m.router_norm_topk:
+            weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+        return weights, idx
+
+    return _swapped(moe_mod, "router_topk", pinned)
+
+
+def routing_gap(a: list, b: list) -> str:
+    """How many (token, layer) routings of two runs differ, of how many."""
+    if not a:
+        return "no MoE layer"
+    differ = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+    return f"{differ} of {sum(x.shape[0] for x in a)} token-layer top-k sets differ"
+
+
+def ample_capacity(model):
+    """The same weights (shared, not copied) with ``capacity_factor =
+    n_experts / top_k``, so that no MoE slot is dropped; the model itself for
+    an arch without MoE."""
+    from repro_torch.serve.decode import CausalLM
+
+    m = model.cfg.moe
+    if m is None:
+        return model
+    cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
+    return CausalLM(cfg, model.params)
+
+
+def depth_cut(model, n_layers: int):
+    """The served model's first ``n_layers`` layers (the prelude and the first
+    groups), sharing its weights: a copy at full width and reduced depth."""
+    from repro_torch.models.blocks import prelude_layers
+    from repro_torch.serve.decode import CausalLM
+
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    n_groups = (n_layers - prelude_layers(cfg)) // cfg.block_group
+
+    def head(tree):
+        return {k: head(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:n_groups]
+
+    params = model.params
+    return CausalLM(cfg, {**params, "blocks": head(params["blocks"])})
+
+
+def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int, s: int = 512,
+                              offload: bool = False) -> None:
     """The kernel path against the plain path and a float32 model at a prompt
     the plain version fits (``s``), and prefill(``step_len``) + staged cache +
     one decode step against a prefill of one more token, on the card.
 
     ``max_stray``, when given, also bounds the bf16 kernel path's distance
-    from the float32 model by that share of the largest logit.
+    from the float32 model by that share of the largest logit.  A MoE arch's
+    step-against-longer runs with ample capacity (``ample_capacity``): the
+    capacity depends on the token count, so prefill(n) + one step and
+    prefill(n + 1) may drop different slots under the reference's own
+    semantics; the other checks keep the config's capacity.  There the new
+    token's routing in the decode step is pinned to the one the longer
+    prefill gave it: its attention output differs from the prefill's by the
+    rounding of another order of sums (MLA's absorbed decode, plain PyTorch
+    against the kernel), which flips near-tie top-k choices; the flips are
+    counted and the unpinned error printed beside the held one.  ``offload``
+    moves the bf16 model to the host while its float32 copy is on the card.
     """
     import torch
 
     from repro_torch.launch.serve import make_inputs, stage_prefill_cache
     from repro_torch.serve.decode import CausalLM
 
-    gen = torch.Generator(device=model.device).manual_seed(3)
+    cfg = model.cfg
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(3)
     tokens = make_inputs(cfg, batch, s + 1, gen)["tokens"]
-    logits, cache = model.prefill({"tokens": tokens[:, :s]})
-    with plain():
+    routes = {"kernel": [], "plain": [], "float32": []}
+    with recorded_routing(routes["kernel"]):
+        logits, cache = model.prefill({"tokens": tokens[:, :s]})
+    with plain(), recorded_routing(routes["plain"]):
         plain_logits, plain_cache = model.prefill({"tokens": tokens[:, :s]})
-    # the yardstick for both: the same weights in float32 through the plain version
-    model32 = CausalLM(dataclasses.replace(cfg, dtype="float32"), model.params).to(torch.float32)
-    with plain():
+    name, first = next((k, v) for k, v in cache["blocks"]["pos_0"].items())
+    leaf_err = (first[-1].float() - plain_cache["blocks"]["pos_0"][name][-1].float()).abs().max().item()
+    del cache, plain_cache
+
+    # prefill n tokens, stage, decode token n + 1  ==  prefill of n + 1 tokens
+    n = step_len
+    ample = "" if cfg.moe is None else f", capacity factor {cfg.moe.n_experts / cfg.moe.top_k:g} (none dropped)"
+
+    def step_against_longer(m):
+        """(decode step logits, longer prefill logits, what was pinned)."""
+        longer_routes, free_routes = [], []
+        with recorded_routing(longer_routes):
+            longer = m.prefill({"tokens": tokens[:, : n + 1]})[0]
+        small = m.prefill({"tokens": tokens[:, :n]})[1]
+        position = torch.full((batch,), n, dtype=torch.int32, device=m.device)
+
+        def step():  # on a cache staged afresh: a step advances an SSD layer's state
+            big = stage_prefill_cache(small, m.init_cache(batch, n + 8), n)
+            return m.decode_step(big, tokens[:, n : n + 1], position)[1]
+
+        with recorded_routing(free_routes):
+            free = step()
+        if not longer_routes:
+            return free, longer, ""
+        last = [r.view(batch, n + 1, -1)[:, -1] for r in longer_routes]  # the new token's
+        with pinned_routing(last):
+            pinned = step()
+        return pinned, longer, (f"; the new token's routing pinned to the longer prefill's (unpinned: "
+                                f"{routing_gap(free_routes, last)}, max_abs_err "
+                                f"{(free - longer).abs().max().item():.3e})")
+
+    step_logits, longer_logits, pinned = step_against_longer(ample_capacity(model))
+    err = (step_logits - longer_logits).abs().max().item()
+    print(f"[serve] {cfg.name} prefill({n}) + staged cache + one decode step vs prefill({n + 1}){ample}: "
+          f"max_abs_err {err:.3e}{pinned}")
+    # two bf16 paths again (the decode step is plain PyTorch, the prefill the kernel)
+    if not err <= 5e-2 * max(1.0, longer_logits.abs().max().item()):
+        raise SystemExit(f"{cfg.name}: decode against the staged prefill cache disagrees with a longer prefill")
+
+    # the yardstick for both paths: the same weights in float32 through the plain version
+    if offload:
+        model.to("cpu")
+        torch.cuda.empty_cache()
+    model32 = CausalLM(dataclasses.replace(cfg, dtype="float32"),
+                       _tree_map(lambda t: t.to(dev, torch.float32), model.params))
+    with plain(), recorded_routing(routes["float32"]):
         true_logits, _ = model32.prefill({"tokens": tokens[:, :s]})
     err = (logits - plain_logits).abs().max().item()
     err_kernel = (logits - true_logits).abs().max().item()
     err_plain = (plain_logits - true_logits).abs().max().item()
     scale = true_logits.abs().max().item()
-    name, first = next((k, v) for k, v in cache["blocks"]["pos_0"].items())
-    leaf_err = (first[-1].float() - plain_cache["blocks"]["pos_0"][name][-1].float()).abs().max().item()
-    print(f"[serve] {cfg.name} prefill({batch}x{s}) last logits (largest {scale:.2f}): kernel path vs plain "
-          f"{err:.3e}; against the float32 model through the plain version: bf16 kernel path {err_kernel:.3e}, "
-          f"bf16 plain path {err_plain:.3e}; last layer's cached {name}, kernel vs plain: {leaf_err:.3e}")
+    print(f"[serve] {cfg.name} ({cfg.n_layers} layers) prefill({batch}x{s}) last logits (largest {scale:.2f}): "
+          f"kernel path vs plain {err:.3e}; against the float32 model through the plain version: bf16 kernel "
+          f"path {err_kernel:.3e}, bf16 plain path {err_plain:.3e}; last layer's cached {name}, kernel vs plain: "
+          f"{leaf_err:.3e}")
+    if cfg.moe is not None:
+        print(f"[serve] {cfg.name} routing on that prompt (capacity factor {cfg.moe.capacity_factor:g}): "
+              f"bf16 kernel path vs bf16 plain path: {routing_gap(routes['kernel'], routes['plain'])}; "
+              f"bf16 kernel path vs float32: {routing_gap(routes['kernel'], routes['float32'])}; "
+              f"bf16 plain path vs float32: {routing_gap(routes['plain'], routes['float32'])}")
     # many layers of bf16 activations: the two bf16 paths round at different
     # places, so each is held to the float32 model, and the kernel path may
     # not stray further from it than the plain bf16 path does (x1.5 for the
@@ -667,37 +855,39 @@ def check_model_against_plain(model, cfg, batch: int, plain, max_stray, step_len
     if max_stray is not None and not err_kernel <= max_stray * max(1.0, scale):
         raise SystemExit(f"{cfg.name}: the kernel path strays from the float32 model by {err_kernel}")
 
-    # prefill n tokens, stage, decode token n + 1  ==  prefill of n + 1 tokens
-    n = step_len
-
-    def step_against_longer(m):
-        small = m.prefill({"tokens": tokens[:, :n]})[1]
-        big = stage_prefill_cache(small, m.init_cache(batch, n + 8), n)
-        position = torch.full((batch,), n, dtype=torch.int32, device=m.device)
-        return m.decode_step(big, tokens[:, n : n + 1], position)[1], m.prefill({"tokens": tokens[:, : n + 1]})[0]
-
-    step_logits, longer_logits = step_against_longer(model)
-    err = (step_logits - longer_logits).abs().max().item()
-    print(f"[serve] {cfg.name} prefill({n}) + staged cache + one decode step vs prefill({n + 1}): max_abs_err {err:.3e}")
-    # two bf16 paths again (the decode step is plain PyTorch, the prefill the kernel)
-    if not err <= 5e-2 * max(1.0, longer_logits.abs().max().item()):
-        raise SystemExit(f"{cfg.name}: decode against the staged prefill cache disagrees with a longer prefill")
     # the same in float32 through the kernels, where the staged cache must be exact
-    step32, longer32 = step_against_longer(model32)
+    step32, longer32, pinned = step_against_longer(ample_capacity(model32))
     with plain():
-        plain32 = model32.prefill({"tokens": tokens[:, : n + 1]})[0]
+        plain32 = ample_capacity(model32).prefill({"tokens": tokens[:, : n + 1]})[0]
     e32 = (step32 - longer32).abs().max().item()
     e_plain = (longer32 - plain32).abs().max().item()
     print(f"[serve] {cfg.name} float32 through the kernels: prefill({n}) + staged cache + one decode step vs "
-          f"prefill({n + 1}) {e32:.3e}; prefill({n + 1}) against the plain version {e_plain:.3e}")
+          f"prefill({n + 1}){ample} {e32:.3e}{pinned}; prefill({n + 1}) against the plain version {e_plain:.3e}")
     if not (e32 <= 1e-3 * max(1.0, scale) and e_plain <= 1e-3 * max(1.0, scale)):
         raise SystemExit(f"{cfg.name}: the float32 kernel path disagrees")
     del model32
     torch.cuda.empty_cache()
+    if offload:
+        model.to(dev)
 
 
-def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int, one_sequence=None) -> int:
-    """Phase 4 for one model: returns how often ``kernel`` launched in its served request.
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def expected_launches(cfg) -> dict:
+    """K1 once a prefill for each attention layer, K2 for each SSD layer."""
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    return {"flash_attention_fwd": attn, "ssd_scan_fwd": cfg.n_layers - attn}
+
+
+def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequence=None,
+                        check_layers=None, offload=False) -> dict:
+    """Phase 4 for one model: returns the kernels' launches in its served request.
+
+    The checks against the plain path and a float32 model run on the served
+    model's first ``check_layers`` layers (all of them where None), moved to
+    the host while its float32 copy is on the card where ``offload`` says.
     ``one_sequence``, where given, is then called with the model."""
     import torch
 
@@ -712,7 +902,13 @@ def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int, 
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e9:.2f} B parameters in bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
-    check_model_against_plain(model, cfg, BATCH, plain, max_stray, step_len)
+    if check_layers is None or check_layers == cfg.n_layers:
+        check_model_against_plain(model, BATCH, plain, max_stray, step_len, offload=offload)
+    else:
+        print(f"[serve] {cfg.name}: the checks against the plain path and the float32 model run on its first "
+              f"{check_layers} layers at full width (a float32 copy of all {cfg.n_layers} does not fit beside "
+              "the bf16 model)")
+        check_model_against_plain(depth_cut(model, check_layers), BATCH, plain, max_stray, step_len)
 
     inputs = make_inputs(cfg, BATCH, PROMPT_LEN, torch.Generator(device=dev).manual_seed(1))
     torch.cuda.reset_peak_memory_stats()
@@ -720,9 +916,9 @@ def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int, 
         counted.launches = 0
     result = serve(model, inputs, GEN)
     launches = {name: counted.launches for name, counted in counters.items()}
-    if launches[kernel] != cfg.n_layers:
-        raise SystemExit(f"{cfg.name}: prefill launched {kernel} {launches[kernel]} times, "
-                         f"not once per layer ({cfg.n_layers})")
+    want = expected_launches(cfg)
+    if {name: launches[name] for name in want} != want:
+        raise SystemExit(f"{cfg.name}: prefill launched {launches}, not once per layer of each kind ({want})")
     if result["prefill_logits"].shape != (BATCH, cfg.vocab_size) or result["tokens"].shape != (BATCH, GEN + 1):
         raise SystemExit(f"{cfg.name}: serve returned the wrong shapes")
     if not (torch.isfinite(result["prefill_logits"]).all() and torch.isfinite(result["last_logits"]).all()):
@@ -738,7 +934,7 @@ def serve_at_full_width(cfg, kernel, counters, plain, max_stray, step_len: int, 
         one_sequence(model)
     del model
     torch.cuda.empty_cache()
-    return launches[kernel]
+    return launches
 
 
 def serve_one_sequence(model, cfg, counters, entry) -> None:
@@ -846,7 +1042,8 @@ def main() -> int:
 
     # ---- 3. kernels ---------------------------------------------------------
     phi4, mamba2 = get_config("phi4-mini-3.8b"), get_config("mamba2-1.3b")
-    k1 = check_attention_kernel(PROMPT_LEN, phi4)
+    deepseek, qwen3 = get_config("deepseek-v2-lite-16b"), get_config("qwen3-moe-30b-a3b")
+    k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, get_config("stablelm-3b"))
     k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
     k3, k4, k5 = check_scu_kernels()
 
@@ -855,13 +1052,34 @@ def main() -> int:
                 "scu_barrier": scu_kernel.scu_barrier, "scu_notifier": scu_kernel.scu_notifier,
                 "scu_self_signal": scu_kernel.scu_self_signal}
     # 513 is no multiple of any attention tile: the ragged edge on the serving path
-    k1["launches"] = serve_at_full_width(phi4, "flash_attention_fwd", counters, plain_attention, 5e-2, 512)
+    by_model = {}
+    by_model[phi4.name] = serve_at_full_width(phi4, counters, plain_attention, 5e-2, 512)
     # the SSD chunk must divide the prompt: 255 and 256 are one chunk each (255 the ragged one).
     # 48 layers of random SSD weights in bf16 stray from float32 further than 5 % of the
     # largest logit on either path, so only the plain path bounds the kernel's
     # then one prompt alone, where K2 takes a chunk-parallel form
-    k2["launches"] = serve_at_full_width(mamba2, "ssd_scan_fwd", counters, plain_ssd_scan, None, 255,
-                                         lambda model: serve_one_sequence(model, mamba2, counters, k2))
+    by_model[mamba2.name] = serve_at_full_width(mamba2, counters, plain_ssd_scan, None, 255,
+                                                lambda model: serve_one_sequence(model, mamba2, counters, k2))
+    # deepseek (27 layers, 15.7 B) and qwen3-moe (48 layers, 30.5 B) whole; their checks at 4
+    # layers (deepseek: the dense prelude and 3 MoE layers).  bf16 routing flips between the
+    # two paths move the logits of a random MoE model by more than 5 % of the largest one,
+    # so only the plain path bounds the kernel's, as for mamba2.
+    by_model[deepseek.name] = serve_at_full_width(deepseek, counters, plain_attention, None, 512, check_layers=4)
+    by_model[qwen3.name] = serve_at_full_width(qwen3, counters, plain_attention, None, 512, check_layers=4)
+    # jamba: one group of 8 of its 32 layers (1 attention, 7 SSD, 4 MoE): 13.3 B parameters
+    # (26.5 GB in bf16) of 51.6 B, which would take 103 GB; the group keeps the 1:7 pattern.
+    # Its checks take that whole group, with the bf16 model on the host while the float32
+    # copy (53 GB) is on the card.  127 and 128 fit its SSD chunk of 128.
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
+    print(f"[serve] {jamba.name}: cut to one group of {jamba.block_group} layers of its "
+          f"{get_config('jamba-v0.1-52b').n_layers} ({jamba.n_params() / 1e9:.1f} B parameters of "
+          f"{get_config('jamba-v0.1-52b').n_params() / 1e9:.1f} B; the whole model does not fit the card in bf16)")
+    by_model[jamba.name] = serve_at_full_width(jamba, counters, plain_hybrid, None, 127, offload=True)
+    k1["launches"] = by_model[phi4.name]["flash_attention_fwd"]
+    k2["launches"] = by_model[mamba2.name]["ssd_scan_fwd"]
+    k1["mla"]["launches"] = by_model[deepseek.name]["flash_attention_fwd"]
+    for entry in (k1, k2):
+        entry["launches_by_model"] = {name: got[entry["name"]] for name, got in by_model.items()}
 
     # ---- 5. sync -------------------------------------------------------------
     swept = barrier_sweep(counters)

@@ -2,7 +2,7 @@
 """Where one prefill and a few decode steps of the PyTorch/CUDA port spend their time.
 
     PYTHONPATH=src python3 scripts/profile_serve_torch.py [--arch phi4-mini-3.8b]
-        [--batch 4] [--prompt-len 4096] [--steps 8] [--out FILE]
+        [--batch 4] [--prompt-len 4096] [--steps 8] [--layers N] [--out FILE]
 
 Needs an NVIDIA GPU.  It draws random bf16 weights at the model's full width,
 warms up, then traces one prefill and ``--steps`` decode steps with
@@ -10,13 +10,17 @@ warms up, then traces one prefill and ``--steps`` decode steps with
 around a synchronised region), the device's busy time (the sum of kernel
 times) and idle share, and the kernels by total device time.  Kernel names
 are the device's own; ``flash_fwd_hopper`` is this repo's attention kernel
-at head dims 64 and 128 (``flash_fwd_bf16`` at 16 and 80) and
-``ssd_scan_bf16`` its SSD-scan kernel (``--arch mamba2-1.3b``).
+at head dims 64 and 128 (``flash_fwd_bf16`` at 16 and 80, and at MLA's qk
+192 / v 128: ``--arch deepseek-v2-lite-16b``) and ``ssd_scan_bf16`` its
+SSD-scan kernel (``--arch mamba2-1.3b``).  ``--layers`` cuts the depth, for a
+model that does not fit the card whole (``--arch jamba-v0.1-52b --layers 8``:
+one group of its 32 layers).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
@@ -56,16 +60,20 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=None, help="serve only this many layers (default: all)")
     ap.add_argument("--out", type=Path, default=None, help="also write the report to this file")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = CausalLM(cfg, init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16))
     inputs = make_inputs(cfg, args.batch, args.prompt_len, torch.Generator(device=dev).manual_seed(1))
     max_seq = args.prompt_len + 2 * args.steps + 2
     lines = [card_name_and_power_limit(),
-             f"{cfg.name} bf16, batch {args.batch}, prompt {args.prompt_len}, torch {torch.__version__}"]
+             f"{cfg.name} bf16, {cfg.n_layers} layers, batch {args.batch}, prompt {args.prompt_len}, "
+             f"torch {torch.__version__}"]
 
     def decode(cache, tok, start, n):
         position = torch.full((args.batch,), start, dtype=torch.int32, device=dev)

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel `flash_attention_fwd` / `_kernel` of
 // src/repro/kernels/flash_attention/kernel.py (the `pl.pallas_call` there).
 // Same function: softmax(q k^T / sqrt(d) [causal, -1e30]) v by online
-// softmax over KV tiles with an f32 running max `m`, denominator `l` and
+// softmax over KV tiles (q and k rows d = dqk wide, v rows dv wide: MLA's
+// 192 and 128, the function of the reference's `flash_core` with g = 1) with an f32 running max `m`, denominator `l` and
 // accumulator, GQA by index (kv head = h / (h / kvh)), final divide by
 // max(l, 1e-30).  It also writes lse = m + log(max(l, 1e-30)), which the
 // Pallas kernel does not, because the backward pass of a later slice
@@ -55,14 +56,20 @@
 //   are numbered heavy first (the last causal q tiles of every (b, h) before
 //   any lighter one) and dealt out in rounds, every other round in reverse,
 //   so every CTA gets about the same work.
-// - bf16, d = 16 and 80 (`flash_fwd_bf16`): the `mma.sync.m16n8k16` kernel
-//   with `ldmatrix` and `cp.async` double buffering (4 warps, 128 q rows).
+// - bf16, d = 16 and 80, and (dqk, dv) = (192, 128) (`flash_fwd_bf16`): the
+//   `mma.sync.m16n8k16` kernel with `ldmatrix` and `cp.async` double
+//   buffering, 4 warps of two m-tiles, 128 q rows a block (of one m-tile, 64
+//   rows, at 192/128, where two m-tiles' accumulators do not fit the
+//   registers).  At deepseek-v2-lite's prefill (b=4, h=16, s=4096, causal)
+//   the work is 2*(dqk+dv)*b*h*pairs = 3.4e11 FLOP against 0.34 GB: bound by
+//   the tensor cores, 0.35 ms.  `mma.sync` does not reach that rate; a
+//   `wgmma` form for the pair is later work.
 // - f32 (`flash_fwd_f32`): full-precision FMAs on the CUDA cores (no TF32),
 //   because the reference upcasts before its dot products and is held to
 //   2e-5.  It is a correctness path, not a fast one.
 //
-// `flash_attention_path(dtype, d)` says which kernel takes a call; the
-// wrapper's `kernel_path` is the same table.  No path falls back to
+// `flash_attention_path_dqk_dv(dtype, dqk, dv)` says which kernel takes a
+// call; the wrapper's `kernel_path` is the same table.  No path falls back to
 // another: a tensor map that cannot be encoded is an error code.
 
 #include <cuda.h>
@@ -146,42 +153,52 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel.  A block is 4 warps and 128 q rows; one warp owns
-// 32 q rows, two m-tiles of the mma.  Every K and V fragment a warp loads
-// from shared memory feeds two products: a warp reads the whole K and V tile
-// whatever its row count, so with one m-tile per warp shared-memory bandwidth
-// bounds the kernel.  255 registers a thread, two blocks on an SM.
+// bf16: tensor-core kernel on `mma.sync`, for head dims the Hopper kernel
+// does not take.  Q and K rows are DQK wide, V and output rows DV wide (MLA:
+// 192 and 128; every other arch DQK == DV).  A block is NW warps and
+// NW * MT * 16 q rows; one warp owns MT m-tiles of 16 rows.  Every K and V
+// fragment a warp loads from shared memory feeds MT products: a warp reads
+// the whole K and V tile whatever its row count, so with one m-tile per warp
+// shared-memory bandwidth bounds the kernel.  At d = 16 and 80 a block is 4
+// warps of two m-tiles, 128 rows.  At 192/128 two m-tiles' output
+// accumulators (128 registers a thread), score tiles (64) and Q fragments
+// come near the 255 a thread may have, so a block is 4 warps of one m-tile,
+// 64 rows (165 registers, no spill).
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;    // warps per block
-constexpr int kMTiles = 2;   // 16-row m-tiles per warp
-constexpr int kBlockM = kWarps * kMTiles * 16;  // q rows per block
 constexpr int kBlockN = 64;  // keys per KV tile
 
-template <int D>
-constexpr int bf16_smem_bytes() {
-    return (kBlockM + 4 * kBlockN) * (D + 8) * 2;
+template <int NW, int MT>
+__host__ __device__ constexpr int bf16_block_m() {
+    return NW * MT * 16;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
-    constexpr int NWARPS = kWarps;
-    constexpr int MT = kMTiles;
+// Q, then two stages of K (DQK wide), then two stages of V (DV wide), each
+// row padded by 8 elements
+template <int DQK, int DV, int NW, int MT>
+constexpr int bf16_smem_bytes() {
+    return ((bf16_block_m<NW, MT>() + 2 * kBlockN) * (DQK + 8) + 2 * kBlockN * (DV + 8)) * 2;
+}
+
+template <int DQK, int DV, int NW, int MT>
+__global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
+    constexpr int NWARPS = NW;
     constexpr int WM = MT * 16;  // q rows per warp
-    constexpr int BM = kBlockM;
+    constexpr int BM = bf16_block_m<NW, MT>();
     constexpr int BN = kBlockN;
-    constexpr int LDS = D + 8;     // padded row: conflict-free fragment loads
-    constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+    constexpr int LDQ = DQK + 8;  // padded Q and K rows: conflict-free fragment loads
+    constexpr int LDV = DV + 8;   // padded V rows
     constexpr int NTHREADS = NWARPS * 32;
-    constexpr int KSTEPS = D / 16;   // k-steps of q k^T
-    constexpr int SNT = BN / 8;      // n-tiles of the score tile
-    constexpr int ONT = D / 8;       // n-tiles of the output tile
-    constexpr int PSTEPS = BN / 16;  // k-steps of p v
+    constexpr int KSTEPS = DQK / 16;  // k-steps of q k^T
+    constexpr int SNT = BN / 8;       // n-tiles of the score tile
+    constexpr int ONT = DV / 8;       // n-tiles of the output tile
+    constexpr int PSTEPS = BN / 16;   // k-steps of p v
+    static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* sK = sQ + BM * LDS;      // two stages
-    __nv_bfloat16* sV = sK + 2 * BN * LDS;  // two stages
+    __nv_bfloat16* sK = sQ + BM * LDQ;      // two stages
+    __nv_bfloat16* sV = sK + 2 * BN * LDQ;  // two stages
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -207,15 +224,17 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
         static_cast<const __nv_bfloat16*>(p.v) + batch * p.v_sb + kvhead * p.v_sh;
     __nv_bfloat16* gO = static_cast<__nv_bfloat16*>(p.o) + batch * p.o_sb + head * p.o_sh;
 
+    // `width` elements a row (16-byte chunks), rows `ld` apart in shared memory
     auto load_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, long long stride,
-                         int row0, int nrows, int limit) {
-        for (int c = tid; c < nrows * CHUNKS; c += NTHREADS) {
-            const int r = c / CHUNKS;
-            const int ch = c - r * CHUNKS;
+                         int row0, int nrows, int limit, int width, int ld) {
+        const int chunks = width / 8;
+        for (int c = tid; c < nrows * chunks; c += NTHREADS) {
+            const int r = c / chunks;
+            const int ch = c - r * chunks;
             const int grow = row0 + r;
             const bool valid = grow < limit;
             const __nv_bfloat16* s = src + (long long)(valid ? grow : 0) * stride + ch * 8;
-            cp_async_16(dst + r * LDS + ch * 8, s, valid);
+            cp_async_16(dst + r * ld + ch * 8, s, valid);
         }
     };
 
@@ -223,9 +242,9 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
     int n_tiles = (p.sk + BN - 1) / BN;
     if (p.causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
 
-    load_rows(sQ, gQ, p.q_ss, q0, BM, p.sq);
-    load_rows(sK, gK, p.k_ss, 0, BN, p.sk);
-    load_rows(sV, gV, p.v_ss, 0, BN, p.sk);
+    load_rows(sQ, gQ, p.q_ss, q0, BM, p.sq, DQK, LDQ);
+    load_rows(sK, gK, p.k_ss, 0, BN, p.sk, DQK, LDQ);
+    load_rows(sV, gV, p.v_ss, 0, BN, p.sk, DV, LDV);
     cp_async_commit();
 
     // Per-lane ldmatrix addresses.  An x4 load brings four 8x8 matrices; lane
@@ -238,9 +257,9 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
     //   v (B operand of p v, transposed on load, 16 keys x two n-tiles):
     //     (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (keys
     //     8-15, d 8-15) = b0, b1 of the first n-tile, then of the second
-    const int q_lane = (warp * WM + (mi & 1) * 8 + mr) * LDS + (mi >> 1) * 8;
-    const int k_lane = ((mi >> 1) * 8 + mr) * LDS + (mi & 1) * 8;
-    const int v_lane = ((mi & 1) * 8 + mr) * LDS + (mi >> 1) * 8;
+    const int q_lane = (warp * WM + (mi & 1) * 8 + mr) * LDQ + (mi >> 1) * 8;
+    const int k_lane = ((mi >> 1) * 8 + mr) * LDQ + (mi & 1) * 8;
+    const int v_lane = ((mi & 1) * 8 + mr) * LDV + (mi >> 1) * 8;
 
     float oacc[MT][ONT][4];
     float m_a[MT], m_b[MT];  // running max of rows g and g + 8, in units of log2
@@ -263,16 +282,16 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
         cp_async_wait_all();
         __syncthreads();
         if (j + 1 < n_tiles) {
-            load_rows(sK + (stage ^ 1) * BN * LDS, gK, p.k_ss, (j + 1) * BN, BN, p.sk);
-            load_rows(sV + (stage ^ 1) * BN * LDS, gV, p.v_ss, (j + 1) * BN, BN, p.sk);
+            load_rows(sK + (stage ^ 1) * BN * LDQ, gK, p.k_ss, (j + 1) * BN, BN, p.sk, DQK, LDQ);
+            load_rows(sV + (stage ^ 1) * BN * LDV, gV, p.v_ss, (j + 1) * BN, BN, p.sk, DV, LDV);
             cp_async_commit();
         }
         const int k0 = j * BN;
         // every key of this tile lies above the diagonal for this warp's rows
         if (p.causal && k0 > wrow0 + WM - 1) continue;
 
-        const __nv_bfloat16* kbase = sK + stage * BN * LDS + k_lane;
-        const __nv_bfloat16* vbase = sV + stage * BN * LDS + v_lane;
+        const __nv_bfloat16* kbase = sK + stage * BN * LDQ + k_lane;
+        const __nv_bfloat16* vbase = sV + stage * BN * LDV + v_lane;
 
         // ---- s = q k^T ------------------------------------------------------
         float sacc[MT][SNT][4];
@@ -289,12 +308,12 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
                 ldmatrix_x4(qf[mt][0], qf[mt][1], qf[mt][2], qf[mt][3],
-                            sQ + q_lane + mt * 16 * LDS + kk * 16);
+                            sQ + q_lane + mt * 16 * LDQ + kk * 16);
             }
 #pragma unroll
             for (int np = 0; np < SNT / 2; ++np) {
                 uint32_t r0, r1, r2, r3;
-                ldmatrix_x4(r0, r1, r2, r3, kbase + np * 16 * LDS + kk * 16);
+                ldmatrix_x4(r0, r1, r2, r3, kbase + np * 16 * LDQ + kk * 16);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                     mma_bf16(sacc[mt][2 * np], qf[mt], r0, r1);
@@ -385,7 +404,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Params p) {
 #pragma unroll
             for (int dp = 0; dp < ONT / 2; ++dp) {
                 uint32_t r0, r1, r2, r3;
-                ldmatrix_x4_trans(r0, r1, r2, r3, vbase + ks * 16 * LDS + dp * 16);
+                ldmatrix_x4_trans(r0, r1, r2, r3, vbase + ks * 16 * LDV + dp * 16);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                     mma_bf16(oacc[mt][2 * dp], pf[mt], r0, r1);
@@ -938,22 +957,24 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // ---------------------------------------------------------------------------
 // f32: full-precision FMAs on the CUDA cores.  256 threads as 16 x 16; thread
 // (ty, tx) owns q rows ty + 16 i, keys tx + 16 j and output columns tx + 16 c.
+// Q and K rows are DQK wide, V and output rows DV wide.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Block = 64;  // q rows per block and keys per tile
 
-template <int D>
+template <int DQK, int DV>
 constexpr int f32_smem_bytes() {
-    return (3 * kF32Block * (D + 1) + kF32Block * (kF32Block + 1)) * 4;
+    return (2 * kF32Block * (DQK + 1) + kF32Block * (DV + 1) + kF32Block * (kF32Block + 1)) * 4;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
     constexpr int BM = kF32Block;
     constexpr int BN = kF32Block;
-    constexpr int LDQ = D + 1;   // odd stride: conflict-free column walks
+    constexpr int LDQ = DQK + 1;  // odd stride: conflict-free column walks
+    constexpr int LDV = DV + 1;
     constexpr int LDP = BN + 1;
-    constexpr int DC = D / 16;   // output columns per thread
+    constexpr int DC = DV / 16;  // output columns per thread
     constexpr int R = BM / 16;   // q rows per thread
     constexpr int C = BN / 16;   // keys per thread
 
@@ -961,7 +982,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
     float* sQ = reinterpret_cast<float*>(smem_raw);
     float* sK = sQ + BM * LDQ;
     float* sV = sK + BN * LDQ;
-    float* sP = sV + BN * LDQ;
+    float* sP = sV + BN * LDV;
 
     const int tid = threadIdx.x;
     const int tx = tid & 15;
@@ -978,19 +999,21 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
     const float* gV = static_cast<const float*>(p.v) + batch * p.v_sb + kvhead * p.v_sh;
     float* gO = static_cast<float*>(p.o) + batch * p.o_sb + head * p.o_sh;
 
-    auto load_rows = [&](float* dst, const float* src, long long stride, int row0, int limit) {
-        for (int idx = tid; idx < BM * D; idx += 256) {
-            const int r = idx / D;
-            const int c = idx - r * D;
+    // 64 rows of `width` elements, rows `ld` apart in shared memory
+    auto load_rows = [&](float* dst, const float* src, long long stride, int row0, int limit,
+                         int width, int ld) {
+        for (int idx = tid; idx < BM * width; idx += 256) {
+            const int r = idx / width;
+            const int c = idx - r * width;
             const int grow = row0 + r;
-            dst[r * LDQ + c] = (grow < limit) ? src[(long long)grow * stride + c] : 0.f;
+            dst[r * ld + c] = (grow < limit) ? src[(long long)grow * stride + c] : 0.f;
         }
     };
 
     int n_tiles = (p.sk + BN - 1) / BN;
     if (p.causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
 
-    load_rows(sQ, gQ, p.q_ss, q0, p.sq);
+    load_rows(sQ, gQ, p.q_ss, q0, p.sq, DQK, LDQ);
 
     float oacc[R][DC];
     float m[R], l[R];
@@ -1005,8 +1028,8 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
     for (int j = 0; j < n_tiles; ++j) {
         const int k0 = j * BN;
         __syncthreads();  // the previous tile's products are done with sK, sV, sP
-        load_rows(sK, gK, p.k_ss, k0, p.sk);
-        load_rows(sV, gV, p.v_ss, k0, p.sk);
+        load_rows(sK, gK, p.k_ss, k0, p.sk, DQK, LDQ);
+        load_rows(sV, gV, p.v_ss, k0, p.sk, DV, LDV);
         __syncthreads();
 
         float s[R][C];
@@ -1016,7 +1039,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
             for (int c = 0; c < C; ++c) s[i][c] = 0.f;
         }
 #pragma unroll 4
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < DQK; ++d) {
             float qv[R], kv[C];
 #pragma unroll
             for (int i = 0; i < R; ++i) qv[i] = sQ[(ty + 16 * i) * LDQ + d];
@@ -1074,7 +1097,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
 #pragma unroll
             for (int i = 0; i < R; ++i) pv[i] = sP[(ty + 16 * i) * LDP + kk];
 #pragma unroll
-            for (int c = 0; c < DC; ++c) vv[c] = sV[kk * LDQ + tx + 16 * c];
+            for (int c = 0; c < DC; ++c) vv[c] = sV[kk * LDV + tx + 16 * c];
 #pragma unroll
             for (int i = 0; i < R; ++i) {
 #pragma unroll
@@ -1114,12 +1137,15 @@ constexpr int kErrNotBuilt = -1;
 constexpr int kErrNoEncoder = -2;
 constexpr int kErrTensorMap = -3;
 
-// Path ids, as kernel.py names them: 0 "f32", 1 "mma_sync", 2 "wgmma".
-int path_of(int dtype, int d) {
-    if (dtype == 0) return (d == 16 || d == 64 || d == 80 || d == 128) ? 0 : kErrNotBuilt;
+// Path ids, as kernel.py names them: 0 "f32", 1 "mma_sync", 2 "wgmma".  The
+// head dims built: dqk == dv in {16, 64, 80, 128}, and MLA's (192, 128).
+int path_of(int dtype, int dqk, int dv) {
+    const bool same = dqk == dv && (dqk == 16 || dqk == 64 || dqk == 80 || dqk == 128);
+    const bool mla = dqk == 192 && dv == 128;
+    if (dtype == 0) return (same || mla) ? 0 : kErrNotBuilt;
     if (dtype == 1) {
-        if (d == 64 || d == 128) return 2;
-        if (d == 16 || d == 80) return 1;
+        if (same && (dqk == 64 || dqk == 128)) return 2;
+        if (same || mla) return 1;
     }
     return kErrNotBuilt;
 }
@@ -1137,14 +1163,16 @@ cudaError_t launch(Kernel kernel, int smem, int threads, int block_m, const Para
     return cudaGetLastError();
 }
 
-template <int D>
+// (warps, m-tiles a warp) of the mma.sync kernel: see its note
+template <int DQK, int DV, int NW = 4, int MT = (DV > 80 ? 1 : 2)>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-    return launch(flash_fwd_bf16<D>, bf16_smem_bytes<D>(), kWarps * 32, kBlockM, p, stream);
+    return launch(flash_fwd_bf16<DQK, DV, NW, MT>, bf16_smem_bytes<DQK, DV, NW, MT>(), NW * 32,
+                  bf16_block_m<NW, MT>(), p, stream);
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-    return launch(flash_fwd_f32<D>, f32_smem_bytes<D>(), 256, kF32Block, p, stream);
+    return launch(flash_fwd_f32<DQK, DV>, f32_smem_bytes<DQK, DV>(), 256, kF32Block, p, stream);
 }
 
 // libcuda's cuTensorMapEncodeTiled, looked up through the runtime so that the
@@ -1213,22 +1241,28 @@ int launch_hopper(Params p, cudaStream_t stream) {
 
 }  // namespace
 
-// Which kernel takes (dtype, d): 0 the f32 kernel, 1 the mma.sync kernel, 2
-// the wgmma kernel, -1 none.  kernel.py's `kernel_path` is the same table;
-// a card test holds the two together.
-extern "C" int flash_attention_path(int dtype, int d) { return path_of(dtype, d); }
+// Which kernel takes (dtype, qk head dim, v head dim): 0 the f32 kernel, 1
+// the mma.sync kernel, 2 the wgmma kernel, -1 none.  kernel.py's
+// `kernel_path` is the same table; a card test holds the two together.
+extern "C" int flash_attention_path_dqk_dv(int dtype, int dqk, int dv) {
+    return path_of(dtype, dqk, dv);
+}
 
-// Returns a cudaError_t as int (0 on success), -1 for a head dim or type
+// The same table for one head dim (dqk == dv).
+extern "C" int flash_attention_path(int dtype, int d) { return path_of(dtype, d, d); }
+
+// Returns a cudaError_t as int (0 on success), -1 for head dims or a type
 // that this file does not build, -2 when libcuda has no tensor-map
 // encoder, -3 when a tensor map cannot be encoded for these pointers and
-// strides.  `dtype`: 0 = float32, 1 = bfloat16.  Strides are in elements;
-// the head dim must be contiguous, and for bf16 every row must start on a
-// 16-byte boundary.  Nothing is allocated and nothing synchronises: the
-// launch goes onto `stream`.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int dtype, int b, int h, int kvh, int sq,
-                                   int sk, int d, const long long* strides, float scale,
-                                   int causal, void* stream) {
+// strides.  `dtype`: 0 = float32, 1 = bfloat16.  q and k rows are `dqk`
+// wide, v and o rows `dv` wide.  Strides are in elements; the head dim must
+// be contiguous, and for bf16 every row must start on a 16-byte boundary.
+// Nothing is allocated and nothing synchronises: the launch goes onto
+// `stream`.
+extern "C" int flash_attention_fwd_dqk_dv(const void* q, const void* k, const void* v, void* o,
+                                          float* lse, int dtype, int b, int h, int kvh, int sq,
+                                          int sk, int dqk, int dv, const long long* strides,
+                                          float scale, int causal, void* stream) {
     Params p;
     p.q = q;
     p.k = k;
@@ -1255,19 +1289,34 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     p.scale = scale;
     p.causal = causal;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (path_of(dtype, d)) {
+    switch (path_of(dtype, dqk, dv)) {
         case 2:
-            return d == 64 ? launch_hopper<64>(p, s) : launch_hopper<128>(p, s);
+            return dqk == 64 ? launch_hopper<64>(p, s) : launch_hopper<128>(p, s);
         case 1:
-            return static_cast<int>(d == 16 ? launch_bf16<16>(p, s) : launch_bf16<80>(p, s));
+            switch (dqk) {
+                case 16: return static_cast<int>(launch_bf16<16, 16>(p, s));
+                case 80: return static_cast<int>(launch_bf16<80, 80>(p, s));
+                default: return static_cast<int>(launch_bf16<192, 128>(p, s));
+            }
         case 0:
-            switch (d) {
-                case 16: return static_cast<int>(launch_f32<16>(p, s));
-                case 64: return static_cast<int>(launch_f32<64>(p, s));
-                case 80: return static_cast<int>(launch_f32<80>(p, s));
-                default: return static_cast<int>(launch_f32<128>(p, s));
+            switch (dqk) {
+                case 16: return static_cast<int>(launch_f32<16, 16>(p, s));
+                case 64: return static_cast<int>(launch_f32<64, 64>(p, s));
+                case 80: return static_cast<int>(launch_f32<80, 80>(p, s));
+                case 128: return static_cast<int>(launch_f32<128, 128>(p, s));
+                default: return static_cast<int>(launch_f32<192, 128>(p, s));
             }
         default:
             return kErrNotBuilt;
     }
+}
+
+// The entry for one head dim (dqk == dv), kept with its signature for the
+// callers that load an earlier source through it.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int dtype, int b, int h, int kvh, int sq,
+                                   int sk, int d, const long long* strides, float scale,
+                                   int causal, void* stream) {
+    return flash_attention_fwd_dqk_dv(q, k, v, o, lse, dtype, b, h, kvh, sq, sk, d, d, strides,
+                                      scale, causal, stream);
 }

@@ -8,10 +8,11 @@ laid out as it is.
 
 ``flash_attention_fwd`` takes CUDA tensors only and launches the kernel or
 raises.  It counts its launches in ``flash_attention_fwd.launches``.  Which
-of the source's three kernels takes a call is ``kernel_path(dtype, d)``:
-bf16 at head dims 64 and 128 goes to the Hopper kernel (``wgmma``, TMA,
-warp specialisation), bf16 at 16 and 80 to the ``mma.sync`` kernel, f32 to
-the full-precision one.  No path falls back to another.
+of the source's three kernels takes a call is ``kernel_path(dtype, dqk,
+dv)``: bf16 at head dims 64 and 128 goes to the Hopper kernel (``wgmma``,
+TMA, warp specialisation), bf16 at 16 and 80 and at MLA's pair (qk 192, v
+128) to the ``mma.sync`` kernel, f32 to the full-precision one.  No path
+falls back to another.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ import torch
 
 from .._build import load_library, rows_aligned
 
-__all__ = ["HEAD_DIMS", "PATHS", "build", "flash_attention_fwd", "kernel_path"]
+__all__ = ["HEAD_DIMS", "HEAD_DIM_PAIRS", "PATHS", "build", "flash_attention_fwd", "kernel_path"]
 
-HEAD_DIMS = (16, 64, 80, 128)  # the head dims that the CUDA source instantiates
+HEAD_DIMS = (16, 64, 80, 128)  # the head dims (dqk == dv) that the CUDA source instantiates
+HEAD_DIM_PAIRS = ((192, 128),)  # the (dqk, dv) pairs with dqk != dv it instantiates: MLA's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 # the source's kernels, by the id that its `flash_attention_path` returns
@@ -40,69 +42,82 @@ _ERRORS = {
 }
 
 
-def kernel_path(dtype: torch.dtype, d: int) -> str:
-    """The kernel that takes ``(dtype, d)``: ``"wgmma"`` (bf16, d 64 and 128),
-    ``"mma_sync"`` (bf16, d 16 and 80) or ``"f32"``.  Raises for anything
-    the source does not build.  The C entry's ``flash_attention_path`` is the
+def kernel_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
+    """The kernel that takes ``(dtype, dqk, dv)`` (``dv`` defaults to
+    ``dqk``): ``"wgmma"`` (bf16, d 64 and 128), ``"mma_sync"`` (bf16, d 16
+    and 80, and (192, 128)) or ``"f32"``.  Raises for anything the source
+    does not build.  The C entry's ``flash_attention_path_dqk_dv`` is the
     same table."""
+    dv = dqk if dv is None else dv
     if dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got {dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not built; the kernel takes {HEAD_DIMS}")
+    if dqk == dv and dqk not in HEAD_DIMS:
+        raise ValueError(f"head dim {dqk} is not built; the kernel takes {HEAD_DIMS}")
+    if dqk != dv and (dqk, dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (qk {dqk}, v {dv}) are not built; the kernel takes "
+                         f"{HEAD_DIMS} and the pairs {HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
         return "f32"
-    return "wgmma" if d in (64, 128) else "mma_sync"
+    return "wgmma" if dqk == dv and dqk in (64, 128) else "mma_sync"
 
 
 @functools.lru_cache(maxsize=None)
 def build(source: Path = _SOURCE):
-    """Compile (if needed) and load the kernel's library; returns its entry point."""
+    """Compile (if needed) and load the kernel's library; returns its entry
+    point for one head dim, with the entry for a (dqk, dv) pair as
+    ``.dqk_dv`` and the path tables as ``.path`` and ``.path_dqk_dv``."""
     lib = load_library("flash_attention_fwd", [source])
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    head = [ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, c_int]  # q k v o lse dtype b h kvh sq sk
+    tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, c_int, ptr]  # strides scale causal stream
     fn = lib.flash_attention_fwd
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int,  # q k v o lse dtype
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b h kvh
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # sq sk d
-                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,  # strides scale
-                   ctypes.c_int, ptr]  # causal stream
-    fn.restype = ctypes.c_int
-    # the path table; an earlier source (benchmarked with --other) may not export it
+    fn.argtypes = head + [c_int] + tail  # d
+    fn.restype = c_int
+    # an earlier source (benchmarked with --other) may not export these
+    fn.dqk_dv = getattr(lib, "flash_attention_fwd_dqk_dv", None)
     fn.path = getattr(lib, "flash_attention_path", None)
-    if fn.path is not None:
-        fn.path.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.path.restype = ctypes.c_int
+    fn.path_dqk_dv = getattr(lib, "flash_attention_path_dqk_dv", None)
+    if fn.dqk_dv is not None:
+        fn.dqk_dv.argtypes = head + [c_int, c_int] + tail  # dqk dv
+        fn.dqk_dv.restype = c_int
+    for table, n_dims in ((fn.path, 1), (fn.path_dqk_dv, 2)):
+        if table is not None:
+            table.argtypes = [c_int] * (1 + n_dims)
+            table.restype = c_int
     return fn
 
 
 def flash_attention_fwd(
-    q: torch.Tensor,  # (b, h, sq, d)
-    k: torch.Tensor,  # (b, kvh, sk, d)
-    v: torch.Tensor,  # (b, kvh, sk, d)
+    q: torch.Tensor,  # (b, h, sq, dqk)
+    k: torch.Tensor,  # (b, kvh, sk, dqk)
+    v: torch.Tensor,  # (b, kvh, sk, dv)
     *,
     causal: bool = True,
     out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Head-major flash attention on the card.  Returns ``(out, lse)``.
 
-    ``out`` is ``(b, h, sq, d)`` in ``q.dtype``; ``lse`` is ``(b, h, sq)``
-    float32, ``m + log(max(l, 1e-30))``.  The tensors may be strided views
-    (a transposed ``(b, s, h, d)`` tensor is taken as it is) as long as the
-    head dim is contiguous; ``out``, when given, is written in place.
-    Any ``sq`` and ``sk`` are taken; ``causal`` needs ``sq == sk``.
+    ``out`` is ``(b, h, sq, dv)`` in ``q.dtype``; ``lse`` is ``(b, h, sq)``
+    float32, ``m + log(max(l, 1e-30))``; the scores are scaled by
+    ``dqk ** -0.5``.  ``dv`` may differ from ``dqk`` only for a built pair
+    (``HEAD_DIM_PAIRS``).  The tensors may be strided views (a transposed
+    ``(b, s, h, d)`` tensor is taken as it is) as long as the head dim is
+    contiguous; ``out``, when given, is written in place.  Any ``sq`` and
+    ``sk`` are taken; ``causal`` needs ``sq == sk``.
     """
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_fwd launches a CUDA kernel: the tensors must be on the card")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
     b, h, sq, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
+    kvh, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != d or kvh == 0 or h % kvh != 0:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
     if min(b, h, sq, sk) == 0:
         raise ValueError("empty attention problem")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got {q.dtype} {k.dtype} {v.dtype}")
-    path = kernel_path(q.dtype, d)
+    path = kernel_path(q.dtype, d, dv)
     if causal and sq != sk:
         raise ValueError(f"causal attention needs sq == sk, got {sq} and {sk}")
 
@@ -111,18 +126,25 @@ def flash_attention_fwd(
     q, k, v = (x if rows_aligned(x) and (path != "wgmma" or _no_broadcast(x)) else x.contiguous()
                for x in (q, k, v))
     if out is None:
-        out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device or not rows_aligned(out):
-        raise ValueError("out must match q in shape, type and device, with aligned rows")
+        out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    elif (out.shape != (b, h, sq, dv) or out.dtype != q.dtype or out.device != q.device
+          or not rows_aligned(out)):
+        raise ValueError("out must be (b, h, sq, dv) in q's type and device, with aligned rows")
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
     fn = build()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _DTYPES[q.dtype], b, h, kvh, sq, sk)  # fmt: skip
+    tail = (strides, d**-0.5, int(causal), torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                 _DTYPES[q.dtype], b, h, kvh, sq, sk, d, strides, d**-0.5,
-                 int(causal), torch.cuda.current_stream().cuda_stream)  # fmt: skip
+        if dv == d:
+            err = fn(*args, d, *tail)
+        elif fn.dqk_dv is None:
+            raise RuntimeError("this build of the kernel has no entry for distinct qk and v head dims")
+        else:
+            err = fn.dqk_dv(*args, d, dv, *tail)
     if err != 0:
         why = _ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"flash_attention_fwd ({path} kernel): launch failed: {why}")

@@ -20,15 +20,16 @@ __all__ = ["flash_attention"]
 
 
 def flash_attention(
-    q: torch.Tensor,  # (b, s, h, d)
-    k: torch.Tensor,  # (b, s, kvh, d)
-    v: torch.Tensor,
+    q: torch.Tensor,  # (b, s, h, dqk)
+    k: torch.Tensor,  # (b, s, kvh, dqk)
+    v: torch.Tensor,  # (b, s, kvh, dv)
     *,
     causal: bool = True,
 ) -> torch.Tensor:
+    """Returns ``(b, s, h, dv)`` in ``q.dtype``; the scores are scaled by ``dqk ** -0.5``."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.is_cuda:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype, device=q.device)
         flash_attention_fwd(qt, kt, vt, causal=causal, out=out.transpose(1, 2))
         return out
     return attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)

@@ -26,15 +26,16 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
 
 
 def attention_ref(
-    q: torch.Tensor,  # (b, h, sq, d)
-    k: torch.Tensor,  # (b, kvh, sk, d)
-    v: torch.Tensor,  # (b, kvh, sk, d)
+    q: torch.Tensor,  # (b, h, sq, dqk)
+    k: torch.Tensor,  # (b, kvh, sk, dqk)
+    v: torch.Tensor,  # (b, kvh, sk, dv)
     causal: bool = True,
 ) -> torch.Tensor:
-    b, h, sq, d = q.shape
+    """``(b, h, sq, dv)``; the scores are scaled by ``dqk ** -0.5``."""
+    b, h, sq, _ = q.shape
     p = torch.softmax(_scores(q, k, causal), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype), v)
-    return out.reshape(b, h, sq, d)
+    return out.reshape(b, h, sq, v.shape[-1])
 
 
 def attention_ref_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:

@@ -5,14 +5,20 @@
 
 runs on the card and raises if there is none; add ``--smoke --device cpu`` for
 the reduced config on the CPU.  ``--arch mamba2-1.3b`` serves the SSD model
-(its prefill scan runs the SSD kernel on the card).  Counterpart of ``repro/launch/serve.py``, with
-one difference: the prefill cache is staged into the decode cache, so the
-generated tokens attend to the prompt.
+(its prefill scan runs the SSD kernel on the card); ``deepseek-v2-lite-16b``
+(MLA + MoE), ``qwen3-moe-30b-a3b`` (MoE) and ``jamba-v0.1-52b`` (SSD,
+attention and MoE layers) serve the same way; ``--layers`` cuts the depth of
+a model that does not fit the card whole (jamba: ``--layers 8``, one group).
+
+Counterpart of ``repro/launch/serve.py``, with one difference: the prefill
+cache is staged into the decode cache, so the generated tokens attend to the
+prompt.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
@@ -22,26 +28,23 @@ from repro_torch.compat import resolve_device, synchronize, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.models.lm import init_lm
-from repro_torch.serve.decode import CausalLM
+from repro_torch.serve.decode import SEQ_AXIS, CausalLM
 
 __all__ = ["stage_prefill_cache", "make_inputs", "serve", "main"]
 
 
-# cache leaves without a sequence axis: an SSD layer's state, copied whole
-_STATE_LEAVES = ("ssm", "conv")
-
-
 def stage_prefill_cache(prefill_cache: Any, cache: Any, prompt_len: int) -> Any:
     """Copy a prefill cache into a decode cache, in place: an attention leaf
-    (sequence axis ``prompt_len``) into the first ``prompt_len`` positions of
-    the longer one, an SSD state leaf whole."""
+    (GQA keys and values, MLA latents; sequence axis ``prompt_len``) into the
+    first ``prompt_len`` positions of the longer one, an SSD state leaf (no
+    sequence axis) whole."""
     for key, value in cache.items():
         if isinstance(value, dict):
             stage_prefill_cache(prefill_cache[key], value, prompt_len)
-        elif key in _STATE_LEAVES:
-            value.copy_(prefill_cache[key])  # (..., b, h, p, n) or (..., b, w, conv_dim)
+        elif key in SEQ_AXIS:
+            value.narrow(SEQ_AXIS[key], 0, prompt_len).copy_(prefill_cache[key])
         else:
-            value[..., :prompt_len, :, :].copy_(prefill_cache[key])  # (..., b, S, kvh, hd)
+            value.copy_(prefill_cache[key])  # (..., b, h, p, n) or (..., b, w, conv_dim)
     return cache
 
 
@@ -115,12 +118,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--layers", type=int, default=None, help="serve only this many layers (default: all)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_lm(torch.Generator(device=device).manual_seed(0), cfg, torch.bfloat16)
     model = CausalLM(cfg, params)
+    n_params = sum(t.numel() for t in model.buffers())
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters in bf16 on {device}")
     inputs = make_inputs(
         cfg, args.batch, args.prompt_len, torch.Generator(device=device).manual_seed(1)
     )

@@ -1,17 +1,14 @@
-"""Decoder blocks: sequential / parallel-residual, attention or SSD mixer, dense FFN.
+"""Decoder blocks: sequential / parallel-residual, attention or SSD mixer, dense or MoE FFN.
 
 Counterpart of ``repro/models/blocks.py``.  A *block* is one layer: mixer
-(attention or Mamba-2 SSD) + FFN (dense MLP, absent when ``d_ff == 0``),
-pre-norm residual.
+(GQA attention, MLA or Mamba-2 SSD) + FFN (dense MLP, absent when
+``d_ff == 0``, or a Mixture-of-Experts layer), pre-norm residual.
 ``command-r``-style architectures use a parallel residual (one input norm,
 attention and MLP both read it).
 
 Blocks are grouped as in the JAX package: :func:`group_pattern` returns the
 periodic (kind, is_moe) pattern of one group, and the parameters of all
 groups are stacked on a leading axis.
-
-MoE FFNs (jamba, deepseek, qwen3-moe) are not ported yet: they raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,13 +20,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from .layers.attention import attention_apply, init_attention, init_mla, mla_apply
 from .layers.basics import apply_norm, init_mlp, init_norm, mlp_apply
+from .layers.moe import init_moe, moe_apply
 from .layers.ssm import init_ssm, ssm_apply
 
 Params = Dict[str, torch.Tensor]
 
 __all__ = ["group_pattern", "init_block", "block_apply", "prelude_layers"]
-
-_MOE_LATER = "the MoE FFN is not ported yet: it comes with the MLA/MoE slice of the port"
 
 
 def prelude_layers(cfg: ModelConfig) -> int:
@@ -63,7 +59,7 @@ def init_block(
     else:
         p["mixer"] = init_ssm(gen, cfg, dtype, device)
     if is_moe:
-        raise NotImplementedError(_MOE_LATER)
+        p["ffn"] = init_moe(gen, cfg, dtype, device)
     elif cfg.d_ff > 0:
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
     if not cfg.parallel_block and "ffn" in p:
@@ -81,14 +77,14 @@ def _mixer(
 ) -> torch.Tensor:
     if kind == "attn":
         if cfg.mla is not None:
-            return mla_apply(p, cfg, x, positions)
+            return mla_apply(p, cfg, x, positions, cache_sink=cache_sink)
         return attention_apply(p, cfg, x, positions, kv_sink=cache_sink)
     return ssm_apply(p, cfg, x, state_sink=cache_sink)
 
 
 def _ffn(p: Params, cfg: ModelConfig, is_moe: bool, x: torch.Tensor) -> torch.Tensor:
     if is_moe:
-        raise NotImplementedError(_MOE_LATER)
+        return moe_apply(p, cfg, x)
     return mlp_apply(p, x, cfg.act)
 
 
@@ -104,8 +100,8 @@ def block_apply(
     """One layer, full-sequence path (prefill).
 
     ``cache_sink``, when given, receives what the layer leaves in the decode
-    cache: an attention layer's ``"k"`` and ``"v"``, an SSD layer's ``"ssm"``
-    and ``"conv"`` state.
+    cache: a GQA layer's ``"k"`` and ``"v"``, an MLA layer's latents
+    ``"c_kv"`` and ``"k_r"``, an SSD layer's ``"ssm"`` and ``"conv"`` state.
     """
     has_ffn = "ffn" in p
     if cfg.parallel_block:

@@ -6,8 +6,9 @@ hand-written kernel, always.  For a CPU tensor it takes the plain path and
 keeps the JAX package's rule: ``naive_attention`` up to 2048 tokens, the
 chunked online-softmax core above that.
 
-MLA (DeepSeek-V2) is not ported yet: ``init_mla``, ``mla_latents`` and
-``mla_apply`` raise ``NotImplementedError``.
+``mla_apply`` (DeepSeek-V2's multi-head latent attention, qk head dim 192
+and v head dim 128) takes the same route: the kernel on a CUDA tensor, the
+JAX package's two plain cores on a CPU tensor.
 
 Decode (single-token) paths are in :mod:`repro_torch.serve.decode`.
 """
@@ -18,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from .basics import apply_rope, dense, init_dense, init_norm, rmsnorm, rope_frequencies
 from .flash_core import flash_attention_core
@@ -169,21 +170,40 @@ def attention_apply(
 
 
 # ---------------------------------------------------------------------------
-# MLA (multi-head latent attention, DeepSeek-V2): a later slice
+# MLA (multi-head latent attention, DeepSeek-V2)
 # ---------------------------------------------------------------------------
-
-_MLA_LATER = (
-    "multi-head latent attention (deepseek-v2-lite-16b) is not ported yet: "
-    "it comes with the MLA/MoE slice of the port"
-)
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32, device=None) -> Params:
-    raise NotImplementedError(_MLA_LATER)
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    kw = dict(dtype=dtype, device=device)
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    p = {
+        # queries (v2-lite: no q compression)
+        "wq": init_dense(gen, d, h * qk_dim, **kw),
+        # compressed KV path
+        "w_dkv": init_dense(gen, d, m.kv_lora_rank, **kw),
+    }
+    p["kv_norm"] = init_norm("rmsnorm", m.kv_lora_rank, device=p["wq"]["w"].device)
+    p["w_kr"] = init_dense(gen, d, m.qk_rope_dim, **kw)  # shared rope key
+    p["w_uk"] = init_dense(gen, m.kv_lora_rank, h * m.qk_nope_dim, **kw)
+    p["w_uv"] = init_dense(gen, m.kv_lora_rank, h * m.v_head_dim, **kw)
+    p["wo"] = init_dense(gen, h * m.v_head_dim, d, scale=(h * m.v_head_dim) ** -0.5, **kw)
+    return p
 
 
-def mla_latents(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    raise NotImplementedError(_MLA_LATER)
+def mla_latents(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compressed KV latents ``(c_kv, k_rope)``: what the KV cache stores (the
+    MLA memory saving: kv_lora + rope_dim per token)."""
+    m: MLAConfig = cfg.mla
+    c_kv = rmsnorm(dense(p["w_dkv"], x), p["kv_norm"]["scale"])  # (b, s, r)
+    k_r = dense(p["w_kr"], x)[:, :, None, :]  # (b, s, 1, rope_dim)
+    rot, inv = rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta, x.device)
+    k_r = apply_rope(k_r, positions, rot, inv)
+    return c_kv, k_r[:, :, 0, :]
 
 
 def mla_apply(
@@ -193,5 +213,60 @@ def mla_apply(
     positions: Optional[torch.Tensor] = None,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
+    cache_sink: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    raise NotImplementedError(_MLA_LATER)
+    """Full-sequence MLA (prefill): decompress K/V and run the attention core.
+
+    ``cache_sink``, when given, receives this layer's latents ``"c_kv"`` and
+    ``"k_r"``, so that prefill fills its cache from the one projection that
+    also feeds the attention.  On the card the core is the flash-attention
+    kernel at head dims (qk 192, v 128); on the CPU ``_mla_core`` up to 2048
+    tokens and the chunked core above that, as in the JAX package.
+    """
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = dense(p["wq"], x).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    rot, inv = rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta, x.device)
+    q_rope = apply_rope(q_rope, positions, rot, inv)
+
+    c_kv, k_r = mla_latents(p, cfg, x, positions)  # (b, s, r), (b, s, rope)
+    if cache_sink is not None:
+        cache_sink["c_kv"], cache_sink["k_r"] = c_kv, k_r
+    k_nope = dense(p["w_uk"], c_kv).reshape(b, s, h, m.qk_nope_dim)
+    v = dense(p["w_uv"], c_kv).reshape(b, s, h, m.v_head_dim)
+
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    kk = torch.cat([k_nope, k_r[:, :, None, :].expand(b, s, h, m.qk_rope_dim)], dim=-1)
+    if x.is_cuda:
+        o = flash_attention(qq, kk, v, causal=True)
+    elif s <= 2048:
+        o = _mla_core(qq, kk, v)
+    else:
+        o = _mla_core_chunked(qq, kk, v, q_chunk, kv_chunk)
+    return dense(p["wo"], o.reshape(b, s, -1))
+
+
+def _mla_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal MHA core with distinct qk/v dims.  q, k: (b,s,h,dqk), v: (b,s,h,dv)."""
+    d = q.shape[-1]
+    s = q.shape[1]
+    # scores in the input type, then float32: the JAX function does the same
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (d**-0.5)
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    a = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", a, v)
+
+
+def _mla_core_chunked(q, k, v, q_chunk: int, kv_chunk: int) -> torch.Tensor:
+    """Flash core for distinct qk/v head dims (kvh == h, g == 1)."""
+    b, sq, h, dqk = q.shape
+    dv = v.shape[-1]
+    out = flash_attention_core(
+        q.reshape(b, sq, h, 1, dqk), k, v, True, min(q_chunk, sq), min(kv_chunk, sq), 0
+    )
+    return out.reshape(b, sq, h, dv)

@@ -25,11 +25,19 @@ Params = Dict[str, Any]
 __all__ = ["init_lm", "lm_forward", "lm_logits", "sinusoidal_positions", "tree_index"]
 
 
-def _tree_stack(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stacked_like(tree, n: int):
+    """Uninitialised leaves of ``(n,) + leaf.shape``, the type and device of ``tree``'s."""
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n) for k, v in tree.items()}
+    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype, device=tree.device)
+
+
+def _tree_copy_into(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _tree_copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
 
 
 def tree_index(tree, i: int):
@@ -64,14 +72,17 @@ def init_lm(
     for i in range(pre):
         params[f"prelude_{i}"] = init_block(gen, cfg, i, dtype, device)
 
-    groups = []
+    # drawn group by group and copied into the stacked leaves at once, so that
+    # the model is never held twice (qwen3-moe in bf16 fills most of a card)
     for g in range(n_groups):
         group = {}
         for p_idx in range(cfg.block_group):
             li = pre + g * cfg.block_group + p_idx
             group[f"pos_{p_idx}"] = init_block(gen, cfg, li, dtype, device)
-        groups.append(group)
-    params["blocks"] = _tree_stack(groups)
+        if g == 0:
+            params["blocks"] = _stacked_like(group, n_groups)
+        _tree_copy_into(tree_index(params["blocks"], g), group)
+        del group
     return params
 
 

@@ -5,17 +5,21 @@ stacked parameter layout: one entry per group position, stacked over groups
 (leading ``G`` axis), plus unstacked prelude entries.  Cache kinds:
 
   * GQA attention:  ``{"k","v"}: (G, b, S, kv_heads, head_dim)``
+  * MLA:            ``{"c_kv": (G, b, S, kv_lora), "k_r": (G, b, S, rope)}``
+                    -- the compressed-latent cache; decode uses the
+                    *absorbed* form (scores against ``c_kv`` directly, W_uk
+                    folded into the query, W_uv applied after the context).
   * SSD (mamba2):   ``{"ssm": (G, b, H, P, N) float32, "conv": (G, b, w, conv_dim)}``
                     -- O(1)-size state, no sequence axis at all.
 
-The MLA latent cache comes with its slice.
 ``cache_specs`` and every ``NamedSharding`` of the JAX module are sharding:
 they wait for the sharding slice.  The factories keep their names and take a
 ``device`` where the JAX ones take a mesh.
 
-Decode attention (``_gqa_decode``) is einsum + softmax in the JAX package,
-not a Pallas kernel, and is plain PyTorch here; so is the SSD decode step
-(``ssm_decode_step``, the token-by-token recurrence).
+Decode attention (``_gqa_decode``, ``_mla_decode``) is einsum + softmax in
+the JAX package, not a Pallas kernel, and is plain PyTorch here; so are the
+SSD decode step (``ssm_decode_step``, the token-by-token recurrence) and the
+MoE FFN, whose dense-capacity dispatch reads every expert's weights a step.
 
 :class:`CausalLM` is the one ``nn.Module`` of the port: it owns a parameter
 tree and exposes ``prefill`` / ``decode_step`` / ``.to(device)``.
@@ -31,8 +35,17 @@ from torch import nn
 from repro_torch.compat import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import block_apply, group_pattern, prelude_layers
-from repro_torch.models.layers.attention import attention_qkv
-from repro_torch.models.layers.basics import apply_norm, dense, embed, mlp_apply, unembed
+from repro_torch.models.layers.attention import attention_qkv, mla_latents
+from repro_torch.models.layers.basics import (
+    apply_norm,
+    apply_rope,
+    dense,
+    embed,
+    mlp_apply,
+    rope_frequencies,
+    unembed,
+)
+from repro_torch.models.layers.moe import moe_apply
 from repro_torch.models.layers.ssm import ssm_decode_step, ssm_state_shapes
 from repro_torch.models.lm import sinusoidal_positions, tree_index
 
@@ -42,10 +55,12 @@ __all__ = [
     "init_cache",
     "make_serve_step",
     "make_prefill",
+    "SEQ_AXIS",
 ]
 
-_MLA_LATER = "the MLA latent cache is not ported yet: it comes with the MLA/MoE slice of the port"
-_MOE_LATER = "the MoE FFN is not ported yet: it comes with the MLA/MoE slice of the port"
+# the sequence axis of each cache leaf that has one, counted from the end
+# (stacked or not): (..., b, S, kvh, hd) and (..., b, S, r)
+SEQ_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_r": -2}
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +77,11 @@ def _layer_cache_shape(
         sh = ssm_state_shapes(cfg, batch)
         return {"ssm": (sh["ssm"], torch.float32), "conv": (sh["conv"], dt)}
     if cfg.mla is not None:
-        raise NotImplementedError(_MLA_LATER)
+        m = cfg.mla
+        return {
+            "c_kv": ((batch, max_seq, m.kv_lora_rank), dt),
+            "k_r": ((batch, max_seq, m.qk_rope_dim), dt),
+        }
     hd = cfg.resolved_head_dim
     return {
         "k": ((batch, max_seq, cfg.n_kv_heads, hd), dt),
@@ -137,9 +156,48 @@ def _gqa_decode(p, cfg: ModelConfig, x, cache, position):
     return dense(p["wo"], out), cache
 
 
+def _mla_decode(p, cfg: ModelConfig, x, cache, position):
+    """Absorbed MLA decode: scores directly against the compressed latents.
+
+    x: (b,1,d); cache c_kv: (b,S,r), k_r: (b,S,rope); position: (b,) integer.
+    Writes the new latents into ``cache`` in place and returns it.
+    """
+    m = cfg.mla
+    b = x.shape[0]
+    S = cache["c_kv"].shape[1]
+    h = cfg.n_heads
+    c_new, kr_new = mla_latents(p, cfg, x, position[:, None])  # (b,1,r), (b,1,rope)
+    bidx = torch.arange(b, device=x.device)
+    c_kv, k_r = cache["c_kv"], cache["k_r"]
+    c_kv[bidx, position] = c_new[:, 0].to(c_kv.dtype)
+    k_r[bidx, position] = kr_new[:, 0].to(k_r.dtype)
+
+    q = dense(p["wq"], x).reshape(b, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    rot, inv = rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta, x.device)
+    q_rope = apply_rope(q_rope[:, None], position[:, None], rot, inv)[:, 0]
+
+    w_uk = p["w_uk"]["w"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk.to(q.dtype))
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    # f32 accumulation of exact products, as `preferred_element_type=float32`
+    scores = (
+        torch.einsum("bhr,bsr->bhs", q_lat.float(), c_kv.float())
+        + torch.einsum("bhp,bsp->bhs", q_rope.float(), k_r.float())
+    ) * scale
+    mask = torch.arange(S, device=x.device)[None, :] <= position[:, None]  # (b, S)
+    scores = torch.where(mask[:, None, :], scores, torch.full_like(scores, -1e30))
+    a = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", a.to(c_kv.dtype), c_kv)
+    w_uv = p["w_uv"]["w"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    val = torch.einsum("bhr,rhv->bhv", ctx, w_uv.to(ctx.dtype))
+    out = val.reshape(b, 1, h * m.v_head_dim)
+    return dense(p["wo"], out), cache
+
+
 def _ffn_decode(p, cfg: ModelConfig, is_moe: bool, x):
     if is_moe:
-        raise NotImplementedError(_MOE_LATER)
+        return moe_apply(p, cfg, x)
     return mlp_apply(p, x, cfg.act)
 
 
@@ -155,7 +213,7 @@ def _mixer_decode(p, cfg: ModelConfig, kind: str, h, cache, position):
     if kind == "ssm":
         return _ssm_decode(p, cfg, h, cache)
     if cfg.mla is not None:
-        raise NotImplementedError(_MLA_LATER)
+        return _mla_decode(p, cfg, h, cache, position)
     return _gqa_decode(p, cfg, h, cache, position)
 
 
@@ -185,8 +243,9 @@ def make_serve_step(cfg: ModelConfig, device, batch: int, max_seq: Optional[int]
 
     ``serve_fn(params, cache, tokens, position) -> (next_tokens, logits_f32,
     cache)``: one decode step for the whole batch.  ``serve_fn`` **mutates**
-    the cache it is given (the new key and value of every attention layer
-    are written at ``position``, every SSD layer's state is replaced) and
+    the cache it is given (the new key and value, or latents, of every
+    attention layer are written at ``position``, every SSD layer's state is
+    replaced) and
     returns that same cache.  ``max_seq`` (the cache's sequence length; None
     for a model without attention) only names the cache the step is made for.
     """
@@ -239,11 +298,11 @@ def make_prefill(cfg: ModelConfig, device, batch: int, seq: int):
     Returns ``prefill_fn`` (the JAX factory's tuple of shardings is gone).
     ``prefill_fn(params, batch_inputs) -> (last_logits, cache)``.
 
-    Each layer runs once and fills the cache from the same computation: an
-    attention layer's q, k, v, an SSD layer's scan (its final state) and conv
-    inputs.  The JAX function computes them twice per layer (for an SSD
-    layer, two chunked scans) and leaves the merging to XLA; PyTorch runs
-    eagerly.
+    Each layer runs once and fills the cache from the same computation: a
+    GQA layer's k and v, an MLA layer's latents, an SSD layer's scan (its
+    final state) and conv inputs.  The JAX function computes them twice per
+    layer (for an SSD layer, two chunked scans; for an MLA layer, the
+    latents again) and leaves the merging to XLA; PyTorch runs eagerly.
     """
     device = resolve_device(device)
     pattern = group_pattern(cfg)
@@ -361,8 +420,9 @@ class CausalLM(nn.Module):
 def _cache_len(cache: Any) -> Optional[int]:
     """The sequence length of the cache's attention leaves; None if it has none."""
     if isinstance(cache, dict):
-        if "k" in cache:
-            return cache["k"].shape[-3]  # (..., b, S, kvh, hd)
+        for name, axis in SEQ_AXIS.items():
+            if name in cache:
+                return cache[name].shape[axis]
         for value in cache.values():
             found = _cache_len(value)
             if found is not None:

@@ -217,9 +217,107 @@ def test_init_attention_twin_has_the_jax_tree():
         assert abs(float(tp["wo"]["w"].std()) - float(jp["wo"]["w"].std())) < 0.02
 
 
+def _mla_case(dtype, seed=4):
+    jcfg = dataclasses.replace(jax_smoke_config("deepseek-v2-lite-16b"), dtype=dtype)
+    tcfg = dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"), dtype=dtype)
+    jp = ja.init_mla(jax.random.PRNGKey(seed), jcfg, jnp.dtype(dtype))
+    # a kv_norm scale of ones would hide a missing scale
+    jp["kv_norm"]["scale"] = jp["kv_norm"]["scale"] + 0.1 * jnp.arange(jcfg.mla.kv_lora_rank) / jcfg.mla.kv_lora_rank
+    return jcfg, tcfg, jp, jax_to_torch_params(jp)
+
+
 def test_mla_raises_until_its_slice():
+    """The MLA slice has landed: ``init_mla`` and ``mla_apply`` run on the
+    smoke config (they raised ``NotImplementedError`` before it), and the
+    sink receives the latents that the decode cache holds."""
     cfg = get_smoke_config("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        ta.init_mla(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        ta.mla_apply({}, cfg, torch.zeros(1, 4, cfg.d_model))
+    p = ta.init_mla(torch.Generator().manual_seed(0), cfg)
+    sink = {}
+    out = ta.mla_apply(p, cfg, torch.randn(2, 4, cfg.d_model, generator=torch.Generator().manual_seed(1)),
+                       cache_sink=sink)
+    assert out.shape == (2, 4, cfg.d_model) and torch.isfinite(out).all()
+    assert sink["c_kv"].shape == (2, 4, cfg.mla.kv_lora_rank)
+    assert sink["k_r"].shape == (2, 4, cfg.mla.qk_rope_dim)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_mla_twin_has_the_jax_tree(dtype):
+    jcfg, tcfg, jp, _ = _mla_case(dtype)
+    tp = ta.init_mla(torch.Generator().manual_seed(0), tcfg, {"float32": torch.float32,
+                                                              "bfloat16": torch.bfloat16}[dtype])
+    assert set(tp) == set(jp) == {"wq", "w_dkv", "kv_norm", "w_kr", "w_uk", "w_uv", "wo"}
+    for name in tp:
+        assert set(tp[name]) == set(jp[name])
+        for leaf in tp[name]:
+            assert tuple(tp[name][leaf].shape) == jp[name][leaf].shape
+            assert str(tp[name][leaf].dtype).replace("torch.", "") == str(jp[name][leaf].dtype)
+    assert tp["kv_norm"]["scale"].dtype == torch.float32  # f32 whatever the model's type
+    assert abs(float(tp["wo"]["w"].float().std()) - float(jnp.std(jp["wo"]["w"].astype(jnp.float32)))) < 0.02
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_latents_match_jax(dtype):
+    rng = np.random.default_rng(6)
+    jcfg, tcfg, jp, tp = _mla_case(dtype)
+    jx, tx = both(normal(rng, 2, 20, jcfg.d_model), dtype)
+    jpos = jnp.arange(20) + 3
+    jc, jk = ja.mla_latents(jp, jcfg, jx, jpos)
+    tc, tk = ta.mla_latents(tp, tcfg, tx, torch.arange(20) + 3)
+    assert tc.dtype == tx.dtype and tk.shape == (2, 20, tcfg.mla.qk_rope_dim)
+    close(tc, jc, TOL[dtype])
+    close(tk, jk, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_apply_matches_jax(dtype):
+    """Up to 2048 tokens the CPU core is ``_mla_core``, as in the JAX package."""
+    rng = np.random.default_rng(8)
+    jcfg, tcfg, jp, tp = _mla_case(dtype)
+    jx, tx = both(normal(rng, 2, 24, jcfg.d_model), dtype)
+    sink = {}
+    before = flash_attention_fwd.launches
+    out = ta.mla_apply(tp, tcfg, tx, cache_sink=sink)
+    assert flash_attention_fwd.launches == before  # a CPU tensor never reaches the kernel
+    assert out.dtype == tx.dtype
+    close(out, ja.mla_apply(jp, jcfg, jx), TOL[dtype])
+    jc, jk = ja.mla_latents(jp, jcfg, jx, jnp.arange(24))
+    close(sink["c_kv"], jc, TOL[dtype])
+    close(sink["k_r"], jk, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("qc,kc", [(8, 16), (16, 8), (32, 32)])
+def test_mla_core_chunked_matches_jax(qc, kc, dtype):
+    """The flash core at qk 24 / v 16 (the smoke config's pair) in small chunks."""
+    rng = np.random.default_rng(10)
+    (jq, tq), (jk, tk), (jv, tv) = (both(normal(rng, 2, 32, 4, dd), dtype) for dd in (24, 24, 16))
+    out = ta._mla_core_chunked(tq, tk, tv, qc, kc)
+    assert out.shape == (2, 32, 4, 16)
+    close(out, ja._mla_core_chunked(jq, jk, jv, qc, kc), TOL[dtype])
+    close(ta._mla_core(tq, tk, tv), ja._mla_core(jq, jk, jv), TOL[dtype])
+    if dtype == "float32":  # the two cores compute one function
+        close(out, ta._mla_core(tq, tk, tv), 2e-5)
+
+
+def test_mla_apply_long_sequence_takes_the_chunked_core():
+    """Above 2048 tokens the CPU path is the chunked core, as in the JAX package."""
+    rng = np.random.default_rng(9)
+    jcfg, tcfg, jp, tp = _mla_case("float32")
+    jx, tx = both(normal(rng, 1, 3072, jcfg.d_model))
+    close(ta.mla_apply(tp, tcfg, tx), ja.mla_apply(jp, jcfg, jx), 1e-5)
+
+
+def test_attention_ref_takes_distinct_qk_and_v_head_dims():
+    """The kernel's plain version at dqk != dv is the flash core's function
+    (MLA: kvh == h, g == 1), with the scale of dqk; lse included."""
+    rng = np.random.default_rng(12)
+    b, h, s, dqk, dv = 2, 4, 40, 24, 16
+    (_, tq), (_, tk), (_, tv) = (both(normal(rng, b, s, h, dd)) for dd in (dqk, dqk, dv))
+    out, lse = tfc._fwd_impl(tq.reshape(b, s, h, 1, dqk), tk, tv, True, 8, 8, 0)
+    ref = attention_ref(tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2), causal=True)
+    assert ref.shape == (b, h, s, dv)
+    close(ref.transpose(1, 2), out.reshape(b, s, h, dv), 2e-5)
+    lse = lse.permute(1, 2, 3, 0, 4).reshape(b, h, s)
+    close(attention_ref_lse(tq.transpose(1, 2), tk.transpose(1, 2), causal=True), lse, 1e-5)
+    # and through the ops wrapper in the models' layout, on the CPU
+    close(flash_attention(tq, tk, tv, causal=True), ref.transpose(1, 2), 0)

@@ -11,7 +11,13 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, PATHS, flash_attention_fwd, kernel_path
+from repro_torch.kernels.flash_attention.kernel import (
+    HEAD_DIM_PAIRS,
+    HEAD_DIMS,
+    PATHS,
+    flash_attention_fwd,
+    kernel_path,
+)
 from repro_torch.kernels.scu_barrier import ops as scu_ops
 from repro_torch.kernels.scu_barrier.kernel import (
     barrier_form,
@@ -40,10 +46,10 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(b, h, kvh, sq, sk, d, dtype, device, seed=7):
+def _inputs(b, h, kvh, sq, sk, d, dtype, device, seed=7, dv=None):
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
-    return mk(b, h, sq, d), mk(b, kvh, sk, d), mk(b, kvh, sk, d)
+    return mk(b, h, sq, d), mk(b, kvh, sk, d), mk(b, kvh, sk, d if dv is None else dv)
 
 
 # f32 2e-5: same f32 arithmetic in another summation order.  bf16 2e-2: both
@@ -165,6 +171,50 @@ def test_flash_path_table_is_the_sources(card):
         for d in HEAD_DIMS:
             assert PATHS[fn.path(code, d)] == kernel_path(dtype, d)
         assert fn.path(code, 48) == -1
+
+
+def test_flash_pair_path_table_is_the_sources(card):
+    """``kernel_path`` and ``flash_attention_path_dqk_dv`` agree on every built
+    (dtype, dqk, dv), equal dims included, and both refuse unbuilt pairs."""
+    fn = flash_kernel.build()
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for dqk, dv in HEAD_DIM_PAIRS + tuple((d, d) for d in HEAD_DIMS):
+            assert PATHS[fn.path_dqk_dv(code, dqk, dv)] == kernel_path(dtype, dqk, dv)
+        for dqk, dv in ((192, 64), (128, 192), (192, 192), (256, 128)):
+            assert fn.path_dqk_dv(code, dqk, dv) == -1
+            with pytest.raises(ValueError, match="not built"):
+                kernel_path(dtype, dqk, dv)
+
+
+# MLA's pair (qk 192, v 128), deepseek-v2-lite's 16 heads (kvh = h), ragged
+# lengths (77: shorter than one tile; 513: one past a multiple of every tile);
+# tolerances as above
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s", [(1, 77), (2, 513)])
+def test_flash_kernel_mla_pair_matches_plain(card, b, s, causal, dtype, tol):
+    q, k, v = _inputs(b, 16, 16, s, s, 192, dtype, card, dv=128)
+    assert kernel_path(dtype, 192, 128) == ("f32" if dtype == torch.float32 else "mma_sync")
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.shape == (b, 16, s, 128) and out.dtype == dtype
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), rtol=tol, atol=tol)
+    ref_lse = attention_ref_lse(q, k, causal=causal)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_flash_mla_pair_through_ops_on_the_models_layout(card):
+    """(b, s, h, d) in, (b, s, h, dv) out, as ``mla_apply`` calls it."""
+    rng = np.random.default_rng(3)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card, torch.bfloat16)
+    q, k, v = mk(2, 200, 16, 192), mk(2, 200, 16, 192), mk(2, 200, 16, 128)
+    out = flash_attention(q, k, v, causal=True)
+    assert out.shape == (2, 200, 16, 128) and out.is_contiguous()
+    ref = attention_ref(q.transpose(1, 2).float(), k.transpose(1, 2).float(), v.transpose(1, 2).float())
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.transpose(1, 2).cpu().numpy(), rtol=2e-2, atol=2e-2)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):

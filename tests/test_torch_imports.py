@@ -18,10 +18,14 @@ serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",
             "--batch", "2", "--prompt-len", "8", "--gen", "3"])
 serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
             "--batch", "2", "--prompt-len", "12", "--gen", "3"])
+for arch in ("deepseek-v2-lite-16b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b"):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "12", "--gen", "3"])
 import repro_torch.convert, repro_torch.compat
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.ssd_scan.ops, repro_torch.kernels.ssd_scan.kernel
-import repro_torch.models.layers.ssm
+import repro_torch.models.layers.ssm, repro_torch.models.layers.moe
+import repro_torch.models.layers.attention, repro_torch.kernels.flash_attention.kernel
 import repro_torch.sync, repro_torch.sync.axis, repro_torch.sync.api
 import repro_torch.core.scu.engine, repro_torch.core.scu.primitives
 import repro_torch.kernels.scu_barrier.ops, repro_torch.kernels.scu_barrier.kernel
@@ -42,7 +46,7 @@ def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "PROBE-OK" in proc.stdout
-    assert proc.stdout.count("[serve] decoded 3 tokens x 2 seqs") == 2
+    assert proc.stdout.count("[serve] decoded 3 tokens x 2 seqs") == 5
     assert "== Chip-level barrier disciplines (3 parties on cpu) ==" in proc.stdout
 
 

@@ -29,7 +29,10 @@ from _torch_parity import close, jax_to_torch_params, normal, tree_close
 
 # the archs the port serves, one per code path: GQA + partial rotary; MHA +
 # layernorm; qkv bias; parallel block + tied head; no rope + gelu + embeddings
-# in; SSD mixer, no FFN, sinusoidal positions, a state cache
+# in; SSD mixer, no FFN, sinusoidal positions, a state cache; MLA + a dense
+# prelude layer + MoE with shared experts, a latent cache; GQA + q/k norm +
+# MoE in every layer; the hybrid of SSD and attention layers with MoE in
+# every other one
 ARCHS = [
     "phi4-mini-3.8b",
     "stablelm-3b",
@@ -37,6 +40,9 @@ ARCHS = [
     "command-r-plus-104b",
     "musicgen-medium",
     "mamba2-1.3b",
+    "deepseek-v2-lite-16b",
+    "qwen3-moe-30b-a3b",
+    "jamba-v0.1-52b",
 ]
 # the SSD smoke config with chunks of 4 tokens, so that the scan carries its
 # state across chunks at S = 12 (the plain config's chunk covers the prompt)
@@ -45,19 +51,32 @@ TOL = 2e-4
 B, S, MAX_SEQ = 2, 12, 16
 
 
-def _configs(arch, dtype="float32"):
-    """(jax config, torch config) of a smoke arch; ``name@chunkN`` sets the SSD chunk."""
+def _configs(arch, dtype="float32", ample=False):
+    """(jax config, torch config) of a smoke arch; ``name@chunkN`` sets the SSD chunk.
+
+    ``ample`` gives a MoE arch the capacity factor ``n_experts / top_k``, so
+    that no slot is dropped.  The capacity depends on the token count, so a
+    prefill of n tokens and one of n + 1 (or n decode steps of one token) may
+    drop different slots under the reference's own semantics: the tests that
+    hold such runs against each other test the cache and the decode step, not
+    the routing, and take ample capacity.  The tests against the JAX package
+    keep the config's factor and its drops.
+    """
     name, _, chunk = arch.partition("@chunk")
     jcfg = dataclasses.replace(jax_smoke_config(name), dtype=dtype)
     tcfg = dataclasses.replace(get_smoke_config(name), dtype=dtype)
     if chunk:
         jcfg = dataclasses.replace(jcfg, ssm=dataclasses.replace(jcfg.ssm, chunk=int(chunk)))
         tcfg = dataclasses.replace(tcfg, ssm=dataclasses.replace(tcfg.ssm, chunk=int(chunk)))
+    if ample and tcfg.moe is not None:
+        factor = tcfg.moe.n_experts / tcfg.moe.top_k
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=factor))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, capacity_factor=factor))
     return jcfg, tcfg
 
 
-def _setup(arch, dtype="float32"):
-    jcfg, tcfg = _configs(arch, dtype)
+def _setup(arch, dtype="float32", ample=False):
+    jcfg, tcfg = _configs(arch, dtype, ample)
     jparams = jlm.init_lm(jax.random.PRNGKey(0), jcfg, jnp.dtype(dtype))
     tparams = jax_to_torch_params(jparams)
     rng = np.random.default_rng(1)
@@ -86,12 +105,16 @@ def test_lm_forward_matches_jax(arch):
 
 
 def _stage_jax(big, small):
-    """The JAX side of ``stage_prefill_cache``: attention leaves into the first
-    S positions, SSD state leaves (no sequence axis) whole."""
+    """The JAX side of ``stage_prefill_cache``: attention leaves (GQA keys and
+    values, MLA latents) into the first S positions, SSD state leaves (no
+    sequence axis) whole."""
 
     def put(path, big_leaf, small_leaf):
-        if path[-1].key in ("ssm", "conv"):
+        name = path[-1].key
+        if name in ("ssm", "conv"):
             return small_leaf
+        if name in ("c_kv", "k_r"):  # (..., b, S, r)
+            return big_leaf.at[..., :S, :].set(small_leaf)
         return big_leaf.at[..., :S, :, :].set(small_leaf)
 
     return jax.tree_util.tree_map_with_path(put, big, small)
@@ -151,8 +174,9 @@ def test_slice_in_bfloat16_matches_jax():
 @pytest.mark.parametrize("arch", ARCHS + CHUNKED)
 def test_teacher_forced_decode_matches_forward(arch):
     """Twin of tests/test_serve.py: the prompt fed token by token through
-    ``serve_fn`` gives the last-position logits of one full forward."""
-    _, cfg, _, params, tokens, _ = _setup(arch)
+    ``serve_fn`` gives the last-position logits of one full forward (a MoE
+    arch with ample capacity: see ``_configs``)."""
+    _, cfg, _, params, tokens, _ = _setup(arch, ample=True)
     tokens = torch.from_numpy(tokens).long()
     with torch.inference_mode():
         hidden = tlm.lm_forward(params, cfg, tokens=tokens)
@@ -171,8 +195,9 @@ def test_teacher_forced_decode_matches_forward(arch):
 def test_prefill_stage_decode_equals_forward_of_one_more_token(arch):
     """Prefill s tokens, stage the cache, decode token s+1: the logits are
     those of a forward over all s+1 tokens.  (The JAX launcher decodes
-    against an empty cache; the port stages the prefill's.)"""
-    _, cfg, _, params, tokens, _ = _setup(arch)
+    against an empty cache; the port stages the prefill's.)  A MoE arch runs
+    with ample capacity (see ``_configs``)."""
+    _, cfg, _, params, tokens, _ = _setup(arch, ample=True)
     model = tdec.CausalLM(cfg, params)
     tokens = torch.from_numpy(tokens).long()
     # musicgen's prefill takes embeddings: look them up, so both paths see the same prompt
@@ -227,9 +252,11 @@ def test_stage_copies_ssd_state_whole_and_attention_by_position():
 
 
 def test_cache_len_reads_an_attention_leaf_or_none():
-    """The decode cache's sequence length comes from an attention leaf, never
-    from the head axis of an SSD leaf that comes first."""
-    for arch, expect in [("phi4-mini-3.8b", MAX_SEQ), ("mamba2-1.3b", None), ("jamba-v0.1-52b", MAX_SEQ)]:
+    """The decode cache's sequence length comes from an attention leaf (GQA
+    keys or MLA latents), never from the head axis of an SSD leaf that comes
+    first."""
+    for arch, expect in [("phi4-mini-3.8b", MAX_SEQ), ("mamba2-1.3b", None), ("jamba-v0.1-52b", MAX_SEQ),
+                         ("deepseek-v2-lite-16b", MAX_SEQ)]:
         cache = tdec.cache_shapes(get_smoke_config(arch), B, MAX_SEQ)
         assert tdec._cache_len(cache) == expect, arch
     first = next(iter(tdec.cache_shapes(get_smoke_config("jamba-v0.1-52b"), B, MAX_SEQ)["blocks"].values()))
@@ -250,7 +277,7 @@ def _map(fn, tree):
 
 
 def test_cache_shapes_match_jax():
-    for arch in ARCHS + ["jamba-v0.1-52b"]:
+    for arch in ARCHS:
         jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
         jshapes = jax.tree.map(lambda s: (s.shape, str(s.dtype)), jdec.cache_shapes(jcfg, 3, 20))
         tshapes = _map(
@@ -285,10 +312,65 @@ def test_launcher_functions_run_the_slice_on_the_cpu():
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "MoE"), ("deepseek-v2-lite-16b", "MLA"),
                                        ("qwen3-moe-30b-a3b", "MoE")])
 def test_unported_archs_raise_and_name_their_slice(arch, what):
+    """The MoE and MLA slice has landed: the three archs that raised
+    ``NotImplementedError`` before it build their parameters and their decode
+    cache, and hold their MoE FFNs and (deepseek) their latent cache."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        tlm.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tlm.init_lm(torch.Generator().manual_seed(0), cfg)
+    pattern = tblocks.group_pattern(cfg)
+    assert any(is_moe for _, is_moe in pattern)
+    assert "router" in params["blocks"][f"pos_{[m for _, m in pattern].index(True)}"]["ffn"]
+    leaves = {name for entry in tdec.cache_shapes(cfg, 1, 8)["blocks"].values() for name in entry}
     if what == "MLA":
-        with pytest.raises(NotImplementedError, match=what):
-            tdec.cache_shapes(cfg, 1, 8)
-    assert tblocks.group_pattern(cfg)  # the pattern itself is config arithmetic and works
+        assert leaves == {"c_kv", "k_r"}
+        assert "ffn" in params["prelude_0"] and "router" not in params["prelude_0"]["ffn"]  # the dense prelude
+    else:
+        assert "k" in leaves
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["llava-next-34b"])
+def test_arch_smoke_forward_matches_jax(arch):
+    """Twin of tests/test_models.py::test_arch_smoke_forward over every
+    registered arch: the hidden states of one forward at (2, 32) against the
+    JAX package's, from its parameters."""
+    jcfg, tcfg = _configs(arch)
+    jparams = jlm.init_lm(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    tparams = jax_to_torch_params(jparams)
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 32)).astype(np.int32)
+    jin, tin = _inputs(jcfg, tokens, normal(rng, 2, 32, jcfg.d_model))
+    jh = jlm.lm_forward(jparams, jcfg, remat_policy="none", **jin)
+    with torch.inference_mode():
+        th = tlm.lm_forward(tparams, tcfg, **tin)
+    assert th.shape == (2, 32, jcfg.d_model) and torch.isfinite(th).all()
+    close(th, jh, TOL)
+
+
+def test_every_registered_arch_has_a_smoke_forward_case():
+    from repro_torch.configs.registry import list_archs
+
+    assert set(ARCHS + ["llava-next-34b"]) == set(list_archs())
+
+
+@pytest.mark.parametrize("position", [[5, 11], [0, 7]])
+def test_mla_decode_matches_jax(position):
+    """The absorbed MLA decode step against the JAX one, on a random latent
+    cache: the output and the cache with the new latents written in."""
+    jcfg, tcfg = _configs("deepseek-v2-lite-16b")
+    from repro.models.layers.attention import init_mla
+
+    jp = init_mla(jax.random.PRNGKey(5), jcfg)
+    tp = jax_to_torch_params(jp)
+    rng = np.random.default_rng(5)
+    m = jcfg.mla
+    c_kv, k_r = normal(rng, B, MAX_SEQ, m.kv_lora_rank), normal(rng, B, MAX_SEQ, m.qk_rope_dim)
+    x = normal(rng, B, 1, jcfg.d_model)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    pos = np.array(position, np.int32)
+    jout, jcache = jdec._mla_decode(jp, jcfg, jx, {"c_kv": jnp.asarray(c_kv), "k_r": jnp.asarray(k_r)},
+                                    jnp.asarray(pos))
+    tcache = {"c_kv": torch.from_numpy(c_kv.copy()), "k_r": torch.from_numpy(k_r.copy())}
+    tout, back = tdec._mla_decode(tp, tcfg, tx, tcache, torch.from_numpy(pos))
+    assert back is tcache  # written in place
+    close(tout, jout, 1e-5)
+    tree_close(tcache, jcache, 1e-5)
