@@ -22,10 +22,11 @@ non-zero exit if it fails:
             sequential form (the batch) and clusters of 2 (one prompt); it
             is timed at jamba's SSD dims too.  K1 names the
             path each shape took (``wgmma``, ``mma_sync`` or ``f32``), is
-            checked at MLA's head dims (qk 192, v 128) too, and is also timed
-            at musicgen's heads (24 of 64), deepseek's MLA prefill (16 heads,
-            qk 192, v 128) and stablelm's head dim 80 beside SDPA and its
-            bound.  K3
+            checked at MLA's head dims (qk 192, v 128) and at head dim 80
+            (both on ``wgmma`` in bf16, which the run checks), and is also
+            timed at musicgen's heads (24 of 64), deepseek's MLA prefill (16
+            heads, qk 192, v 128) and stablelm's head dim 80 beside SDPA and
+            its bound.  K3
             exact in its cluster form (n = 1 to 8, and 9 and 16 where the
             card allows a cluster of 16) and its
             dissemination form (n = 64, 128 and the largest resident
@@ -41,9 +42,11 @@ non-zero exit if it fails:
             prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
             d_model 3072, vocab 200064) through the attention kernel;
             mamba2-1.3b (48 layers, d_model 2048, vocab 50280) through the
-            SSD-scan kernel; deepseek-v2-lite-16b (27 layers: MLA through the
-            attention kernel at qk 192 / v 128, a dense prelude layer, 26 MoE
-            layers) and qwen3-moe-30b-a3b (48 GQA + MoE layers) whole; and
+            SSD-scan kernel; stablelm-3b (32 layers, d_model 2560, 32 heads of
+            80) through the attention kernel at head dim 80;
+            deepseek-v2-lite-16b (27 layers: MLA through the attention kernel
+            at qk 192 / v 128, a dense prelude layer, 26 MoE layers) and
+            qwen3-moe-30b-a3b (48 GQA + MoE layers) whole; and
             jamba-v0.1-52b cut to one group of 8 of its 32 layers (1
             attention and 7 SSD layers, 4 MoE; the whole model does not fit
             the card).  Checks that the logits are finite and the tokens in
@@ -92,7 +95,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # (b, h, kvh, s, d, causal): the four shapes of tests/test_kernels.py, one
 # ragged length, the non-causal case, llava's 7 q heads a kv head at a ragged
-# length, head dim 80 and the smoke configs' 16
+# length, head dim 80 (causal, and non-causal at 4 q heads a kv head) and the
+# smoke configs' 16
 KERNEL_SHAPES = [
     (1, 4, 4, 128, 64, True),
     (2, 8, 2, 256, 64, True),
@@ -102,6 +106,7 @@ KERNEL_SHAPES = [
     (1, 2, 2, 128, 64, False),
     (1, 7, 1, 333, 128, True),
     (1, 4, 4, 200, 80, True),
+    (2, 8, 2, 333, 80, False),
     (2, 4, 2, 130, 16, True),
 ]
 # (b, h, kvh, s, dqk, dv, causal): MLA's pair (deepseek-v2-lite: qk 192 = nope
@@ -229,6 +234,9 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg) -> dict:
 
     shapes = [(b, h, kvh, s, d, d, causal) for b, h, kvh, s, d, causal in KERNEL_SHAPES] + KERNEL_PAIR_SHAPES
     for b, h, kvh, s, d, dv, causal in shapes:
+        if d in (80, 192) and kernel_path(torch.bfloat16, d, dv) != "wgmma":
+            raise SystemExit(f"K1 at dqk={d} dv={dv} in bf16 takes the {kernel_path(torch.bfloat16, d, dv)} path, "
+                             "not wgmma")
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             q, k, v = draw(b, h, s, d, dtype=dtype), draw(b, kvh, s, d, dtype=dtype), draw(b, kvh, s, dv, dtype=dtype)
             out, lse = flash_attention_fwd(q, k, v, causal=causal)
@@ -308,9 +316,9 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg) -> dict:
         "launches": 0,
         **{key: serving[key] for key in keys},
         "d64": {key: d64[key] for key in ("path", "ms", "library_ms", "bound_ms")},
-        # launches: one a layer of a deepseek prefill, filled in by the serving phase
+        # launches: one a layer of a deepseek or a stablelm prefill, filled in by the serving phase
         "mla": {"model": mla_cfg.name, "launches": 0, **{key: mla[key] for key in keys}},
-        "d80": {"model": d80_cfg.name, **{key: d80[key] for key in keys}},
+        "d80": {"model": d80_cfg.name, "launches": 0, **{key: d80[key] for key in keys}},
         "launches_by_model": {},
     }
 
@@ -1043,7 +1051,8 @@ def main() -> int:
     # ---- 3. kernels ---------------------------------------------------------
     phi4, mamba2 = get_config("phi4-mini-3.8b"), get_config("mamba2-1.3b")
     deepseek, qwen3 = get_config("deepseek-v2-lite-16b"), get_config("qwen3-moe-30b-a3b")
-    k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, get_config("stablelm-3b"))
+    stablelm = get_config("stablelm-3b")
+    k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, stablelm)
     k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
     k3, k4, k5 = check_scu_kernels()
 
@@ -1054,6 +1063,8 @@ def main() -> int:
     # 513 is no multiple of any attention tile: the ragged edge on the serving path
     by_model = {}
     by_model[phi4.name] = serve_at_full_width(phi4, counters, plain_attention, 5e-2, 512)
+    # stablelm whole (32 layers of 32 heads of 80): K1's head dim 80 on the serving path
+    by_model[stablelm.name] = serve_at_full_width(stablelm, counters, plain_attention, 5e-2, 512)
     # the SSD chunk must divide the prompt: 255 and 256 are one chunk each (255 the ragged one).
     # 48 layers of random SSD weights in bf16 stray from float32 further than 5 % of the
     # largest logit on either path, so only the plain path bounds the kernel's
@@ -1078,6 +1089,7 @@ def main() -> int:
     k1["launches"] = by_model[phi4.name]["flash_attention_fwd"]
     k2["launches"] = by_model[mamba2.name]["ssd_scan_fwd"]
     k1["mla"]["launches"] = by_model[deepseek.name]["flash_attention_fwd"]
+    k1["d80"]["launches"] = by_model[stablelm.name]["flash_attention_fwd"]
     for entry in (k1, k2):
         entry["launches_by_model"] = {name: got[entry["name"]] for name, got in by_model.items()}
 

@@ -2,23 +2,32 @@
 """Times the port's flash-attention kernel on the card, beside one SDPA call and its bound.
 
     PYTHONPATH=src python3 scripts/bench_flash_attention.py [--batch 4] [--heads 24]
-        [--kv-heads 8] [--seq 4096] [--head-dim 128] [--other path/to/other.cu]
+        [--kv-heads 8] [--seq 4096] [--head-dim 128] [--v-head-dim D]
+        [--other path/to/other.cu] [--rounds 1]
 
 Needs an NVIDIA GPU and ``nvcc``.  Inputs are bf16, causal, in the models'
-``(b, s, h, d)`` layout, as the serving path gives them to the kernel.  With
+``(b, s, h, d)`` layout, as the serving path gives them to the kernel; q and
+k rows are ``--head-dim`` wide, v rows ``--v-head-dim`` (default: the same).  With
 ``--other`` a second CUDA source with the same C interface (an earlier
 version of the kernel, say) is built too, checked against the same plain
-version, and timed in turns with the checkout's: other, this, this, other.
-Each time is printed with its rate and its share of the bound's rate.  To
+version, and timed in turns with the checkout's: other, this, this, other,
+``--rounds`` times over (each build's median too where that is more than
+once).  Each time is printed with its rate and its share of the bound's rate.  To
 hold the kernel against an earlier commit's source:
 
-    git show <commit>:src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu > /tmp/k1_old.cu
-    PYTHONPATH=src python3 scripts/bench_flash_attention.py --other /tmp/k1_old.cu
+    git show <commit>:src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu > build/k1_old.cu
+    PYTHONPATH=src python3 scripts/bench_flash_attention.py --other build/k1_old.cu
+
+At deepseek-v2-lite's MLA prefill (qk 192, v 128) and stablelm-3b's (d = 80):
+
+    PYTHONPATH=src python3 scripts/bench_flash_attention.py --heads 16 --kv-heads 16 --head-dim 192 --v-head-dim 128 --other build/k1_old.cu
+    PYTHONPATH=src python3 scripts/bench_flash_attention.py --heads 32 --kv-heads 32 --head-dim 80 --other build/k1_old.cu
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 from pathlib import Path
 
 import torch
@@ -51,19 +60,23 @@ def main() -> None:
     ap.add_argument("--kv-heads", type=int, default=8)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--head-dim", type=int, default=128)
+    ap.add_argument("--v-head-dim", type=int, default=None, help="v's head dim (default: --head-dim)")
     ap.add_argument("--other", type=Path, default=None)
+    ap.add_argument("--rounds", type=int, default=1, help="times the order of builds is run")
     args = ap.parse_args()
 
     b, h, kvh, s, d = args.batch, args.heads, args.kv_heads, args.seq, args.head_dim
+    dv = d if args.v_head_dim is None else args.v_head_dim
     gen = torch.Generator(device="cuda").manual_seed(0)
     draw = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d)))
+    qt, kt, vt = (x.transpose(1, 2) for x in (draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, dv)))
     ref = attention_ref(qt, kt, vt, causal=True).float()
-    flops = 4 * d * b * h * (s * (s + 1) // 2)
+    flops = 2 * (d + dv) * b * h * (s * (s + 1) // 2)
     bound_ms = flops / PEAK_BF16_FLOPS * 1e3
     print(card_name_and_power_limit())
-    print(f"b={b} h={h} kvh={kvh} s={s} d={d} bf16 causal, {flash_kernel.kernel_path(torch.bfloat16, d)} path; "
-          f"bound {bound_ms:.3f} ms by operations")
+    dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
+    print(f"b={b} h={h} kvh={kvh} s={s} {dims} bf16 causal, {flash_kernel.kernel_path(torch.bfloat16, d, dv)} "
+          f"path; bound {bound_ms:.3f} ms by operations")
 
     this_build = flash_kernel.build
     builds = {"this": this_build}
@@ -88,8 +101,14 @@ def main() -> None:
     def report(name, ms):
         print(f"{name}: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s  {bound_ms / ms * 100:.1f} % of the bound's rate")
 
-    for which in order:
-        report(f"{which:5s}", time_ms(lambda: run(which)))
+    times = {which: [] for which in builds}
+    for _ in range(args.rounds):
+        for which in order:
+            times[which].append(time_ms(lambda: run(which)))
+            report(f"{which:5s}", times[which][-1])
+    if args.rounds > 1:
+        for which, got in times.items():
+            report(f"{which:5s} median of {len(got)}", statistics.median(got))
     report("library (one SDPA call)",
            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)))
 

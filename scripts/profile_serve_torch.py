@@ -10,8 +10,8 @@ warms up, then traces one prefill and ``--steps`` decode steps with
 around a synchronised region), the device's busy time (the sum of kernel
 times) and idle share, and the kernels by total device time.  Kernel names
 are the device's own; ``flash_fwd_hopper`` is this repo's attention kernel
-at head dims 64 and 128 (``flash_fwd_bf16`` at 16 and 80, and at MLA's qk
-192 / v 128: ``--arch deepseek-v2-lite-16b``) and ``ssd_scan_bf16`` its
+at head dims 64, 80 and 128 and at MLA's qk 192 / v 128 (``--arch
+deepseek-v2-lite-16b``; ``flash_fwd_bf16`` at 16) and ``ssd_scan_bf16`` its
 SSD-scan kernel (``--arch mamba2-1.3b``).  ``--layers`` cuts the depth, for a
 model that does not fit the card whole (``--arch jamba-v0.1-52b --layers 8``:
 one group of its 32 layers).

@@ -25,15 +25,18 @@
 // `wgmma` reaches that rate, and it must be fed from shared memory without
 // the math warps spending registers or issue slots on loads.  Three kernels:
 //
-// - bf16, d = 64 and 128 (`flash_fwd_hopper`): a CTA of three warpgroups,
-//   128 q rows.  Warpgroup 0 is the producer: one thread issues TMA loads of
-//   Q once and of K and V through a ring of stages (two at d = 128, four at
-//   d = 64), each stage with a full and an empty mbarrier for K and for V;
+// - bf16, d = 64, 80 and 128 and (dqk, dv) = (192, 128) (`flash_fwd_hopper`,
+//   templated on DQK and DV): a CTA of three warpgroups, 128 q rows.
+//   Warpgroup 0 is the producer: one thread issues TMA loads of Q once and of
+//   K and V through a ring of stages (the largest power of two that fits,
+//   at most four: two at d = 128 and (192, 128), four at 64 and 80; three
+//   fit at 128 but read 3-10 % slower than two), each stage with a full and
+//   an empty mbarrier for K and for V;
 //   the group drops to 24 registers (`setmaxnreg`), the consumers rise to
 //   240.  Warpgroups 1 and 2 are consumers of 64 q rows each.  S = Q K^T is
-//   a `wgmma` m64n128k16 with both operands in 128-byte-swizzled shared
-//   memory (K-major); the online softmax runs on the accumulator in
-//   registers in base 2 (`ex2.approx`, scale * log2(e) folded into one FMA);
+//   a `wgmma` m64n128k16 with both operands in swizzled shared memory
+//   (K-major; 128-byte swizzle, 64-byte at d = 80); the online softmax runs
+//   on the accumulator in registers in base 2 (`ex2.approx`, scale * log2(e) folded into one FMA);
 //   P is rounded to bf16 as the reference rounds it and repacked in
 //   registers from the accumulator layout into the A fragment of O += P V, a
 //   `wgmma` with A from registers and V read MN-major (transposed) from
@@ -41,7 +44,23 @@
 //   on, V as soon as P V is.  The tensor maps are 4-D (d, s, head, batch)
 //   over the caller's strides, so the serving path's transposed (b, s, h, d)
 //   views are read with no copy; a 128-wide row takes two 64-element boxes
-//   (the 128-byte swizzle's span).
+//   (the 128-byte swizzle's span), a 192-wide Q or K row three.  K and V
+//   tiles have their own widths and byte counts (48 and 32 KB at (192,
+//   128); with Q's 48 KB and two stages, 214,096 bytes of the 232,448 a
+//   block may have); Q K^T takes DQK/16 k-steps, P V one m64nDVk16 `wgmma`
+//   a k-step, and the store writes DV columns.
+//   d = 80: a 160-byte row fits no 128-byte swizzle box, so at 80 the rows
+//   are cut into 32-element boxes with 64-byte swizzle and padded to 96:
+//   the tensor maps' extent stays 80, TMA fills columns 80-95 with zeros
+//   (Q's and K's add nothing to S, V's give output columns that are not
+//   stored), and S takes 6 k-steps and P V is an m64n96k16.  That costs
+//   1.2x the tensor work of an exact 80.  An exact form in one layout, five
+//   16-element boxes with 32-byte swizzle and an m64n80k16 P V, read no
+//   faster at stablelm's prefill (0.98-1.00 ms against 0.91-0.99 in turns,
+//   H100 at 700 W), so the tensor work is not what bounds 80, and the
+//   padded form with the fewer, wider TMA boxes stays.
+//   Registers (`nvcc -cubin -Xptxas -v`, sm_90a): 168 at every instance
+//   (the consumers raised to 240 by `setmaxnreg`), no spill.
 //   The softmax (exp2 on the MUFU unit, FMAs, the row max) leaves the tensor
 //   cores idle unless products are queued, so each consumer issues S_j and
 //   P_{j-1} V_{j-1} together and runs the softmax of S_j while P V still
@@ -55,15 +74,25 @@
 //   producer already loads the next tile's Q and first K/V stages.  Tiles
 //   are numbered heavy first (the last causal q tiles of every (b, h) before
 //   any lighter one) and dealt out in rounds, every other round in reverse,
-//   so every CTA gets about the same work.
-// - bf16, d = 16 and 80, and (dqk, dv) = (192, 128) (`flash_fwd_bf16`): the
-//   `mma.sync.m16n8k16` kernel with `ldmatrix` and `cp.async` double
-//   buffering, 4 warps of two m-tiles, 128 q rows a block (of one m-tile, 64
-//   rows, at 192/128, where two m-tiles' accumulators do not fit the
-//   registers).  At deepseek-v2-lite's prefill (b=4, h=16, s=4096, causal)
-//   the work is 2*(dqk+dv)*b*h*pairs = 3.4e11 FLOP against 0.34 GB: bound by
-//   the tensor cores, 0.35 ms.  `mma.sync` does not reach that rate; a
-//   `wgmma` form for the pair is later work.
+//   so every CTA gets about the same work.  Where a kv head has few q heads
+//   (MLA's 16 of 16, stablelm's 32 of 32) the CTAs that run at once would
+//   each read another head's K and V from device memory, 128 FLOP a byte
+//   against the card's 295: so the q tiles of one (b, h) are dealt out in
+//   bands side by side, enough that about eight CTAs read each K/V tile at
+//   once, seven of them from L2 (band ceil(8 / group), 1 where a kv head has
+//   eight q heads or more; at 80, 0.85-0.93 ms against 1.65 with band 1).
+//   Code that never runs moves this kernel's time: a block that is never
+//   taken, put before the tile loop, read 7.7 % slower at qwen3-moe's d = 128
+//   (H100 at 700 W).  So two builds are compared only in turns on one card,
+//   and a gain of a few per cent is not read as a change in the work.
+//   At deepseek-v2-lite's prefill (b=4, h=16, s=4096, dqk 192, dv 128,
+//   causal) the work is 2*(dqk+dv)*b*h*pairs = 3.4e11 FLOP against 0.34 GB,
+//   and at stablelm's (b=4, h=32, s=4096, d=80) as much: both bound by the
+//   tensor cores, 0.35 ms.
+// - bf16, d = 16 (`flash_fwd_bf16`): the `mma.sync.m16n8k16` kernel with
+//   `ldmatrix` and `cp.async` double buffering, 4 warps of two m-tiles, 128
+//   q rows a block.  Its instances at 80 and (192, 128) are gone: both take
+//   the Hopper kernel.  16 serves only the smoke configs.
 // - f32 (`flash_fwd_f32`): full-precision FMAs on the CUDA cores (no TF32),
 //   because the reference upcasts before its dot products and is held to
 //   2e-5.  It is a correctness path, not a fast one.
@@ -98,6 +127,7 @@ struct Params {
     long long o_sb, o_sh, o_ss;
     float scale;
     int causal;
+    int band;  // the Hopper kernel's schedule: q tiles of one (batch, head) dealt out side by side
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -153,52 +183,43 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel on `mma.sync`, for head dims the Hopper kernel
-// does not take.  Q and K rows are DQK wide, V and output rows DV wide (MLA:
-// 192 and 128; every other arch DQK == DV).  A block is NW warps and
-// NW * MT * 16 q rows; one warp owns MT m-tiles of 16 rows.  Every K and V
-// fragment a warp loads from shared memory feeds MT products: a warp reads
-// the whole K and V tile whatever its row count, so with one m-tile per warp
-// shared-memory bandwidth bounds the kernel.  At d = 16 and 80 a block is 4
-// warps of two m-tiles, 128 rows.  At 192/128 two m-tiles' output
-// accumulators (128 registers a thread), score tiles (64) and Q fragments
-// come near the 255 a thread may have, so a block is 4 warps of one m-tile,
-// 64 rows (165 registers, no spill).
+// bf16: tensor-core kernel on `mma.sync`, for the head dim the Hopper kernel
+// does not take (16, the smoke configs').  A block is 4 warps of two m-tiles
+// of 16 rows, 128 q rows.  Every K and V fragment a warp loads from shared
+// memory feeds both m-tiles' products: a warp reads the whole K and V tile
+// whatever its row count.
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockN = 64;  // keys per KV tile
+constexpr int kBlockN = 64;     // keys per KV tile
+constexpr int kBf16Warps = 4;   // warps a block
+constexpr int kBf16MTiles = 2;  // m-tiles of 16 q rows a warp
+constexpr int kBf16BlockM = kBf16Warps * kBf16MTiles * 16;  // q rows a block
 
-template <int NW, int MT>
-__host__ __device__ constexpr int bf16_block_m() {
-    return NW * MT * 16;
-}
-
-// Q, then two stages of K (DQK wide), then two stages of V (DV wide), each
-// row padded by 8 elements
-template <int DQK, int DV, int NW, int MT>
+// Q, then two stages of K, then two stages of V, each row padded by 8 elements
+template <int D>
 constexpr int bf16_smem_bytes() {
-    return ((bf16_block_m<NW, MT>() + 2 * kBlockN) * (DQK + 8) + 2 * kBlockN * (DV + 8)) * 2;
+    return (kBf16BlockM + 4 * kBlockN) * (D + 8) * 2;
 }
 
-template <int DQK, int DV, int NW, int MT>
-__global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
-    constexpr int NWARPS = NW;
+template <int D>
+__global__ void __launch_bounds__(kBf16Warps * 32) flash_fwd_bf16(const Params p) {
+    constexpr int NWARPS = kBf16Warps;
+    constexpr int MT = kBf16MTiles;
     constexpr int WM = MT * 16;  // q rows per warp
-    constexpr int BM = bf16_block_m<NW, MT>();
+    constexpr int BM = kBf16BlockM;
     constexpr int BN = kBlockN;
-    constexpr int LDQ = DQK + 8;  // padded Q and K rows: conflict-free fragment loads
-    constexpr int LDV = DV + 8;   // padded V rows
+    constexpr int LD = D + 8;  // padded rows: conflict-free fragment loads
     constexpr int NTHREADS = NWARPS * 32;
-    constexpr int KSTEPS = DQK / 16;  // k-steps of q k^T
+    constexpr int KSTEPS = D / 16;    // k-steps of q k^T
     constexpr int SNT = BN / 8;       // n-tiles of the score tile
-    constexpr int ONT = DV / 8;       // n-tiles of the output tile
+    constexpr int ONT = D / 8;        // n-tiles of the output tile
     constexpr int PSTEPS = BN / 16;   // k-steps of p v
-    static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
+    static_assert(D % 16 == 0, "the head dim must be a multiple of 16");
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* sK = sQ + BM * LDQ;      // two stages
-    __nv_bfloat16* sV = sK + 2 * BN * LDQ;  // two stages
+    __nv_bfloat16* sK = sQ + BM * LD;      // two stages
+    __nv_bfloat16* sV = sK + 2 * BN * LD;  // two stages
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -242,9 +263,9 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
     int n_tiles = (p.sk + BN - 1) / BN;
     if (p.causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
 
-    load_rows(sQ, gQ, p.q_ss, q0, BM, p.sq, DQK, LDQ);
-    load_rows(sK, gK, p.k_ss, 0, BN, p.sk, DQK, LDQ);
-    load_rows(sV, gV, p.v_ss, 0, BN, p.sk, DV, LDV);
+    load_rows(sQ, gQ, p.q_ss, q0, BM, p.sq, D, LD);
+    load_rows(sK, gK, p.k_ss, 0, BN, p.sk, D, LD);
+    load_rows(sV, gV, p.v_ss, 0, BN, p.sk, D, LD);
     cp_async_commit();
 
     // Per-lane ldmatrix addresses.  An x4 load brings four 8x8 matrices; lane
@@ -257,9 +278,9 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
     //   v (B operand of p v, transposed on load, 16 keys x two n-tiles):
     //     (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (keys
     //     8-15, d 8-15) = b0, b1 of the first n-tile, then of the second
-    const int q_lane = (warp * WM + (mi & 1) * 8 + mr) * LDQ + (mi >> 1) * 8;
-    const int k_lane = ((mi >> 1) * 8 + mr) * LDQ + (mi & 1) * 8;
-    const int v_lane = ((mi & 1) * 8 + mr) * LDV + (mi >> 1) * 8;
+    const int q_lane = (warp * WM + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
+    const int k_lane = ((mi >> 1) * 8 + mr) * LD + (mi & 1) * 8;
+    const int v_lane = ((mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
 
     float oacc[MT][ONT][4];
     float m_a[MT], m_b[MT];  // running max of rows g and g + 8, in units of log2
@@ -282,16 +303,16 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
         cp_async_wait_all();
         __syncthreads();
         if (j + 1 < n_tiles) {
-            load_rows(sK + (stage ^ 1) * BN * LDQ, gK, p.k_ss, (j + 1) * BN, BN, p.sk, DQK, LDQ);
-            load_rows(sV + (stage ^ 1) * BN * LDV, gV, p.v_ss, (j + 1) * BN, BN, p.sk, DV, LDV);
+            load_rows(sK + (stage ^ 1) * BN * LD, gK, p.k_ss, (j + 1) * BN, BN, p.sk, D, LD);
+            load_rows(sV + (stage ^ 1) * BN * LD, gV, p.v_ss, (j + 1) * BN, BN, p.sk, D, LD);
             cp_async_commit();
         }
         const int k0 = j * BN;
         // every key of this tile lies above the diagonal for this warp's rows
         if (p.causal && k0 > wrow0 + WM - 1) continue;
 
-        const __nv_bfloat16* kbase = sK + stage * BN * LDQ + k_lane;
-        const __nv_bfloat16* vbase = sV + stage * BN * LDV + v_lane;
+        const __nv_bfloat16* kbase = sK + stage * BN * LD + k_lane;
+        const __nv_bfloat16* vbase = sV + stage * BN * LD + v_lane;
 
         // ---- s = q k^T ------------------------------------------------------
         float sacc[MT][SNT][4];
@@ -308,12 +329,12 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
                 ldmatrix_x4(qf[mt][0], qf[mt][1], qf[mt][2], qf[mt][3],
-                            sQ + q_lane + mt * 16 * LDQ + kk * 16);
+                            sQ + q_lane + mt * 16 * LD + kk * 16);
             }
 #pragma unroll
             for (int np = 0; np < SNT / 2; ++np) {
                 uint32_t r0, r1, r2, r3;
-                ldmatrix_x4(r0, r1, r2, r3, kbase + np * 16 * LDQ + kk * 16);
+                ldmatrix_x4(r0, r1, r2, r3, kbase + np * 16 * LD + kk * 16);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                     mma_bf16(sacc[mt][2 * np], qf[mt], r0, r1);
@@ -404,7 +425,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
 #pragma unroll
             for (int dp = 0; dp < ONT / 2; ++dp) {
                 uint32_t r0, r1, r2, r3;
-                ldmatrix_x4_trans(r0, r1, r2, r3, vbase + ks * 16 * LDV + dp * 16);
+                ldmatrix_x4_trans(r0, r1, r2, r3, vbase + ks * 16 * LD + dp * 16);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                     mma_bf16(oacc[mt][2 * dp], pf[mt], r0, r1);
@@ -451,28 +472,46 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_bf16(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64 and 128: the Hopper kernel.  A CTA is three warpgroups:
-// warpgroup 0 is the producer (one thread issues every TMA load; the group
-// gives its registers away), warpgroups 1 and 2 are consumers of 64 q rows
-// each.  Q is loaded once; K and V go through a ring of stages, each with a
-// full and an empty mbarrier for K and for V, so that K of a stage is handed
-// back as soon as Q K^T has read it and V as soon as P V has.
+// bf16, head dims 64, 80 and 128 and MLA's (192, 128): the Hopper kernel.  A
+// CTA is three warpgroups: warpgroup 0 is the producer (one thread issues
+// every TMA load; the group gives its registers away), warpgroups 1 and 2
+// are consumers of 64 q rows each.  Q is loaded once; K and V go through a
+// ring of stages, each with a full and an empty mbarrier for K and for V, so
+// that K of a stage is handed back as soon as Q K^T has read it and V as
+// soon as P V has.  Q and K rows are DQK wide, V and output rows DV wide.
 // ---------------------------------------------------------------------------
 
 constexpr int kHBlockM = 128;  // q rows a CTA: two consumer warpgroups of 64
 constexpr int kHBlockN = 128;  // keys a KV tile
 constexpr int kHThreads = 384;
-constexpr int kRowBytes = 128;  // one 128-byte-swizzled box row: 64 bf16
+constexpr int kSmemLimit = 232448;  // shared memory a block may have on an H100
 constexpr long long kWaitTrapCycles = 1LL << 34;  // ~8 s at 2 GHz: a lost barrier traps, not hangs
+constexpr int kKVShare = 8;  // CTAs that read one kv head's K and V tiles at once in a banded schedule
 
-template <int D>
+// The shared-memory layout of the Hopper kernel at (DQK, DV).  Every tile is
+// cut into boxes of kBox elements a row, one TMA load each, whose rows are
+// kRowBytes = 2 kBox bytes with the swizzle of that span: 64-element boxes
+// with 128-byte swizzle where both head dims are multiples of 64; at d = 80,
+// 32-element boxes with 64-byte swizzle, the row padded to 96 (the tensor
+// map's extent stays 80, so TMA fills columns 80-95 with zeros).
+template <int DQK, int DV>
 struct HopperCfg {
-    static constexpr int kStages = D == 64 ? 4 : 2;
-    static constexpr int kQBytes = kHBlockM * D * 2;
-    static constexpr int kKVBytes = kHBlockN * D * 2;  // one K or one V tile
+    static constexpr int kBox = (DQK % 64 == 0 && DV % 64 == 0) ? 64 : 32;
+    static constexpr int kRowBytes = 2 * kBox;
+    static constexpr int kDQK = (DQK + kBox - 1) / kBox * kBox;  // padded widths
+    static constexpr int kDV = (DV + kBox - 1) / kBox * kBox;
+    static constexpr int kQBytes = kHBlockM * kDQK * 2;
+    static constexpr int kKBytes = kHBlockN * kDQK * 2;  // one K tile
+    static constexpr int kVBytes = kHBlockN * kDV * 2;   // one V tile
+    // K/V stages: the largest power of two that fits, at most 4 (a ring of
+    // three at d = 128 read 3-10 % slower than two; see the note at the top)
+    static constexpr int kFit = (kSmemLimit - 1024 - kQBytes - 8 * (2 + 4 * 4)) / (kKBytes + kVBytes);
+    static constexpr int kStages = kFit >= 4 ? 4 : (kFit >= 2 ? 2 : kFit);
     static constexpr int kBarBytes = 8 * (2 + 4 * kStages);
     // 1024 bytes of slack: the swizzled tiles must start on 1024-byte boundaries
-    static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+    static constexpr int kSmem = 1024 + kQBytes + kStages * (kKBytes + kVBytes) + kBarBytes;
+    static_assert(kStages >= 2 && kSmem <= kSmemLimit, "the tiles do not fit shared memory");
+    static_assert(kDQK % 16 == 0 && kDV % 16 == 0 && kBox % 16 == 0, "k-steps of 16");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -536,12 +575,18 @@ __device__ __forceinline__ void setmaxnreg_dec() {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1
-// (128-byte swizzle) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor of an operand whose rows are ROW_BYTES
+// (128 or 64) swizzled as TMA wrote them: start address, leading and stride
+// byte offsets (in 16-byte units), and the layout in bits 62-63 (1: 128-byte
+// swizzle, 2: 64-byte).  The stride offset is that of eight rows, one
+// swizzle pattern: 8 ROW_BYTES.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr, uint32_t lbo) {
+    static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "no such swizzle");
+    constexpr uint64_t layout = ROW_BYTES == 128 ? 1 : 2;
+    constexpr uint32_t sbo = 8 * ROW_BYTES;
     return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-           (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+           (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -588,6 +633,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 96, f32) += A (64 x 16, registers) * B (16 x 96, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -719,21 +780,25 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[KS][4], const float (&s)[K
     }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kHThreads, 1)
     flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
-    using Cfg = HopperCfg<D>;
+    using Cfg = HopperCfg<DQK, DV>;
     constexpr int STAGES = Cfg::kStages;
     constexpr int BM = kHBlockM;
     constexpr int BN = kHBlockN;
-    constexpr int BOXES = D / 64;  // 128-byte boxes a row
+    constexpr int BOX = Cfg::kBox;            // elements a box row
+    constexpr int ROW = Cfg::kRowBytes;       // bytes a box row: the swizzle's span
+    constexpr int QK_BOXES = Cfg::kDQK / BOX;  // boxes a Q or K row
+    constexpr int V_BOXES = Cfg::kDV / BOX;    // boxes a V row
+    constexpr int DVP = Cfg::kDV;             // the output accumulator's (padded) width
 
     extern __shared__ unsigned char smem_raw[];
     const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-    const uint32_t sK = sQ + Cfg::kQBytes;            // stage s at sK + s * kKVBytes
-    const uint32_t sV = sK + STAGES * Cfg::kKVBytes;  // stage s at sV + s * kKVBytes
-    const uint32_t bars = sV + STAGES * Cfg::kKVBytes;
+    const uint32_t sK = sQ + Cfg::kQBytes;           // stage s at sK + s * kKBytes
+    const uint32_t sV = sK + STAGES * Cfg::kKBytes;  // stage s at sV + s * kVBytes
+    const uint32_t bars = sV + STAGES * Cfg::kVBytes;
     const uint32_t full_q = bars;
     const uint32_t empty_q = bars + 8;
     auto full_k = [&](int s) { return bars + 8u * (2 + s); };
@@ -744,11 +809,16 @@ __global__ void __launch_bounds__(kHThreads, 1)
     // Persistent: the work items go out in rounds of gridDim.x, one to a CTA,
     // every other round in reverse (a CTA's k-th item is number_of(k)), so
     // that the items of every CTA add up to about the same work.  Items are
-    // numbered heavy first: the q tiles from the last (the most keys under a
-    // causal mask) to the first, every (batch, head) at one q tile before any
-    // at the next, so the light items come last and even out the CTAs.
+    // numbered heavy first in bands of p.band q tiles: the bands from the
+    // last q tiles (the most keys under a causal mask) to the first, every
+    // (batch, head) at one band before any at the next, so the light items
+    // come last and even out the CTAs.  Within a band the q tiles of one
+    // (batch, head) are neighbours, so the CTAs that take them at once read
+    // the same K and V tiles at about the same time: one read from device
+    // memory, the others from L2.
     const int n_qtiles = (p.sq + BM - 1) / BM;
     const int n_items = n_qtiles * p.b * p.h;
+    const int band_items = p.band * p.b * p.h;
     auto number_of = [&](int k) {
         return static_cast<int>(k * gridDim.x + ((k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x));
     };
@@ -757,8 +827,14 @@ __global__ void __launch_bounds__(kHThreads, 1)
     };
     auto item = [&](int w) {
         Item it;
-        const int bh = w % (p.b * p.h);
-        it.q0 = (n_qtiles - 1 - w / (p.b * p.h)) * BM;
+        // unsigned: the signed form built to code that read 2-10 % slower at
+        // every instance, though it runs only some 60 instructions an item
+        // more; this kernel's time moves with its code layout (PERF.md, 6)
+        const unsigned band = unsigned(w) / unsigned(band_items);
+        const unsigned g = min(unsigned(p.band), unsigned(n_qtiles) - band * unsigned(p.band));  // the last band may have fewer q tiles
+        const unsigned r = unsigned(w) - band * unsigned(band_items);
+        const int bh = int(r / g);
+        it.q0 = (n_qtiles - 1 - int(band) * p.band - int(r - unsigned(bh) * g)) * BM;
         it.batch = bh / p.h;
         it.head = bh - it.batch * p.h;
         it.kvhead = it.head / (p.h / p.kvh);
@@ -794,27 +870,28 @@ __global__ void __launch_bounds__(kHThreads, 1)
             for (int n = 0; number_of(n) < n_items; ++n) {
                 const Item it = item(number_of(n));
                 mbar_wait(empty_q, (n & 1) ^ 1);  // the item before is done with Q
+                // a box's columns past the head dim are zero-filled and counted
                 mbar_expect_tx(full_q, Cfg::kQBytes);
 #pragma unroll
-                for (int x = 0; x < BOXES; ++x) {
-                    tma_load_4d(sQ + x * BM * kRowBytes, &tm_q, full_q, x * 64, it.q0, it.head, it.batch);
+                for (int x = 0; x < QK_BOXES; ++x) {
+                    tma_load_4d(sQ + x * BM * ROW, &tm_q, full_q, x * BOX, it.q0, it.head, it.batch);
                 }
                 for (int j = 0; j < it.n_tiles; ++j, ++kv) {
                     const int s = kv % STAGES;
                     const uint32_t phase = (kv / STAGES) & 1;
                     mbar_wait(empty_k(s), phase ^ 1);
-                    mbar_expect_tx(full_k(s), Cfg::kKVBytes);
+                    mbar_expect_tx(full_k(s), Cfg::kKBytes);
 #pragma unroll
-                    for (int x = 0; x < BOXES; ++x) {
-                        tma_load_4d(sK + s * Cfg::kKVBytes + x * BN * kRowBytes, &tm_k, full_k(s),
-                                    x * 64, j * BN, it.kvhead, it.batch);
+                    for (int x = 0; x < QK_BOXES; ++x) {
+                        tma_load_4d(sK + s * Cfg::kKBytes + x * BN * ROW, &tm_k, full_k(s),
+                                    x * BOX, j * BN, it.kvhead, it.batch);
                     }
                     mbar_wait(empty_v(s), phase ^ 1);
-                    mbar_expect_tx(full_v(s), Cfg::kKVBytes);
+                    mbar_expect_tx(full_v(s), Cfg::kVBytes);
 #pragma unroll
-                    for (int x = 0; x < BOXES; ++x) {
-                        tma_load_4d(sV + s * Cfg::kKVBytes + x * BN * kRowBytes, &tm_v, full_v(s),
-                                    x * 64, j * BN, it.kvhead, it.batch);
+                    for (int x = 0; x < V_BOXES; ++x) {
+                        tma_load_4d(sV + s * Cfg::kVBytes + x * BN * ROW, &tm_v, full_v(s),
+                                    x * BOX, j * BN, it.kvhead, it.batch);
                     }
                 }
             }
@@ -827,25 +904,27 @@ __global__ void __launch_bounds__(kHThreads, 1)
         const int lane = t & 31;
         const int tq = lane & 3;  // accumulator column pair within each 8
         const int row0 = wg * 64 + (t >> 5) * 16 + (lane >> 2);  // and row0 + 8, from q0
-        const uint32_t q_base = sQ + wg * 64 * kRowBytes;
+        const uint32_t q_base = sQ + wg * 64 * ROW;
 
-        // S = Q K^T of stage s: Q and K both K-major in shared memory
+        // S = Q K^T of stage s: Q and K both K-major in shared memory, a
+        // k-step 32 bytes of a box row (the leading offset is not read)
         auto issue_qk = [&](float (&acc)[BN / 2], int s) {
+            constexpr int STEPS = BOX / 16;  // k-steps a box
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                const uint32_t qoff = (kk / 4) * BM * kRowBytes + (kk % 4) * 32;
-                const uint32_t koff = (kk / 4) * BN * kRowBytes + (kk % 4) * 32;
-                wgmma_ss(acc, sw128_desc(q_base + qoff, 16, 1024),
-                         sw128_desc(sK + s * Cfg::kKVBytes + koff, 16, 1024), kk > 0);
+            for (int kk = 0; kk < Cfg::kDQK / 16; ++kk) {
+                const uint32_t qoff = (kk / STEPS) * BM * ROW + (kk % STEPS) * 32;
+                const uint32_t koff = (kk / STEPS) * BN * ROW + (kk % STEPS) * 32;
+                wgmma_ss(acc, swizzled_desc<ROW>(q_base + qoff, 16),
+                         swizzled_desc<ROW>(sK + s * Cfg::kKBytes + koff, 16), kk > 0);
             }
             wgmma_commit();
         };
-        // O += P V of stage s: P from registers, V MN-major in shared memory
-        auto issue_pv = [&](float (&acc)[D / 2], const uint32_t (&pf)[BN / 16][4], int s) {
+        // O += P V of stage s: P from registers, V MN-major in shared memory,
+        // a k-step 16 rows; the leading offset steps from one box to the next
+        auto issue_pv = [&](float (&acc)[DVP / 2], const uint32_t (&pf)[BN / 16][4], int s) {
 #pragma unroll
             for (int ks = 0; ks < BN / 16; ++ks) {
-                wgmma_rs(acc, pf[ks], sw128_desc(sV + s * Cfg::kKVBytes + ks * 16 * kRowBytes,
-                                                 BN * kRowBytes, 1024));
+                wgmma_rs(acc, pf[ks], swizzled_desc<ROW>(sV + s * Cfg::kVBytes + ks * 16 * ROW, BN * ROW));
             }
             wgmma_commit();
         };
@@ -858,9 +937,9 @@ __global__ void __launch_bounds__(kHThreads, 1)
             // keys past sk, or (causal) past this warpgroup's first row: mask
             auto masked = [&](int k0) { return k0 + BN > p.sk || (p.causal && k0 + BN - 1 > wrow0); };
 
-            float oacc[D / 2];
+            float oacc[DVP / 2];
 #pragma unroll
-            for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+            for (int i = 0; i < DVP / 2; ++i) oacc[i] = 0.f;
             OnlineSoftmax sm(p.scale * kLog2e);
             float sacc[BN / 2];
             uint32_t pf[BN / 16][4];  // P of the tile before, in bf16
@@ -918,7 +997,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
             if (lane == 0) mbar_arrive(empty_v(sl));
             kv += it.n_tiles;
 
-            // ---- epilogue: o / max(l, 1e-30) in bf16, lse ----------------------
+            // ---- epilogue: o / max(l, 1e-30) in bf16 (DV columns), lse -----------
             float l_a = sm.l_a, l_b = sm.l_b;
             const int row_b = row_a + 8;
             l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
@@ -935,7 +1014,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
             if (row_a < p.sq) {
                 __nv_bfloat16* orow = gO + (long long)row_a * p.o_ss + tq * 2;
 #pragma unroll
-                for (int c = 0; c < D / 8; ++c) {
+                for (int c = 0; c < DV / 8; ++c) {
                     *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
                         __floats2bfloat162_rn(oacc[4 * c] * inv_a, oacc[4 * c + 1] * inv_a);
                 }
@@ -944,7 +1023,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
             if (row_b < p.sq) {
                 __nv_bfloat16* orow = gO + (long long)row_b * p.o_ss + tq * 2;
 #pragma unroll
-                for (int c = 0; c < D / 8; ++c) {
+                for (int c = 0; c < DV / 8; ++c) {
                     *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
                         __floats2bfloat162_rn(oacc[4 * c + 2] * inv_b, oacc[4 * c + 3] * inv_b);
                 }
@@ -1144,8 +1223,8 @@ int path_of(int dtype, int dqk, int dv) {
     const bool mla = dqk == 192 && dv == 128;
     if (dtype == 0) return (same || mla) ? 0 : kErrNotBuilt;
     if (dtype == 1) {
-        if (same && (dqk == 64 || dqk == 128)) return 2;
-        if (same || mla) return 1;
+        if (same && dqk == 16) return 1;
+        if (same || mla) return 2;
     }
     return kErrNotBuilt;
 }
@@ -1163,11 +1242,9 @@ cudaError_t launch(Kernel kernel, int smem, int threads, int block_m, const Para
     return cudaGetLastError();
 }
 
-// (warps, m-tiles a warp) of the mma.sync kernel: see its note
-template <int DQK, int DV, int NW = 4, int MT = (DV > 80 ? 1 : 2)>
+template <int D>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-    return launch(flash_fwd_bf16<DQK, DV, NW, MT>, bf16_smem_bytes<DQK, DV, NW, MT>(), NW * 32,
-                  bf16_block_m<NW, MT>(), p, stream);
+    return launch(flash_fwd_bf16<D>, bf16_smem_bytes<D>(), kBf16Warps * 32, kBf16BlockM, p, stream);
 }
 
 template <int DQK, int DV>
@@ -1196,11 +1273,12 @@ EncodeTiled encoder() {
     return fn;
 }
 
-// A 4-D (d, s, head, batch) bf16 map over strided memory, boxes of 64 x `rows`
-// with 128-byte swizzle; rows past `s` read as zeros.  The stride of an axis
-// of extent 1 is never followed, so it is replaced by a valid one.
+// A 4-D (d, s, head, batch) bf16 map over strided memory, boxes of `box` x
+// `rows` with the swizzle of a `box`-element row (64: 128 bytes, 32: 64);
+// rows past `s` and columns past `d` read as zeros.  The stride of an axis of
+// extent 1 is never followed, so it is replaced by a valid one.
 bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int s, int heads,
-                int batch, long long ss, long long sh, long long sb, int rows) {
+                int batch, long long ss, long long sh, long long sb, int box, int rows) {
     const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)batch};
     cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
     cuuint64_t packed = (cuuint64_t)d * 2;
@@ -1208,34 +1286,44 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, i
         if (dims[i + 1] == 1) strides[i] = packed;
         packed = strides[i] * dims[i + 1];
     }
-    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t box_dims[4] = {(cuuint32_t)box, (cuuint32_t)rows, 1, 1};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
+    const CUtensorMapSwizzle swizzle = box == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
     return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  box_dims, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_hopper(Params p, cudaStream_t stream) {
+    using Cfg = HopperCfg<DQK, DV>;
+    static_assert(Cfg::kBox == 64 || Cfg::kBox == 32, "encode_map takes boxes of 64 and 32");
     const EncodeTiled encode = encoder();
     if (encode == nullptr) return kErrNoEncoder;
+    constexpr int box = Cfg::kBox;
     CUtensorMap tm_q, tm_k, tm_v;
-    if (!encode_map(encode, &tm_q, p.q, D, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, kHBlockM) ||
-        !encode_map(encode, &tm_k, p.k, D, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, kHBlockN) ||
-        !encode_map(encode, &tm_v, p.v, D, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, kHBlockN)) {
+    if (!encode_map(encode, &tm_q, p.q, DQK, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, kHBlockM) ||
+        !encode_map(encode, &tm_k, p.k, DQK, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, kHBlockN) ||
+        !encode_map(encode, &tm_v, p.v, DV, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, kHBlockN)) {
         return kErrTensorMap;
     }
-    constexpr int smem = HopperCfg<D>::kSmem;
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_hopper<D>,
+    constexpr int smem = Cfg::kSmem;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_hopper<DQK, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     int device = 0, sms = 0;
     err = cudaGetDevice(&device);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int n_items = (p.sq + kHBlockM - 1) / kHBlockM * p.b * p.h;
-    flash_fwd_hopper<D><<<min(n_items, sms), kHThreads, smem, stream>>>(tm_q, tm_k, tm_v, p);
+    // a band of q tiles of one (batch, head), times the q heads of a kv head
+    // (neighbours in the order already), makes about kKVShare CTAs read the
+    // same K and V tiles at once
+    const int n_qtiles = (p.sq + kHBlockM - 1) / kHBlockM;
+    const int group = p.h / p.kvh;
+    p.band = min(n_qtiles, max(1, (kKVShare + group - 1) / group));
+    const int n_items = n_qtiles * p.b * p.h;
+    flash_fwd_hopper<DQK, DV><<<min(n_items, sms), kHThreads, smem, stream>>>(tm_q, tm_k, tm_v, p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1288,16 +1376,18 @@ extern "C" int flash_attention_fwd_dqk_dv(const void* q, const void* k, const vo
     p.o_ss = strides[11];
     p.scale = scale;
     p.causal = causal;
+    p.band = 1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (path_of(dtype, dqk, dv)) {
         case 2:
-            return dqk == 64 ? launch_hopper<64>(p, s) : launch_hopper<128>(p, s);
-        case 1:
             switch (dqk) {
-                case 16: return static_cast<int>(launch_bf16<16, 16>(p, s));
-                case 80: return static_cast<int>(launch_bf16<80, 80>(p, s));
-                default: return static_cast<int>(launch_bf16<192, 128>(p, s));
+                case 64: return launch_hopper<64, 64>(p, s);
+                case 80: return launch_hopper<80, 80>(p, s);
+                case 128: return launch_hopper<128, 128>(p, s);
+                default: return launch_hopper<192, 128>(p, s);
             }
+        case 1:
+            return static_cast<int>(launch_bf16<16>(p, s));
         case 0:
             switch (dqk) {
                 case 16: return static_cast<int>(launch_f32<16, 16>(p, s));

@@ -9,10 +9,10 @@ laid out as it is.
 ``flash_attention_fwd`` takes CUDA tensors only and launches the kernel or
 raises.  It counts its launches in ``flash_attention_fwd.launches``.  Which
 of the source's three kernels takes a call is ``kernel_path(dtype, dqk,
-dv)``: bf16 at head dims 64 and 128 goes to the Hopper kernel (``wgmma``,
-TMA, warp specialisation), bf16 at 16 and 80 and at MLA's pair (qk 192, v
-128) to the ``mma.sync`` kernel, f32 to the full-precision one.  No path
-falls back to another.
+dv)``: bf16 at head dims 64, 80 and 128 and at MLA's pair (qk 192, v 128)
+goes to the Hopper kernel (``wgmma``, TMA, warp specialisation), bf16 at 16
+to the ``mma.sync`` kernel, f32 to the full-precision one.  No path falls
+back to another.
 """
 
 from __future__ import annotations
@@ -44,10 +44,10 @@ _ERRORS = {
 
 def kernel_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
     """The kernel that takes ``(dtype, dqk, dv)`` (``dv`` defaults to
-    ``dqk``): ``"wgmma"`` (bf16, d 64 and 128), ``"mma_sync"`` (bf16, d 16
-    and 80, and (192, 128)) or ``"f32"``.  Raises for anything the source
-    does not build.  The C entry's ``flash_attention_path_dqk_dv`` is the
-    same table."""
+    ``dqk``): ``"wgmma"`` (bf16, d 64, 80 and 128, and (192, 128)),
+    ``"mma_sync"`` (bf16, d 16) or ``"f32"``.  Raises for anything the
+    source does not build.  The C entry's ``flash_attention_path_dqk_dv`` is
+    the same table."""
     dv = dqk if dv is None else dv
     if dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got {dtype}")
@@ -58,7 +58,7 @@ def kernel_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
                          f"{HEAD_DIMS} and the pairs {HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
         return "f32"
-    return "wgmma" if dqk == dv and dqk in (64, 128) else "mma_sync"
+    return "mma_sync" if dqk == 16 else "wgmma"
 
 
 @functools.lru_cache(maxsize=None)

@@ -98,9 +98,15 @@ def test_flash_ops_wrapper_layout_and_count(card):
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=2e-5, atol=2e-5)
 
 
-# The Hopper (wgmma + TMA) path at the head dims it takes: GQA groups 1, 3
-# (phi4) and 7 (llava, 56/8), lengths that are no multiple of its 128-row
-# tiles, and a grid of more than 132 CTAs (one an SM); bf16 2e-2, lse 1e-4.
+# The Hopper (wgmma + TMA) path at the head dims it takes: 128, 64, MLA's
+# pair (qk 192, v 128) and 80 (32-element boxes, rows padded to 96).  GQA
+# groups 1, 3 (phi4), 4 and 7 (llava, 56/8); lengths shorter than one tile
+# (77), no multiple of its 128-row tiles (333) and one past a multiple of
+# every tile (513); grids of fewer CTAs than the SMs (4 to 24) and of more
+# (3 x 14 x 5 = 210); bf16 2e-2, lse 1e-4.
+HOPPER_DIMS = [(128, 128), (64, 64), (192, 128), (80, 80)]
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize(
     "b,h,kvh,s",
@@ -108,15 +114,21 @@ def test_flash_ops_wrapper_layout_and_count(card):
         (1, 4, 4, 256),  # group 1
         (2, 6, 2, 333),  # group 3, ragged
         (1, 7, 1, 333),  # group 7, ragged
-        (3, 14, 2, 640),  # group 7, 3 x 14 x 5 = 210 CTAs
+        (3, 14, 2, 640),  # group 7, 210 CTAs
+        (1, 4, 4, 77),  # group 1, shorter than one tile: 4 CTAs
+        (1, 8, 2, 333),  # group 4, ragged
+        (1, 4, 4, 513),  # group 1, one past a multiple of every tile
     ],
 )
-@pytest.mark.parametrize("d", [128, 64])
-def test_flash_hopper_path_matches_plain(card, b, h, kvh, s, d, causal):
-    assert kernel_path(torch.bfloat16, d) == "wgmma"
-    q, k, v = _inputs(b, h, kvh, s, s, d, torch.bfloat16, card)
+@pytest.mark.parametrize("dqk,dv", HOPPER_DIMS)
+def test_flash_hopper_path_matches_plain(card, b, h, kvh, s, dqk, dv, causal):
+    assert kernel_path(torch.bfloat16, dqk, dv) == "wgmma"
+    q, k, v = _inputs(b, h, kvh, s, s, dqk, torch.bfloat16, card, dv=dv)
+    before = flash_attention_fwd.launches
     out, lse = flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.shape == (b, h, s, dv)
     ref = attention_ref(q.float(), k.float(), v.float(), causal=causal)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
     ref_lse = attention_ref_lse(q, k, causal=causal)
@@ -124,8 +136,9 @@ def test_flash_hopper_path_matches_plain(card, b, h, kvh, s, d, causal):
 
 
 @pytest.mark.parametrize("sq,sk", [(70, 333), (300, 40)])
-def test_flash_hopper_path_cross_attention(card, sq, sk):
-    q, k, v = _inputs(1, 4, 2, sq, sk, 128, torch.bfloat16, card)
+@pytest.mark.parametrize("dqk,dv", [(128, 128), (192, 128), (80, 80)])
+def test_flash_hopper_path_cross_attention(card, sq, sk, dqk, dv):
+    q, k, v = _inputs(1, 4, 2, sq, sk, dqk, torch.bfloat16, card, dv=dv)
     out, lse = flash_attention_fwd(q, k, v, causal=False)
     ref = attention_ref(q.float(), k.float(), v.float(), causal=False)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
@@ -133,7 +146,7 @@ def test_flash_hopper_path_cross_attention(card, sq, sk):
     np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("d", [128, 64, 80])
 def test_flash_hopper_path_strided_views_through_ops(card, d):
     """The serving path's (b, s, h, d) tensors, read by the tensor maps as
     strided views (no copy), launch the kernel once."""
@@ -150,11 +163,12 @@ def test_flash_hopper_path_strided_views_through_ops(card, d):
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.transpose(1, 2).cpu().numpy(), rtol=2e-2, atol=2e-2)
 
 
-def test_flash_hopper_path_odd_strides(card):
+@pytest.mark.parametrize("d", [128, 80])
+def test_flash_hopper_path_odd_strides(card, d):
     """A broadcast kv head (stride 0) and a batch axis of extent 1 with a
     stride no TMA map takes are still read right."""
-    q, k, v = _inputs(1, 4, 1, 200, 200, 128, torch.bfloat16, card)
-    k2, v2 = k.expand(1, 2, 200, 128), v.expand(1, 2, 200, 128)
+    q, k, v = _inputs(1, 4, 1, 200, 200, d, torch.bfloat16, card)
+    k2, v2 = k.expand(1, 2, 200, d), v.expand(1, 2, 200, d)
     q1 = q.as_strided(q.shape, (1, *q.stride()[1:]))
     out, lse = flash_attention_fwd(q1, k2, v2, causal=True)
     ref = attention_ref(q.float(), k2.float(), v2.float(), causal=True)
@@ -174,16 +188,24 @@ def test_flash_path_table_is_the_sources(card):
 
 
 def test_flash_pair_path_table_is_the_sources(card):
-    """``kernel_path`` and ``flash_attention_path_dqk_dv`` agree on every built
-    (dtype, dqk, dv), equal dims included, and both refuse unbuilt pairs."""
+    """``kernel_path`` and ``flash_attention_path_dqk_dv`` are one table: over
+    every (dtype, dqk, dv) of a grid around the built ones, the same path
+    where built (each built pair and equal dim among them), -1 and a
+    ``ValueError`` where not."""
     fn = flash_kernel.build()
+    dims = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
+    built = set(HEAD_DIM_PAIRS) | {(d, d) for d in HEAD_DIMS}
+    assert built <= {(dqk, dv) for dqk in dims for dv in dims}
     for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
-        for dqk, dv in HEAD_DIM_PAIRS + tuple((d, d) for d in HEAD_DIMS):
-            assert PATHS[fn.path_dqk_dv(code, dqk, dv)] == kernel_path(dtype, dqk, dv)
-        for dqk, dv in ((192, 64), (128, 192), (192, 192), (256, 128)):
-            assert fn.path_dqk_dv(code, dqk, dv) == -1
-            with pytest.raises(ValueError, match="not built"):
-                kernel_path(dtype, dqk, dv)
+        for dqk in dims:
+            for dv in dims:
+                if (dqk, dv) in built:
+                    assert PATHS[fn.path_dqk_dv(code, dqk, dv)] == kernel_path(dtype, dqk, dv)
+                else:
+                    assert fn.path_dqk_dv(code, dqk, dv) == -1, (dqk, dv)
+                    with pytest.raises(ValueError, match="not built"):
+                        kernel_path(dtype, dqk, dv)
+    assert fn.path_dqk_dv(2, 128, 128) == -1  # float16: not built
 
 
 # MLA's pair (qk 192, v 128), deepseek-v2-lite's 16 heads (kvh = h), ragged
@@ -194,7 +216,7 @@ def test_flash_pair_path_table_is_the_sources(card):
 @pytest.mark.parametrize("b,s", [(1, 77), (2, 513)])
 def test_flash_kernel_mla_pair_matches_plain(card, b, s, causal, dtype, tol):
     q, k, v = _inputs(b, 16, 16, s, s, 192, dtype, card, dv=128)
-    assert kernel_path(dtype, 192, 128) == ("f32" if dtype == torch.float32 else "mma_sync")
+    assert kernel_path(dtype, 192, 128) == ("f32" if dtype == torch.float32 else "wgmma")
     before = flash_attention_fwd.launches
     out, lse = flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -207,11 +229,18 @@ def test_flash_kernel_mla_pair_matches_plain(card, b, s, causal, dtype, tol):
 
 
 def test_flash_mla_pair_through_ops_on_the_models_layout(card):
-    """(b, s, h, d) in, (b, s, h, dv) out, as ``mla_apply`` calls it."""
+    """(b, s, h, d) in, (b, s, h, dv) out, as ``mla_apply`` calls it: Q and
+    K concatenated from their nope and rope parts, K's rope part broadcast
+    over the heads; one launch."""
     rng = np.random.default_rng(3)
     mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card, torch.bfloat16)
-    q, k, v = mk(2, 200, 16, 192), mk(2, 200, 16, 192), mk(2, 200, 16, 128)
+    q = torch.cat([mk(2, 200, 16, 128), mk(2, 200, 16, 64)], dim=-1)
+    k = torch.cat([mk(2, 200, 16, 128), mk(2, 200, 1, 64).expand(2, 200, 16, 64)], dim=-1)
+    v = mk(2, 200, 16, 128)
+    before = flash_attention_fwd.launches
     out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
     assert out.shape == (2, 200, 16, 128) and out.is_contiguous()
     ref = attention_ref(q.transpose(1, 2).float(), k.transpose(1, 2).float(), v.transpose(1, 2).float())
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.transpose(1, 2).cpu().numpy(), rtol=2e-2, atol=2e-2)

@@ -13,13 +13,13 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIM_PAIRS, HEAD_DIMS, PATHS, kernel_path
 from repro_torch.models.layers import attention as ta
 
-# bf16 at the head dims of phi4, codeqwen, command-r, llava (128) and musicgen
-# (64) goes to the Hopper kernel; stablelm's 80 and the smoke configs' 16 to
+# bf16 at the head dims of phi4, codeqwen, command-r, llava (128), musicgen
+# (64) and stablelm (80) goes to the Hopper kernel; the smoke configs' 16 to
 # the mma.sync kernel; float32 always to the full-precision one
 EXPECTED = {
     (torch.bfloat16, 16): "mma_sync",
     (torch.bfloat16, 64): "wgmma",
-    (torch.bfloat16, 80): "mma_sync",
+    (torch.bfloat16, 80): "wgmma",
     (torch.bfloat16, 128): "wgmma",
     (torch.float32, 16): "f32",
     (torch.float32, 64): "f32",
@@ -61,9 +61,9 @@ def test_unbuilt_dtype_raises_before_any_build(no_build, dtype):
         kernel_path(dtype, 128)
 
 
-# MLA's pair (qk 192 = nope 128 + rope 64, v 128): the mma.sync kernel in bf16
+# MLA's pair (qk 192 = nope 128 + rope 64, v 128): the Hopper kernel in bf16
 EXPECTED_PAIRS = {
-    (torch.bfloat16, 192, 128): "mma_sync",
+    (torch.bfloat16, 192, 128): "wgmma",
     (torch.float32, 192, 128): "f32",
 }
 
@@ -87,6 +87,20 @@ def test_kernel_path_of_equal_dims_is_the_one_dim_path(dtype, d):
 def test_unbuilt_pair_raises_before_any_build(no_build, dtype, dqk, dv):
     with pytest.raises(ValueError, match="not built"):
         kernel_path(dtype, dqk, dv)
+
+
+def test_mla_inputs_are_no_broadcast_and_are_not_copied():
+    """``mla_apply`` concatenates K's rope part, broadcast over the heads,
+    onto its nope part: the result has a stride for every head, so the
+    Hopper path reads it where it lies; only a genuinely broadcast head (a
+    zero stride) is copied."""
+    b, s, h = 2, 5, 4
+    k_nope, k_r = torch.randn(b, s, h, 128), torch.randn(b, s, 1, 64)
+    broadcast = k_r.expand(b, s, h, 64)
+    kk = torch.cat([k_nope, broadcast], dim=-1)
+    assert flash_kernel._no_broadcast(kk.transpose(1, 2))
+    assert not flash_kernel._no_broadcast(broadcast.transpose(1, 2))
+    assert flash_kernel._no_broadcast(broadcast[:, :, :1].transpose(1, 2))  # extent 1: never followed
 
 
 def test_mla_apply_on_a_cpu_tensor_never_builds_or_launches(no_build):
@@ -122,7 +136,7 @@ def test_mla_apply_on_the_card_launches_k1(card, dtype, tol):
     got = ta.mla_apply(on_card, cfg, x.to(card))
     torch.cuda.synchronize()
     assert flash_kernel.flash_attention_fwd.launches == before + 1
-    assert kernel_path(dtype, 192, 128) in ("mma_sync", "f32")
+    assert kernel_path(dtype, 192, 128) in ("wgmma", "f32")
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)
 
 
