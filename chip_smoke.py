@@ -37,6 +37,12 @@ non-zero exit if it fails:
             forms.  K4 for every target, K5 at sizes 1 to 2^20 and on an
             unaligned view, all exact; beside K3's bound, the floor of the
             form it takes at the sweep's shape (measured in the same run).
+            The autograd Functions around K1 and K2: each gradient against
+            PyTorch's autograd of the plain version on the card (K1 at phi4's,
+            deepseek's MLA and stablelm's head dims in bf16 and phi4's in
+            float32, 1024 tokens; K2 at mamba2's dims in the sequential and a
+            cluster form); K1's backward timed at phi4's training shape beside
+            SDPA's backward, K2's at the serving shape.
 4. serve:   each served model at its published width (random weights from a
             seed) through the launcher's functions: a batch of prompts is
             prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
@@ -62,7 +68,19 @@ non-zero exit if it fails:
             answers one prompt alone (K2 in clusters of 2, counted the same
             way), and that prefill is timed in turns with K2's sequential
             form, the form of a card without cluster launch.
-5. sync:    the chip-level barrier sweep (``repro_torch.launch.barriers``,
+5. train:   make_train_step (bf16 params, the scu policy, full remat) for
+            5 steps on one fixed random batch: mamba2-1.3b whole (48 layers,
+            4 x 4096) and phi4-mini-3.8b whole (32 layers, 1 x 4096), after a
+            float32 step of each at 4 layers and 512 tokens through the
+            kernels against one through the plain versions (loss, gradient
+            norm, updated params).  Checks that every parameter leaf has a
+            finite, non-zero gradient at step 0, that every loss is finite and
+            the loss after 5 steps is below the first, and that a step
+            launched K1 and K2 twice per layer of their kind (the forward and
+            its recompute; every count set to 0 just before, read just after).
+            Reports step ms, peak memory, and one profiled step's device busy
+            time, idle share and largest kernels.
+6. sync:    the chip-level barrier sweep (``repro_torch.launch.barriers``,
             the paper's Fig. 5 at chip granularity) with 8 parties under all
             seven registered policies: microseconds per barrier and the
             overhead curve for each.  Checks that every party is released
@@ -70,7 +88,7 @@ non-zero exit if it fails:
             barrier (16 a region a pass), and that K5 raised the arrival
             words and K4 delivered the counts once a policy (every count
             set to 0 just before, read just after).
-6. result:  one ``{"kernels": [...]}`` line (K1-K5), the card line, and the
+7. result:  one ``{"kernels": [...]}`` line (K1-K5), the card line, and the
             last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -155,6 +173,25 @@ SCU_SIGNAL_SIZES = [8, 1, 7, 4099, 2**20]
 SWEEP_PARTIES = 8  # the paper's eight-core cluster
 # the one-prompt mamba2 prefill in K2's two forms: pairs timed in turns
 ONE_SEQUENCE_PAIRS = 10
+
+# K1's autograd Function (kernel forward, PyTorch FA-2 backward) is checked at
+# b=1, s=GRAD_LEN and timed at b=1, s=PROMPT_LEN (phi4's training shape)
+GRAD_LEN = 1024
+# the gradient of the kernel path against autograd of the plain version on
+# float32 copies of the inputs: float32 1e-4 of the largest entry; bf16 no
+# further than 1.5x the plain bf16 path strays, plus 1e-2 of the largest entry
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K2's Function recomputes the plain version itself: its gradients are the
+# plain version's at the same inputs, 1e-5 of the largest entry
+SSD_GRAD_TOL = 1e-5
+# the training phase: (arch, batch, sequence), TRAIN_STEPS steps each on one
+# fixed batch, bf16 params, the scu policy, full remat
+TRAIN_RUNS = (("mamba2-1.3b", 4, 4096), ("phi4-mini-3.8b", 1, 4096))
+TRAIN_STEPS = 5
+# the reference's default lr without its 100-step warm-up: five steps must move the loss
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+# the float32 step through the kernels against the plain versions: depth, length
+F32_STEP_LAYERS, F32_STEP_LEN = 4, 512
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -457,6 +494,159 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
         "bound_ms_one_sequence": bound1,
         "launches_one_sequence": 0,
     }
+
+
+def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
+    """Phase 3 for K1's autograd Function: each gradient against PyTorch's
+    autograd of the plain version on the card, at ``GRAD_LEN`` tokens, causal:
+    bf16 at ``cfg``'s (phi4: 24 / 8 heads of 128), ``mla_cfg``'s (qk 192, v
+    128) and ``d80_cfg``'s (32 heads of 80) head dims, and phi4's in float32.
+    Then the backward timed at b=1, ``PROMPT_LEN`` tokens beside SDPA's
+    backward (a yardstick only).  Returns the entry for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    m = mla_cfg.mla
+    dims = {"phi4": (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.resolved_head_dim),
+            "mla": (mla_cfg.n_heads, mla_cfg.n_kv_heads, m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim),
+            "d80": (d80_cfg.n_heads, d80_cfg.n_kv_heads, d80_cfg.resolved_head_dim, d80_cfg.resolved_head_dim)}
+
+    def draw(b, s, h, kvh, dqk, dv, dtype):
+        shapes = ((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv), (b, s, h, dv))
+        return [torch.randn(sh, generator=gen, device=dev).to(dtype) for sh in shapes]
+
+    def plain(q, k, v):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True).transpose(1, 2)
+
+    def grads(fn, inputs, dout):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+    entry = {"route": "pytorch", "source": "src/repro_torch/models/layers/flash_core.py (flash_attention_bwd)",
+             "checks": [], "timed": []}
+    cases = [(name, "bfloat16") for name in dims] + [("phi4", "float32")]
+    for name, dtype_name in cases:
+        h, kvh, dqk, dv = dims[name]
+        dtype = getattr(torch, dtype_name)
+        q, k, v, dout = draw(1, GRAD_LEN, h, kvh, dqk, dv, dtype)
+        got = grads(lambda q, k, v: flash_attention(q, k, v, causal=True), (q, k, v), dout)
+        plain_same = grads(plain, (q, k, v), dout)
+        ref = grads(plain, [t.float() for t in (q, k, v)], dout.float())
+        torch.cuda.synchronize()
+        row = {"dims": name, "dtype": dtype_name, "h": h, "kvh": kvh, "head_dims": [dqk, dv]}
+        for which, g, pg, r in zip(("dq", "dk", "dv"), got, plain_same, ref):
+            scale = r.abs().max().item()
+            err = (g.float() - r).abs().max().item()
+            plain_err = (pg.float() - r).abs().max().item()
+            limit = (GRAD_TOL["float32"] * max(1.0, scale) if dtype_name == "float32"
+                     else 1.5 * plain_err + GRAD_TOL["bfloat16"] * max(1.0, scale))
+            row[which] = {"max_abs_err": err, "rel_err": err / max(scale, 1e-30), "plain_max_abs_err": plain_err,
+                          "limit": limit}  # fmt: skip
+            if not (torch.isfinite(g).all() and err <= limit):
+                raise SystemExit(f"K1's backward: {which} at {name} {dtype_name} strays from plain autograd by "
+                                 f"{err} (limit {limit})")
+        print(f"[kernels] flash_attention backward b=1 s={GRAD_LEN} h={h} kvh={kvh} dqk={dqk} dv={dv} {dtype_name} "
+              "causal, against autograd of the plain version in float32: "
+              + "; ".join(f"{w} max_abs_err {row[w]['max_abs_err']:.3e} (rel {row[w]['rel_err']:.2e}; plain "
+                          f"{dtype_name} path {row[w]['plain_max_abs_err']:.3e}; limit {row[w]['limit']:.3e})"
+                          for w in ("dq", "dk", "dv")))
+        entry["checks"].append(row)
+        del q, k, v, dout, got, plain_same, ref
+
+    for name in dims:
+        h, kvh, dqk, dv = dims[name]
+        q, k, v, dout = draw(1, PROMPT_LEN, h, kvh, dqk, dv, torch.bfloat16)
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), iters=5, warmup=1)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+        try:
+            ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            sdpa_ms = time_ms(lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout.transpose(1, 2),
+                                                          retain_graph=True), iters=10, warmup=2)  # fmt: skip
+            fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+                             iters=10, warmup=2)  # fmt: skip
+        except RuntimeError as refused:
+            print(f"[kernels] SDPA refuses dqk={dqk} dv={dv} with a backward: {str(refused).splitlines()[0]}")
+            sdpa_ms = fwd_ms = None
+        flops = 2.5 * attention_flops(1, h, PROMPT_LEN, PROMPT_LEN, dqk, dv, True)  # dS, dQ, dK, dV and P again
+        row = {"dims": name, "b": 1, "s": PROMPT_LEN, "ms": ms, "sdpa_bwd_ms": sdpa_ms, "sdpa_fwd_ms": fwd_ms}
+        entry["timed"].append(row)
+        sdpa = "refused" if sdpa_ms is None else f"{sdpa_ms:.3f} ms ({ms / sdpa_ms:.2f}x)"
+        print(f"[kernels] flash_attention backward at the training shape b=1 s={PROMPT_LEN} h={h} kvh={kvh} "
+              f"dqk={dqk} dv={dv} bf16 causal: PyTorch FA-2 backward {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+              f"counting 2.5x the forward's products), SDPA's backward {sdpa}")
+        del q, k, v, dout, leaves, out
+    return entry
+
+
+def check_ssd_backward(cfg) -> dict:
+    """Phase 3 for K2's autograd Function: its gradients against PyTorch's
+    autograd of the plain version at the same inputs on the card, bf16 at
+    ``cfg``'s dims (mamba2: 64 heads of 64, state 128) in the sequential form
+    (b=2) and a cluster form (b=1), with an initial state; the backward timed
+    at the 4-prompt serving shape.  Returns the entry for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    s_cfg = cfg.ssm
+    h, p, n, chunk = s_cfg.expand * cfg.d_model // s_cfg.head_dim, s_cfg.head_dim, s_cfg.d_state, s_cfg.chunk
+    limit = ssd_kernel.cluster_limit(p, n, 0)
+
+    def draw(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def plain(x, dt, A, B, C, *, chunk, initial_state):
+        return ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], chunk=chunk, initial_state=initial_state)
+
+    def run(scan, inputs):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        y, final = scan(*leaves[:5], chunk=chunk, initial_state=leaves[5])
+        return leaves, (y, final)
+
+    entry = {"route": "pytorch", "source": "src/repro_torch/kernels/ssd_scan/ops.py (ssd_scan_bwd: ssd_chunked "
+             "recomputed under autograd)", "checks": []}  # fmt: skip
+    for b, s in ((2, 1024), (1, 1024), (BATCH, PROMPT_LEN)):
+        form = ssd_kernel.scan_form(b, h, s, chunk, p, n, limit).name
+        inputs = (draw(b, s, h, p, scale=0.5, dtype=torch.bfloat16), F.softplus(draw(b, s, h)),
+                  -torch.exp(draw(h, scale=0.3)), draw(b, s, 1, n, scale=0.3, dtype=torch.bfloat16),
+                  draw(b, s, 1, n, scale=0.3, dtype=torch.bfloat16), draw(b, h, p, n, scale=0.1))  # fmt: skip
+        dy, dfinal = draw(b, s, h, p, dtype=torch.bfloat16), draw(b, h, p, n)
+        leaves, outs = run(ssd_scan, inputs)
+        if s == PROMPT_LEN:  # the serving shape: timed only
+            ms = time_ms(lambda: torch.autograd.grad(outs, leaves, (dy, dfinal), retain_graph=True), iters=3,
+                         warmup=1)  # fmt: skip
+            entry["ms"], entry["timed_at"] = ms, {"b": b, "s": s, "form": form}
+            print(f"[kernels] ssd_scan backward at the serving shape b={b} s={s} h={h} p={p} n={n} (form {form} "
+                  f"forward): recompute through ssd_chunked + autograd {ms:.3f} ms; library none")
+            del leaves, outs
+            continue
+        got = torch.autograd.grad(outs, leaves, (dy, dfinal))
+        pleaves, pouts = run(plain, inputs)
+        want = torch.autograd.grad(pouts, pleaves, (dy, dfinal))
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("x", "dt", "A", "B", "C", "initial_state"), got, want):
+            errs[name] = (g.float() - w.float()).abs().max().item()
+            if not (torch.isfinite(g).all() and errs[name] <= SSD_GRAD_TOL * max(1.0, w.abs().max().item())):
+                raise SystemExit(f"K2's backward: d{name} at b={b} ({form}) strays from plain autograd by {errs[name]}")
+        entry["checks"].append({"b": b, "s": s, "form": form, "max_abs_err": errs})
+        print(f"[kernels] ssd_scan backward b={b} s={s} h={h} p={p} n={n} bf16 ({form} forward), against autograd "
+              f"of the plain version at the same inputs (tol {SSD_GRAD_TOL:g} of the largest entry): "
+              + ", ".join(f"d{k} {v:.3e}" for k, v in errs.items()))
+        del leaves, outs, got, pleaves, pouts, want
+    return entry
 
 
 def check_scu_kernels() -> list:
@@ -784,6 +974,7 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
 
     from repro_torch.launch.serve import make_inputs, stage_prefill_cache
     from repro_torch.serve.decode import CausalLM
+    from repro_torch.train.optimizer import tree_map
 
     cfg = model.cfg
     dev = model.device
@@ -838,7 +1029,7 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
         model.to("cpu")
         torch.cuda.empty_cache()
     model32 = CausalLM(dataclasses.replace(cfg, dtype="float32"),
-                       _tree_map(lambda t: t.to(dev, torch.float32), model.params))
+                       tree_map(lambda t: t.to(dev, torch.float32), model.params))
     with plain(), recorded_routing(routes["float32"]):
         true_logits, _ = model32.prefill({"tokens": tokens[:, :s]})
     err = (logits - plain_logits).abs().max().item()
@@ -877,10 +1068,6 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
     torch.cuda.empty_cache()
     if offload:
         model.to(dev)
-
-
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def expected_launches(cfg) -> dict:
@@ -1014,6 +1201,233 @@ def serve_one_sequence(model, cfg, counters, entry) -> None:
           f"sequential: {[round(t, 2) for t in times['sequential']]}")
 
 
+@contextlib.contextmanager
+def handed_gradients(into: list):
+    """Within the block, the train step's gradient tree, as AdamW is handed
+    it, is appended to ``into`` (one tree a step)."""
+    from repro_torch.train import step as step_mod
+
+    kept = step_mod.adamw_update
+
+    def adamw(cfg, grads, *rest):
+        into.append(grads)
+        return kept(cfg, grads, *rest)
+
+    with _swapped(step_mod, "adamw_update", adamw):
+        yield
+
+
+def train_expected_launches(cfg) -> dict:
+    """K1 and K2 twice a step for each layer of their kind under full remat:
+    the forward, then the group's forward again in the backward."""
+    return {name: 2 * n for name, n in expected_launches(cfg).items()}
+
+
+def _profiled(fn):
+    """``fn()`` once under the profiler: (its result, wall ms with the profiler
+    on, device-busy ms, every kernel as (name, ms, count), largest first)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # rows of the device itself only: a host op's row repeats its kernels' time
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return result, wall_ms, busy_ms, [(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels]
+
+
+def kernel_group(name: str) -> str:
+    """The group of a device kernel by its name, for a step's breakdown."""
+    if "flash_fwd" in name or "ssd_scan" in name:
+        return "K1/K2"
+    if "f32f32_f32f32" in name:
+        return "float32 GEMMs"
+    if "gemm" in name or "nvjet" in name:
+        return "bf16 GEMMs"
+    if "elementwise" in name or "reduce" in name or "copy" in name:
+        return "elementwise, reductions, copies"
+    return "other"
+
+
+def train_at_full_width(cfg, counters, batch: int, seq: int) -> dict:
+    """The train phase for one model: ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on one fixed random batch (bf16 params, the scu
+    policy, full remat), timed on the host clock around a synchronise; step
+    0's gradients checked leaf by leaf as AdamW is handed them; then one more
+    step under the profiler, whose loss is the loss after ``TRAIN_STEPS`` steps.  Returns
+    the numbers for the kernels line."""
+    import torch
+
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optimizer import OptConfig, init_opt_state, tree_leaves
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tcfg = TrainConfig(sync_strategy="scu", remat_policy="full", param_dtype="bfloat16",
+                       opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))  # fmt: skip
+    step_fn, _, _, _ = make_train_step(cfg, tcfg, {"data": 1, "model": 1})
+    opt_state = init_opt_state(params)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)  # fmt: skip
+    data = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.2f} B parameters in bf16 with a float32 master and moments, batch {batch} x {seq}, "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s; scu policy, remat full, lr {TRAIN_LR:g} "
+          f"(warm-up {TRAIN_WARMUP} step), the same batch every step")
+
+    torch.cuda.reset_peak_memory_stats()
+    want = train_expected_launches(cfg)
+    losses, step_ms, launches, handed = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        for counted in counters.values():
+            counted.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with handed_gradients(handed) if i == 0 else contextlib.nullcontext():
+            params, opt_state, step, metrics = step_fn(params, opt_state, step, data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        launches.append({name: counters[name].launches for name in want})
+        if i == 0:
+            # step 0's gradients, leaf by leaf and, in the stacked block leaves,
+            # group by group: Queue 3 fault 1's gate on the card
+            bad, n_leaves = [], 0
+            for key in sorted(handed[0]):
+                for k, g in enumerate(tree_leaves(handed[0][key])):
+                    rows = g.flatten(1) if key == "blocks" else g.reshape(1, -1)
+                    n_leaves += 1
+                    if not (torch.isfinite(g).all() and (rows.abs().amax(1) > 0).all()):
+                        bad.append((key, k, tuple(g.shape)))
+            if bad:
+                raise SystemExit(f"[train] {cfg.name}: leaves with a zero or non-finite gradient at step 0: {bad}")
+            print(f"[train] {cfg.name} step 0: every one of the {n_leaves} parameter leaves (every group of the "
+                  f"stacked ones) has a finite, non-zero gradient")
+            handed.clear()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for counted in counters.values():
+        counted.launches = 0
+    (params, opt_state, step, metrics), wall_ms, busy_ms, kernels = _profiled(
+        lambda: step_fn(params, opt_state, step, data))
+    groups = {}
+    for name, ms, _ in kernels:
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+    after = metrics["loss"].item()
+    print(f"[train] {cfg.name} losses of steps 0-{TRAIN_STEPS - 1}: {[round(x, 6) for x in losses]}; after "
+          f"{TRAIN_STEPS} steps: {after:.6f}; grad_norm of the last step {metrics['grad_norm'].item():.4f}")
+    print(f"[train] {cfg.name} step ms (host clock): {[round(t, 1) for t in step_ms]}; peak device memory "
+          f"{peak:.2f} GiB; kernel launches a step {launches[-1]} (expected {want}: the forward and the "
+          f"recompute of every layer of its kind)")
+    print(f"[train] {cfg.name} one profiled step: wall {wall_ms:.1f} ms with the profiler on, device busy "
+          f"{busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; device ms by group: "
+          + ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+          + "; the largest kernels:")
+    for name, ms, count in kernels[:12]:
+        print(f"[train]    {ms:9.2f} ms  x{count:<6d} {name[:110]}")
+    if not all(torch.isfinite(torch.tensor(losses + [after]))):
+        raise SystemExit(f"[train] {cfg.name}: a loss is not finite: {losses + [after]}")
+    if not after < losses[0]:
+        raise SystemExit(f"[train] {cfg.name}: the loss after {TRAIN_STEPS} steps ({after}) is not below the "
+                         f"first ({losses[0]})")
+    if any(got != want for got in launches):
+        raise SystemExit(f"[train] {cfg.name}: kernel launches a step {launches}, expected {want}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": seq, "losses": losses,
+            "loss_after": after, "step_ms": step_ms, "busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
+            "device_ms_by_group": groups,
+            "peak_gib": peak, "launches_per_step": launches[-1], "expected_per_step": want}  # fmt: skip
+
+
+def check_train_step_against_plain(cfg, plain, grad_tol: float) -> dict:
+    """One float32 train step at ``cfg``'s full width cut to ``F32_STEP_LAYERS``
+    layers and ``F32_STEP_LEN`` tokens, through the kernels and through their
+    plain versions (``plain``), from the same params and batch: the loss, the
+    gradients AdamW is handed (each leaf within ``grad_tol`` of its largest
+    entry: the path's kernel forward is held to its plain version within that
+    figure in float32, and every gradient downstream of it moves with it), the
+    gradient norm and the updated params."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optimizer import OptConfig, init_opt_state, tree_leaves, tree_map
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfg, n_layers=F32_STEP_LAYERS, dtype="float32")
+    params = init_lm(torch.Generator(device=dev).manual_seed(5), cfg, torch.float32)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1)
+    step_fn, _, _, _ = make_train_step(cfg, TrainConfig(remat_policy="full", param_dtype="float32", opt=opt),
+                                       {"data": 1, "model": 1})  # fmt: skip
+    tokens = torch.randint(0, cfg.vocab_size, (1, F32_STEP_LEN + 1), generator=torch.Generator(device=dev).manual_seed(6),
+                           device=dev)  # fmt: skip
+    data = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    def one(context):
+        """(new params, the gradients AdamW was handed, metrics, kernel launches), as leaves."""
+        handed = []
+        flash_attention_fwd.launches = ssd_scan_fwd.launches = 0
+        start = tree_map(lambda t: t.clone(), params)
+        with context, handed_gradients(handed):
+            new, _, _, metrics = step_fn(start, init_opt_state(start), torch.zeros((), dtype=torch.int32, device=dev),
+                                         data)  # fmt: skip
+        return tree_leaves(new), tree_leaves(handed[0]), metrics, flash_attention_fwd.launches + ssd_scan_fwd.launches
+
+    kp, kg, km, k_launches = one(contextlib.nullcontext())
+    pp, pg, pm, p_launches = one(plain())
+    if k_launches == 0 or p_launches != 0:
+        raise SystemExit(f"[train] {cfg.name} float32 check: kernel launches {k_launches} (kernel path), "
+                         f"{p_launches} (plain path)")
+    loss_err = abs(km["loss"].item() - pm["loss"].item()) / abs(pm["loss"].item())
+    gnorm_err = abs(km["grad_norm"].item() - pm["grad_norm"].item()) / pm["grad_norm"].item()
+    grad_errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(kg, pg)]
+    grad_err = max(grad_errs)
+    worst_leaf = grad_errs.index(grad_err)
+    worst = max((a - b).abs().max().item() for a, b in zip(kp, pp))
+    # Adam's first step moves an entry by lr (u + wd p), u = g' / (|g'| + eps), g'
+    # the clipped gradient: near eps = 1e-8 it turns float32 noise in g into up
+    # to 2 lr.  So the two steps' params must differ by lr times the difference
+    # of the two paths' u, within 1e-3 lr beyond the two roundings of p (2^-22 |p|):
+    # no more than their gradients explain.
+    lr = km["lr"].item()
+
+    def u(g, m):
+        g = g * torch.clamp(opt.grad_clip / m["grad_norm"], max=1.0)
+        return g / (g.abs() + opt.eps)
+
+    unexplained = max(((a - b) + lr * (u(ga, km) - u(gb, pm))).abs().sub(2.0**-22 * b.abs()).max().item()
+                      for a, b, ga, gb in zip(kp, pp, kg, pg))  # fmt: skip
+    print(f"[train] {cfg.name} at {F32_STEP_LAYERS} layers, full width, 1 x {F32_STEP_LEN} tokens, float32: one step "
+          f"through the kernels ({k_launches} launches) vs through the plain versions: loss rel err {loss_err:.2e} "
+          f"(tol 1e-5), gradients max err {grad_err:.2e} of each leaf's largest entry (tol {grad_tol:g}; leaf "
+          f"{worst_leaf} of {len(kg)}, {tuple(kg[worst_leaf].shape)}), grad_norm rel err "
+          f"{gnorm_err:.2e} (tol 1e-4), updated params max abs err {worst:.3e} (at most 2 lr = {2 * TRAIN_LR:g}), "
+          f"of which not explained by Adam's update of the two gradients and the rounding of p {unexplained:.3e} "
+          f"(tol 1e-3 lr = {1e-3 * lr:.1e})")
+    if not (loss_err <= 1e-5 and grad_err <= grad_tol and gnorm_err <= 1e-4 and worst <= 2 * lr * (1 + 1e-3)
+            and unexplained <= 1e-3 * lr):
+        raise SystemExit(f"[train] {cfg.name}: the float32 step through the kernels disagrees with the plain one")
+    del params, kp, pp, kg, pg
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": F32_STEP_LAYERS, "seq": F32_STEP_LEN, "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "grad_norm_rel_err": gnorm_err, "params_max_abs_err": worst,
+            "params_unexplained_abs_err": unexplained}
+
+
 def main() -> int:
     import torch
 
@@ -1053,7 +1467,9 @@ def main() -> int:
     deepseek, qwen3 = get_config("deepseek-v2-lite-16b"), get_config("qwen3-moe-30b-a3b")
     stablelm = get_config("stablelm-3b")
     k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, stablelm)
+    k1["backward"] = check_attention_backward(phi4, deepseek, stablelm)
     k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
+    k2["backward"] = check_ssd_backward(mamba2)
     k3, k4, k5 = check_scu_kernels()
 
     # ---- 4. serve -----------------------------------------------------------
@@ -1093,12 +1509,25 @@ def main() -> int:
     for entry in (k1, k2):
         entry["launches_by_model"] = {name: got[entry["name"]] for name, got in by_model.items()}
 
-    # ---- 5. sync -------------------------------------------------------------
+    # ---- 5. train ------------------------------------------------------------
+    # the float32 step through the kernels against the plain versions, at a cut depth
+    f32_steps = [check_train_step_against_plain(phi4, plain_attention, KERNEL_TOL["float32"]),
+                 check_train_step_against_plain(mamba2, plain_ssd_scan, SSD_TOL["float32"])]
+    trained = {}
+    for arch, batch, seq in TRAIN_RUNS:
+        trained[arch] = train_at_full_width(get_config(arch), counters, batch, seq)
+    k1["train"] = {"steps": trained[phi4.name], "float32_step": f32_steps[0]}
+    k2["train"] = {"steps": trained[mamba2.name], "float32_step": f32_steps[1]}
+    for entry in (k1, k2):
+        entry["launches_per_train_step"] = {name: got["launches_per_step"][entry["name"]]
+                                            for name, got in trained.items()}  # fmt: skip
+
+    # ---- 6. sync -------------------------------------------------------------
     swept = barrier_sweep(counters)
     for entry in (k3, k4, k5):
         entry["launches"] = swept[entry["name"]]
 
-    # ---- 6. result ----------------------------------------------------------
+    # ---- 7. result ----------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(card)

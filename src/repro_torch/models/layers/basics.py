@@ -174,6 +174,15 @@ def init_embedding(
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Rows of the table.  The JAX function's custom backward
+    (``_embed_lookup_bwd``) scatter-adds the rows' gradients into a float32
+    table and casts it to the table's type, only so that it can constrain the
+    buffer's sharding.  On one device PyTorch's autograd of the lookup
+    computes the same sums, a scatter-add of the rows' gradients
+    (``index_put_`` with ``accumulate``).  In float32 the values are the
+    same; in bf16 a token's repeats may be summed in another precision
+    before the table's type is reached.
+    """
     return p["table"][tokens].to(dtype)
 
 

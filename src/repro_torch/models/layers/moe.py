@@ -111,7 +111,9 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     E = m.n_experts
     xf = x.reshape(T, d)
 
-    logits = xf.float() @ p["router"]  # (T, E)
+    # float32, as JAX promotes it: the router is float32 at init and in the
+    # optimizer's param dtype (bf16) after a training step
+    logits = xf.float() @ p["router"].float()  # (T, E)
     weights, idx = router_topk(logits, m)  # (T, K)
     capacity = moe_capacity(T, m)
     dest, token, order = dispatch_indices(idx, E, capacity)

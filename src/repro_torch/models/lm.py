@@ -5,15 +5,28 @@ leading group axis exactly as the JAX package's ``_tree_stack`` leaves them,
 so converted parameter trees compare leaf by leaf; where the JAX package
 scans over that axis, this package loops over it in Python and indexes views.
 
-``lm_loss`` waits for the training slice.  The ``nn.Module`` that owns a
-parameter tree for serving is :class:`repro_torch.serve.decode.CausalLM`.
+Remat: where the JAX package wraps its scan body in ``jax.checkpoint``, each
+block group here runs under ``torch.utils.checkpoint`` (non-reentrant) with
+the policy of ``REMAT_POLICIES``: "none" saves everything, "full" nothing but
+the group's inputs, "dots" the outputs of ``mm``, ``addmm`` and ``bmm`` and
+"dots_no_batch" those of ``mm`` and ``addmm`` (selective checkpointing).  A
+recomputed group launches its kernels again.  Checkpointing applies only
+where autograd records (``torch.is_grad_enabled()``): a forward without
+gradients has nothing to recompute.
+
+``lm_loss`` is the mean next-token cross-entropy, in chunks of 2048 tokens,
+each checkpointed so that the full ``(b, s, vocab)`` float32 logits never
+exist at once.  The ``nn.Module`` that owns a parameter tree for serving is
+:class:`repro_torch.serve.decode.CausalLM`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -22,7 +35,18 @@ from .layers.basics import apply_norm, embed, init_embedding, init_norm, unembed
 
 Params = Dict[str, Any]
 
-__all__ = ["init_lm", "lm_forward", "lm_logits", "sinusoidal_positions", "tree_index"]
+__all__ = ["REMAT_POLICIES", "init_lm", "lm_forward", "lm_logits", "lm_loss", "sinusoidal_positions", "tree_index"]
+
+_aten = torch.ops.aten
+# name -> the ops whose outputs a checkpointed group keeps (None: no checkpoint),
+# after jax.checkpoint_policies: checkpoint_dots, checkpoint_dots_with_no_batch_dims,
+# nothing_saveable
+REMAT_POLICIES = {
+    "none": None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+    "full": (),
+}
 
 
 def _stacked_like(tree, n: int):
@@ -107,9 +131,13 @@ def lm_forward(
 ) -> torch.Tensor:
     """Returns final hidden states (b, s, d_model) in compute dtype.
 
-    ``remat_policy``, ``residual_spec`` and ``embed_grad_spec`` are the JAX
-    function's rematerialisation and sharding hints: accepted and ignored.
+    ``remat_policy`` names a ``REMAT_POLICIES`` entry, applied to each block
+    group as the JAX function applies it to its scan body.
+    ``residual_spec`` and ``embed_grad_spec`` are the JAX function's sharding
+    hints: accepted and ignored on one device.
     """
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r}; choose from {sorted(REMAT_POLICIES)}")
     dtype = torch_dtype(cfg.dtype)
     if embeddings is None:
         x = embed(params["embed"], tokens, dtype)
@@ -128,14 +156,71 @@ def lm_forward(
         x = block_apply(
             params[f"prelude_{i}"], cfg, x, cfg.layer_kind(i), cfg.layer_is_moe(i), positions
         )
-    n_groups = (cfg.n_layers - pre) // cfg.block_group
-    for g in range(n_groups):
-        group_params = tree_index(params["blocks"], g)
+
+    def group_body(x, group_params):
         for p_idx, (kind, is_moe) in enumerate(pattern):
             x = block_apply(group_params[f"pos_{p_idx}"], cfg, x, kind, is_moe, positions)
+        return x
+
+    saved = REMAT_POLICIES[remat_policy]
+    if saved is not None and torch.is_grad_enabled():
+        kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, list(saved))} if saved else {}
+        group_body = functools.partial(checkpoint, group_body, use_reentrant=False, **kw)
+    n_groups = (cfg.n_layers - pre) // cfg.block_group
+    for g in range(n_groups):
+        x = group_body(x, tree_index(params["blocks"], g))
     return apply_norm(params["final_norm"], x, cfg.norm)
 
 
 def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return unembed(head, hidden)
+
+
+def lm_loss(
+    params: Params,
+    cfg: ModelConfig,
+    batch: Dict[str, torch.Tensor],
+    remat_policy: str = "dots",
+    residual_spec=None,
+    embed_grad_spec=None,
+    logits_spec=None,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy, float32.  ``batch``: tokens/embeddings + labels.
+
+    As in the JAX function: the sequence is cut into ``s // 2048`` chunks
+    (one where that does not divide it), each chunk's summed CE is
+    checkpointed, the gold logit is a masked sum over the vocabulary (not a
+    gather), and the total is divided by ``b * s``.  The sharding hints are
+    accepted and ignored on one device.
+    """
+    hidden = lm_forward(
+        params,
+        cfg,
+        tokens=batch.get("tokens"),
+        embeddings=batch.get("embeddings"),
+        remat_policy=remat_policy,
+    )
+    labels = batch["labels"]
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+    def chunk_loss(h_chunk, l_chunk, table):
+        """Summed CE of one sequence chunk: its float32 logits are the only full-vocab buffer."""
+        logits = unembed({"table": table}, h_chunk).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vocab_iota == l_chunk[..., None], logits, 0.0).sum(dim=-1)
+        return (logz - gold).sum()
+
+    b, s, _ = hidden.shape
+    n_chunks = max(1, s // 2048)
+    if s % n_chunks == 0 and n_chunks > 1:
+        c = s // n_chunks
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(n_chunks):
+            args = (hidden[:, i * c : (i + 1) * c], labels[:, i * c : (i + 1) * c], head["table"])
+            part = checkpoint(chunk_loss, *args, use_reentrant=False) if torch.is_grad_enabled() else chunk_loss(*args)
+            total = total + part
+    else:
+        total = chunk_loss(hidden, labels, head["table"])
+    return total / (b * s)

@@ -32,6 +32,18 @@ import repro_torch.kernels.scu_barrier.ops, repro_torch.kernels.scu_barrier.kern
 import repro_torch.parallel.sharding, repro_torch.configs.base
 from repro_torch.launch import barriers
 barriers.main(["--parties", "3", "--device", "cpu"])
+import torch
+import repro_torch.train.optimizer, repro_torch.train.step
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.models.lm import init_lm
+cfg = get_smoke_config("mamba2-1.3b")
+tcfg = repro_torch.train.step.TrainConfig(remat_policy="full")
+step_fn, _, _, _ = repro_torch.train.step.make_train_step(cfg, tcfg, {"data": 1, "model": 1})
+params = init_lm(torch.Generator().manual_seed(0), cfg, torch.bfloat16)
+tokens = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+state = (params, repro_torch.train.optimizer.init_opt_state(params), torch.tensor(0, dtype=torch.int32))
+_, _, step, metrics = step_fn(*state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+assert int(step) == 1 and bool(torch.isfinite(metrics["loss"]))
 assert repro_torch.configs.base.sync_policy_choices() == repro_torch.sync.available_policies()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
