@@ -11,8 +11,8 @@ non-zero exit if it fails:
 1. device:  the card's name and power limit; TF32 matmuls off.
 2. build:   every CUDA kernel of the port, from the sources in the checkout,
             one ``nvcc`` a source, all started together: flash attention
-            (K1), the SSD scan (K2), and the SCU barrier, notifier and
-            self-signal (K3-K5, one source).
+            (K1) and its backward, the SSD scan (K2), and the SCU barrier,
+            notifier and self-signal (K3-K5, one source).
 3. kernels: each kernel against its plain PyTorch version on the card, at the
             test shapes and at the shape its path gives it; its time
             beside the plain version's, one library call's (where PyTorch
@@ -40,9 +40,13 @@ non-zero exit if it fails:
             The autograd Functions around K1 and K2: each gradient against
             PyTorch's autograd of the plain version on the card (K1 at phi4's,
             deepseek's MLA and stablelm's head dims in bf16 and phi4's in
-            float32, 1024 tokens; K2 at mamba2's dims in the sequential and a
-            cluster form); K1's backward timed at phi4's training shape beside
-            SDPA's backward, K2's at the serving shape.
+            float32, 1024 tokens, one launch of K1's backward kernel a
+            gradient; K2 at mamba2's dims in the sequential and a cluster
+            form).  K1's backward kernel against its plain version
+            (``ops.attention_bwd``) at b=1, 4096 tokens at phi4's, MLA's and
+            head dim 80's dims, and timed there in turns with SDPA's
+            backward and the PyTorch FA-2 backward it replaced; K2's
+            backward timed at the serving shape.
 4. serve:   each served model at its published width (random weights from a
             seed) through the launcher's functions: a batch of prompts is
             prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
@@ -77,7 +81,8 @@ non-zero exit if it fails:
             finite, non-zero gradient at step 0, that every loss is finite and
             the loss after 5 steps is below the first, and that a step
             launched K1 and K2 twice per layer of their kind (the forward and
-            its recompute; every count set to 0 just before, read just after).
+            its recompute) and K1's backward once per attention layer (every
+            count set to 0 just before, read just after).
             Reports step ms, peak memory, and one profiled step's device busy
             time, idle share and largest kernels.
 6. sync:    the chip-level barrier sweep (``repro_torch.launch.barriers``,
@@ -88,8 +93,8 @@ non-zero exit if it fails:
             barrier (16 a region a pass), and that K5 raised the arrival
             words and K4 delivered the counts once a policy (every count
             set to 0 just before, read just after).
-7. result:  one ``{"kernels": [...]}`` line (K1-K5), the card line, and the
-            last line ``{"ok": true, "device": {...}}``.
+7. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5), the
+            card line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -174,13 +179,22 @@ SWEEP_PARTIES = 8  # the paper's eight-core cluster
 # the one-prompt mamba2 prefill in K2's two forms: pairs timed in turns
 ONE_SEQUENCE_PAIRS = 10
 
-# K1's autograd Function (kernel forward, PyTorch FA-2 backward) is checked at
-# b=1, s=GRAD_LEN and timed at b=1, s=PROMPT_LEN (phi4's training shape)
+# K1's autograd Function (kernel forward, kernel backward) is checked at b=1,
+# s=GRAD_LEN; the backward kernel is checked against its plain version and
+# timed at b=1, s=PROMPT_LEN (phi4's training shape)
 GRAD_LEN = 1024
 # the gradient of the kernel path against autograd of the plain version on
 # float32 copies of the inputs: float32 1e-4 of the largest entry; bf16 no
 # further than 1.5x the plain bf16 path strays, plus 1e-2 of the largest entry
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K1's backward kernel against its plain version (`ops.attention_bwd`, float32
+# products) on the same bf16 inputs, each gradient within this share of its
+# largest entry: the kernel rounds P and dS to bf16 as tensor-core operands and
+# both round the gradients to bf16
+BWD_TOL = 2e-2
+# the backward's timing in turns: rounds of (kernel, SDPA, PyTorch FA-2) then
+# the reverse; iterations of each (the FA-2 backward takes some 25 ms)
+BWD_ROUNDS, BWD_ITERS, FA2_ITERS = 2, 20, 2
 # K2's Function recomputes the plain version itself: its gradients are the
 # plain version's at the same inputs, 1e-5 of the largest entry
 SSD_GRAD_TOL = 1e-5
@@ -231,6 +245,17 @@ def attention_bound(b, h, kvh, sq, sk, d, causal, dtype_name, dv=None):
     size = 2 if dtype_name == "bfloat16" else 4
     nbytes = size * (d * (b * h * sq + b * kvh * sk) + dv * (b * kvh * sk + b * h * sq)) + 4 * b * h * sq
     return bound(nbytes, attention_flops(b, h, sq, sk, d, dv, causal), dtype_name)
+
+
+def attention_bwd_bound(b, h, kvh, s, d, dv, dtype_name):
+    """K1's backward, causal, sq = sk = s.  Bytes: q, k, v, out, dout and lse
+    read once, dq, dk, dv written once.  Operations: the function's five
+    products (P again, dP, dV, dK, dQ), 2.5x the forward's; the kernel's two
+    passes take S and dP twice, 3.5x, which the bound does not count."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    nbytes = size * (2 * d * (b * h * s + b * kvh * s) + dv * (b * kvh * s + 2 * b * h * s) + dv * b * kvh * s)
+    nbytes += 4 * b * h * s
+    return bound(nbytes, 2.5 * attention_flops(b, h, s, s, d, dv, True), dtype_name)
 
 
 def ssd_flops(b, s, h, p, n, chunk) -> int:
@@ -497,16 +522,22 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
 
 
 def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
-    """Phase 3 for K1's autograd Function: each gradient against PyTorch's
-    autograd of the plain version on the card, at ``GRAD_LEN`` tokens, causal:
-    bf16 at ``cfg``'s (phi4: 24 / 8 heads of 128), ``mla_cfg``'s (qk 192, v
-    128) and ``d80_cfg``'s (32 heads of 80) head dims, and phi4's in float32.
-    Then the backward timed at b=1, ``PROMPT_LEN`` tokens beside SDPA's
-    backward (a yardstick only).  Returns the entry for the kernels line."""
+    """Phase 3 for K1's backward kernel (``flash_attention_bwd``) and the
+    autograd Function around K1.  The Function's gradients against PyTorch's
+    autograd of the plain version on the card, at ``GRAD_LEN`` tokens,
+    causal, one backward launch a gradient: bf16 at ``cfg``'s (phi4: 24 / 8
+    heads of 128), ``mla_cfg``'s (qk 192, v 128) and ``d80_cfg``'s (32
+    heads of 80) head dims, and phi4's in float32.  Then, at b=1,
+    ``PROMPT_LEN`` tokens (the training shape) and each of those head dims,
+    the kernel against its plain version (``ops.attention_bwd``) on the same
+    inputs, and timed in turns with SDPA's backward (a yardstick only) and
+    the PyTorch FA-2 backward (``ops.attention_bwd``, the route it
+    replaced).  Returns the kernel's entry for the kernels line."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd, kernel_bwd_path
+    from repro_torch.kernels.flash_attention.ops import attention_bwd, flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     dev = torch.device("cuda")
@@ -527,18 +558,25 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
         leaves = [t.detach().requires_grad_(True) for t in inputs]
         return torch.autograd.grad(fn(*leaves), leaves, dout)
 
-    entry = {"route": "pytorch", "source": "src/repro_torch/models/layers/flash_core.py (flash_attention_bwd)",
-             "checks": [], "timed": []}
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/models/layers/flash_core.py:119 (_bwd; no Pallas original)",
+             "launches": 0, "checks": [], "timed": []}  # fmt: skip
     cases = [(name, "bfloat16") for name in dims] + [("phi4", "float32")]
     for name, dtype_name in cases:
         h, kvh, dqk, dv = dims[name]
         dtype = getattr(torch, dtype_name)
         q, k, v, dout = draw(1, GRAD_LEN, h, kvh, dqk, dv, dtype)
+        before = flash_attention_bwd.launches
         got = grads(lambda q, k, v: flash_attention(q, k, v, causal=True), (q, k, v), dout)
+        if flash_attention_bwd.launches != before + 1:
+            raise SystemExit(f"K1's backward at {name} {dtype_name}: {flash_attention_bwd.launches - before} "
+                             "kernel launches for one gradient, not 1")
         plain_same = grads(plain, (q, k, v), dout)
         ref = grads(plain, [t.float() for t in (q, k, v)], dout.float())
         torch.cuda.synchronize()
-        row = {"dims": name, "dtype": dtype_name, "h": h, "kvh": kvh, "head_dims": [dqk, dv]}
+        path = kernel_bwd_path(dtype, dqk, dv)
+        row = {"dims": name, "dtype": dtype_name, "h": h, "kvh": kvh, "head_dims": [dqk, dv], "path": path}
         for which, g, pg, r in zip(("dq", "dk", "dv"), got, plain_same, ref):
             scale = r.abs().max().item()
             err = (g.float() - r).abs().max().item()
@@ -551,37 +589,83 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
                 raise SystemExit(f"K1's backward: {which} at {name} {dtype_name} strays from plain autograd by "
                                  f"{err} (limit {limit})")
         print(f"[kernels] flash_attention backward b=1 s={GRAD_LEN} h={h} kvh={kvh} dqk={dqk} dv={dv} {dtype_name} "
-              "causal, against autograd of the plain version in float32: "
+              f"causal, {path} kernels (1 launch), against autograd of the plain version in float32: "
               + "; ".join(f"{w} max_abs_err {row[w]['max_abs_err']:.3e} (rel {row[w]['rel_err']:.2e}; plain "
                           f"{dtype_name} path {row[w]['plain_max_abs_err']:.3e}; limit {row[w]['limit']:.3e})"
                           for w in ("dq", "dk", "dv")))
         entry["checks"].append(row)
         del q, k, v, dout, got, plain_same, ref
 
+    tol = BWD_TOL
     for name in dims:
         h, kvh, dqk, dv = dims[name]
-        q, k, v, dout = draw(1, PROMPT_LEN, h, kvh, dqk, dv, torch.bfloat16)
-        leaves = [t.requires_grad_(True) for t in (q, k, v)]
-        out = flash_attention(*leaves, causal=True)
-        ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), iters=5, warmup=1)
-        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+        s = PROMPT_LEN
+        q, k, v, dout = draw(1, s, h, kvh, dqk, dv, torch.bfloat16)
+        qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+        out, lse = flash_attention_fwd(qt, kt, vt, causal=True)
+        o = out.transpose(1, 2)
+
+        def kernel():
+            return flash_attention_bwd(qt, kt, vt, out, lse, dt, causal=True)
+
+        def fa2():
+            return attention_bwd(q, k, v, o, lse, dout, causal=True)
+
+        got, want = kernel(), fa2()
+        torch.cuda.synchronize()
+        errs = {}
+        for which, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[which] = (g.transpose(1, 2).float() - w.float()).abs().max().item()
+            if not (torch.isfinite(g).all() and errs[which] <= tol * max(1.0, w.float().abs().max().item())):
+                raise SystemExit(f"K1's backward kernel: {which} at {name} b=1 s={s} strays from its plain version "
+                                 f"by {errs[which]} (tol {tol:g} of the largest entry)")
+        del got, want
+        qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
         try:
-            ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            sdpa_ms = time_ms(lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout.transpose(1, 2),
-                                                          retain_graph=True), iters=10, warmup=2)  # fmt: skip
-            fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-                             iters=10, warmup=2)  # fmt: skip
+            ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+            def sdpa():
+                return torch.autograd.grad(ref_out, (qs, ks, vs), dt, retain_graph=True)
+
+            sdpa()
         except RuntimeError as refused:
             print(f"[kernels] SDPA refuses dqk={dqk} dv={dv} with a backward: {str(refused).splitlines()[0]}")
-            sdpa_ms = fwd_ms = None
-        flops = 2.5 * attention_flops(1, h, PROMPT_LEN, PROMPT_LEN, dqk, dv, True)  # dS, dQ, dK, dV and P again
-        row = {"dims": name, "b": 1, "s": PROMPT_LEN, "ms": ms, "sdpa_bwd_ms": sdpa_ms, "sdpa_fwd_ms": fwd_ms}
+            sdpa = None
+        # in turns: kernel, SDPA, FA-2, then the reverse
+        runs = [("kernel", kernel, BWD_ITERS), ("sdpa", sdpa, BWD_ITERS), ("fa2", fa2, FA2_ITERS)]
+        times = {key: [] for key, _, _ in runs}
+        for r in range(BWD_ROUNDS):
+            for key, fn, iters in (runs if r % 2 == 0 else runs[::-1]):
+                if fn is not None:
+                    times[key].append(time_ms(fn, iters=iters, warmup=1))
+        bound_ms, bound_by = attention_bwd_bound(1, h, kvh, s, dqk, dv, "bfloat16")
+        flops = 2.5 * attention_flops(1, h, s, s, dqk, dv, True)
+        ms = min(times["kernel"])
+        row = {"dims": name, "b": 1, "s": s, "h": h, "kvh": kvh, "head_dims": [dqk, dv],
+               "path": kernel_bwd_path(torch.bfloat16, dqk, dv), "max_abs_err": max(errs.values()),
+               "max_abs_err_by_grad": errs, "ms": ms, "ms_turns": times["kernel"],
+               "plain_ms": min(times["fa2"]), "plain_ms_turns": times["fa2"],
+               "library_ms": min(times["sdpa"]) if times["sdpa"] else None, "library_ms_turns": times["sdpa"],
+               "bound_ms": bound_ms, "bound_by": bound_by}  # fmt: skip
         entry["timed"].append(row)
-        sdpa = "refused" if sdpa_ms is None else f"{sdpa_ms:.3f} ms ({ms / sdpa_ms:.2f}x)"
-        print(f"[kernels] flash_attention backward at the training shape b=1 s={PROMPT_LEN} h={h} kvh={kvh} "
-              f"dqk={dqk} dv={dv} bf16 causal: PyTorch FA-2 backward {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
-              f"counting 2.5x the forward's products), SDPA's backward {sdpa}")
-        del q, k, v, dout, leaves, out
+        sdpa_text = ("refused" if not times["sdpa"] else
+                     f"{', '.join(f'{x:.3f}' for x in times['sdpa'])} ms (kernel {ms / row['library_ms']:.2f}x)")
+        print(f"[kernels] flash_attention_bwd b=1 s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} bf16 causal, {row['path']} "
+              f"kernels: against its plain version max_abs_err "
+              + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+              + f" (tol {tol:g} of the largest entry); kernel {', '.join(f'{x:.3f}' for x in times['kernel'])} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s counting 2.5x the forward's products, {bound_ms / ms * 100:.0f} % of "
+              f"the bound's rate), PyTorch FA-2 backward {', '.join(f'{x:.3f}' for x in times['fa2'])} ms "
+              f"(kernel {row['plain_ms'] / ms:.1f}x faster), SDPA's backward {sdpa_text}, bound {bound_ms:.3f} ms "
+              f"by {bound_by} (in turns)")
+        del q, k, v, dout, qt, kt, vt, dt, out, lse, o, qs, ks, vs
+        if sdpa is not None:
+            del ref_out
+        torch.cuda.empty_cache()
+    # the entry's own figures are the main path's shape: phi4's
+    phi4 = entry["timed"][0]
+    for key in ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        entry[key] = phi4[key]
     return entry
 
 
@@ -830,7 +914,7 @@ def barrier_sweep(counters) -> dict:
         if result["notified"][s] != float(n * (n - 1)):
             raise SystemExit(f"[sync] {s}: the notifier delivered {result['notified'][s]} to party 0, "
                              f"not the {n - 1} other counts of {n}")
-    want = {"flash_attention_fwd": 0, "ssd_scan_fwd": 0,
+    want = {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "flash_attention_bwd": 0,
             "scu_barrier": result["passes"] * N_BARRIERS * len(REGION_SIZES),
             "scu_notifier": len(names), "scu_self_signal": len(names)}  # fmt: skip
     if launches != want:
@@ -1071,9 +1155,10 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
 
 
 def expected_launches(cfg) -> dict:
-    """K1 once a prefill for each attention layer, K2 for each SSD layer."""
+    """K1 once a prefill for each attention layer, K2 for each SSD layer; no
+    backward."""
     attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    return {"flash_attention_fwd": attn, "ssd_scan_fwd": cfg.n_layers - attn}
+    return {"flash_attention_fwd": attn, "ssd_scan_fwd": cfg.n_layers - attn, "flash_attention_bwd": 0}
 
 
 def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequence=None,
@@ -1218,9 +1303,12 @@ def handed_gradients(into: list):
 
 
 def train_expected_launches(cfg) -> dict:
-    """K1 and K2 twice a step for each layer of their kind under full remat:
-    the forward, then the group's forward again in the backward."""
-    return {name: 2 * n for name, n in expected_launches(cfg).items()}
+    """K1 and K2 twice a step for each layer of their kind under full remat
+    (the forward, then the group's forward again in the backward), and K1's
+    backward once for each attention layer."""
+    forward = expected_launches(cfg)
+    return {"flash_attention_fwd": 2 * forward["flash_attention_fwd"], "ssd_scan_fwd": 2 * forward["ssd_scan_fwd"],
+            "flash_attention_bwd": forward["flash_attention_fwd"]}  # fmt: skip
 
 
 def _profiled(fn):
@@ -1245,7 +1333,7 @@ def _profiled(fn):
 
 def kernel_group(name: str) -> str:
     """The group of a device kernel by its name, for a step's breakdown."""
-    if "flash_fwd" in name or "ssd_scan" in name:
+    if "flash_fwd" in name or "flash_bwd" in name or "ssd_scan" in name:
         return "K1/K2"
     if "f32f32_f32f32" in name:
         return "float32 GEMMs"
@@ -1329,7 +1417,7 @@ def train_at_full_width(cfg, counters, batch: int, seq: int) -> dict:
           f"{TRAIN_STEPS} steps: {after:.6f}; grad_norm of the last step {metrics['grad_norm'].item():.4f}")
     print(f"[train] {cfg.name} step ms (host clock): {[round(t, 1) for t in step_ms]}; peak device memory "
           f"{peak:.2f} GiB; kernel launches a step {launches[-1]} (expected {want}: the forward and the "
-          f"recompute of every layer of its kind)")
+          f"recompute of every layer of its kind, and K1's backward once a layer)")
     print(f"[train] {cfg.name} one profiled step: wall {wall_ms:.1f} ms with the profiler on, device busy "
           f"{busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; device ms by group: "
           + ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
@@ -1361,7 +1449,7 @@ def check_train_step_against_plain(cfg, plain, grad_tol: float) -> dict:
     gradient norm and the updated params."""
     import torch
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     from repro_torch.models.lm import init_lm
     from repro_torch.train.optimizer import OptConfig, init_opt_state, tree_leaves, tree_map
@@ -1380,12 +1468,13 @@ def check_train_step_against_plain(cfg, plain, grad_tol: float) -> dict:
     def one(context):
         """(new params, the gradients AdamW was handed, metrics, kernel launches), as leaves."""
         handed = []
-        flash_attention_fwd.launches = ssd_scan_fwd.launches = 0
+        flash_attention_fwd.launches = flash_attention_bwd.launches = ssd_scan_fwd.launches = 0
         start = tree_map(lambda t: t.clone(), params)
         with context, handed_gradients(handed):
             new, _, _, metrics = step_fn(start, init_opt_state(start), torch.zeros((), dtype=torch.int32, device=dev),
                                          data)  # fmt: skip
-        return tree_leaves(new), tree_leaves(handed[0]), metrics, flash_attention_fwd.launches + ssd_scan_fwd.launches
+        launches = flash_attention_fwd.launches + flash_attention_bwd.launches + ssd_scan_fwd.launches
+        return tree_leaves(new), tree_leaves(handed[0]), metrics, launches
 
     kp, kg, km, k_launches = one(contextlib.nullcontext())
     pp, pg, pm, p_launches = one(plain())
@@ -1450,15 +1539,15 @@ def main() -> int:
           f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
 
     # ---- 2. build: one nvcc a source, all at once ----------------------------
-    def timed_build(kernel_module):
+    def timed_build(build):
         t0 = time.perf_counter()
-        kernel_module.build()
+        build()
         return time.perf_counter() - t0
 
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        builds = {name: pool.submit(timed_build, module) for name, module in
-                  (("flash_attention_fwd.cu", flash_kernel), ("ssd_scan_fwd.cu", ssd_kernel),
-                   ("scu_barrier.cu", scu_kernel))}
+        builds = {name: pool.submit(timed_build, build) for name, build in
+                  (("flash_attention_fwd.cu", flash_kernel.build), ("flash_attention_bwd.cu", flash_kernel.build_bwd),
+                   ("ssd_scan_fwd.cu", ssd_kernel.build), ("scu_barrier.cu", scu_kernel.build))}
         for name, future in builds.items():
             print(f"[build] {name} with nvcc for sm_90a: {future.result():.1f} s (set-up; built side by side)")
 
@@ -1467,13 +1556,14 @@ def main() -> int:
     deepseek, qwen3 = get_config("deepseek-v2-lite-16b"), get_config("qwen3-moe-30b-a3b")
     stablelm = get_config("stablelm-3b")
     k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, stablelm)
-    k1["backward"] = check_attention_backward(phi4, deepseek, stablelm)
+    k1b = check_attention_backward(phi4, deepseek, stablelm)
     k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
     k2["backward"] = check_ssd_backward(mamba2)
     k3, k4, k5 = check_scu_kernels()
 
     # ---- 4. serve -----------------------------------------------------------
-    counters = {"flash_attention_fwd": flash_kernel.flash_attention_fwd, "ssd_scan_fwd": ssd_kernel.ssd_scan_fwd,
+    counters = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
+                "flash_attention_bwd": flash_kernel.flash_attention_bwd, "ssd_scan_fwd": ssd_kernel.ssd_scan_fwd,
                 "scu_barrier": scu_kernel.scu_barrier, "scu_notifier": scu_kernel.scu_notifier,
                 "scu_self_signal": scu_kernel.scu_self_signal}
     # 513 is no multiple of any attention tile: the ragged edge on the serving path
@@ -1506,7 +1596,7 @@ def main() -> int:
     k2["launches"] = by_model[mamba2.name]["ssd_scan_fwd"]
     k1["mla"]["launches"] = by_model[deepseek.name]["flash_attention_fwd"]
     k1["d80"]["launches"] = by_model[stablelm.name]["flash_attention_fwd"]
-    for entry in (k1, k2):
+    for entry in (k1, k1b, k2):
         entry["launches_by_model"] = {name: got[entry["name"]] for name, got in by_model.items()}
 
     # ---- 5. train ------------------------------------------------------------
@@ -1518,9 +1608,11 @@ def main() -> int:
         trained[arch] = train_at_full_width(get_config(arch), counters, batch, seq)
     k1["train"] = {"steps": trained[phi4.name], "float32_step": f32_steps[0]}
     k2["train"] = {"steps": trained[mamba2.name], "float32_step": f32_steps[1]}
-    for entry in (k1, k2):
+    for entry in (k1, k1b, k2):
         entry["launches_per_train_step"] = {name: got["launches_per_step"][entry["name"]]
                                             for name, got in trained.items()}  # fmt: skip
+    # the backward runs on the training path only: its launches are a phi4 step's
+    k1b["launches"] = k1b["launches_per_train_step"][phi4.name]
 
     # ---- 6. sync -------------------------------------------------------------
     swept = barrier_sweep(counters)
@@ -1529,7 +1621,7 @@ def main() -> int:
 
     # ---- 7. result ----------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k1b, k2, k3, k4, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 scripts/bench_flash_attention.py [--batch 4] [--heads 24]
         [--kv-heads 8] [--seq 4096] [--head-dim 128] [--v-head-dim D]
-        [--other path/to/other.cu] [--rounds 1]
+        [--other path/to/other.cu] [--rounds 1] [--backward]
 
 Needs an NVIDIA GPU and ``nvcc``.  Inputs are bf16, causal, in the models'
 ``(b, s, h, d)`` layout, as the serving path gives them to the kernel; q and
@@ -22,6 +22,14 @@ At deepseek-v2-lite's MLA prefill (qk 192, v 128) and stablelm-3b's (d = 80):
 
     PYTHONPATH=src python3 scripts/bench_flash_attention.py --heads 16 --kv-heads 16 --head-dim 192 --v-head-dim 128 --other build/k1_old.cu
     PYTHONPATH=src python3 scripts/bench_flash_attention.py --heads 32 --kv-heads 32 --head-dim 80 --other build/k1_old.cu
+
+``--backward`` does the same for the backward kernel (``flash_attention_bwd.cu``;
+``--other`` then names a backward source): checked against its plain
+version (``ops.attention_bwd``), timed beside SDPA's backward and its bound
+(the function's five products, 2.5x the forward's), with the device time of
+each of its launches from the profiler.  phi4's training shape:
+
+    PYTHONPATH=src python3 scripts/bench_flash_attention.py --backward --batch 1 --other build/k1b_old.cu
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.compat import card_name_and_power_limit
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ops import attention_bwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 PEAK_BF16_FLOPS = 989e12  # NVIDIA H100 SXM data sheet, dense
@@ -63,39 +72,56 @@ def main() -> None:
     ap.add_argument("--v-head-dim", type=int, default=None, help="v's head dim (default: --head-dim)")
     ap.add_argument("--other", type=Path, default=None)
     ap.add_argument("--rounds", type=int, default=1, help="times the order of builds is run")
+    ap.add_argument("--backward", action="store_true", help="time the backward kernel instead")
     args = ap.parse_args()
 
     b, h, kvh, s, d = args.batch, args.heads, args.kv_heads, args.seq, args.head_dim
     dv = d if args.v_head_dim is None else args.v_head_dim
     gen = torch.Generator(device="cuda").manual_seed(0)
     draw = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, dv)))
-    ref = attention_ref(qt, kt, vt, causal=True).float()
-    flops = 2 * (d + dv) * b * h * (s * (s + 1) // 2)
+    q, k, v = draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, dv)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    flops = 2 * (d + dv) * b * h * (s * (s + 1) // 2) * (2.5 if args.backward else 1)
     bound_ms = flops / PEAK_BF16_FLOPS * 1e3
     print(card_name_and_power_limit())
     dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
-    print(f"b={b} h={h} kvh={kvh} s={s} {dims} bf16 causal, {flash_kernel.kernel_path(torch.bfloat16, d, dv)} "
+    path = (flash_kernel.kernel_bwd_path if args.backward else flash_kernel.kernel_path)(torch.bfloat16, d, dv)
+    print(f"b={b} h={h} kvh={kvh} s={s} {dims} bf16 causal, {'backward, ' if args.backward else ''}{path} "
           f"path; bound {bound_ms:.3f} ms by operations")
 
-    this_build = flash_kernel.build
+    if args.backward:
+        out, lse = flash_kernel.flash_attention_fwd(qt, kt, vt, causal=True)
+        dout = draw(b, s, h, dv)
+        refs = [g.float() for g in attention_bwd(q, k, v, out.transpose(1, 2), lse, dout, causal=True)]
+
+        def kernel():
+            return [g.transpose(1, 2) for g in flash_kernel.flash_attention_bwd(qt, kt, vt, out, lse,
+                                                                               dout.transpose(1, 2), causal=True)]
+    else:
+        refs = [attention_ref(qt, kt, vt, causal=True).float()]
+
+        def kernel():
+            return [flash_kernel.flash_attention_fwd(qt, kt, vt, causal=True)[0]]
+
+    attr = "build_bwd" if args.backward else "build"
+    this_build = getattr(flash_kernel, attr)
     builds = {"this": this_build}
     if args.other is not None:
         builds["other"] = lambda: this_build(args.other.resolve())
 
     def run(which):
-        flash_kernel.build = builds[which]  # the binding looks `build` up at each call
+        setattr(flash_kernel, attr, builds[which])  # the binding looks its build up at each call
         try:
-            out, _ = flash_kernel.flash_attention_fwd(qt, kt, vt, causal=True)
+            return kernel()
         finally:
-            flash_kernel.build = this_build
-        return out
+            setattr(flash_kernel, attr, this_build)
 
     for which in builds:
-        err = (run(which).float() - ref).abs().max().item()
-        print(f"{which:5s}: max_abs_err {err:.3e} against attention_ref")
-        if err > 2e-2 * max(1.0, ref.abs().max().item()):
-            raise SystemExit("the kernel disagrees with its plain version")
+        for got, ref in zip(run(which), refs):
+            err = (got.float() - ref).abs().max().item()
+            print(f"{which:5s}: max_abs_err {err:.3e} against the plain version")
+            if err > 2e-2 * max(1.0, ref.abs().max().item()):
+                raise SystemExit("the kernel disagrees with its plain version")
 
     order = ["other", "this", "this", "other"] if args.other is not None else ["this", "this"]
     def report(name, ms):
@@ -109,8 +135,29 @@ def main() -> None:
     if args.rounds > 1:
         for which, got in times.items():
             report(f"{which:5s} median of {len(got)}", statistics.median(got))
-    report("library (one SDPA call)",
-           time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)))
+    if args.backward:
+        # the device time of each of the checkout's kernels, a launch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run("this")
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                print(f"  device {e.self_device_time_total / 1e3 / e.count:.3f} ms a launch, x{e.count}: {e.key[:100]}")
+    if not args.backward:
+        report("library (one SDPA call)",
+               time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)))
+        return
+    leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
+    try:
+        ref_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+        report("library (SDPA's backward)", time_ms(
+            lambda: torch.autograd.grad(ref_out, leaves, dout.transpose(1, 2), retain_graph=True)))
+    except RuntimeError as refused:
+        print(f"library: SDPA refuses this backward: {str(refused).splitlines()[0]}")
 
 
 if __name__ == "__main__":

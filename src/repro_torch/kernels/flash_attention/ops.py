@@ -9,14 +9,18 @@ change copies anything.
 
 On the card the kernel sits in an autograd Function.  Its forward saves
 ``q``, ``k``, ``v``, ``out`` and the kernel's ``lse``; its backward is the
-FlashAttention-2 backward of ``models/layers/flash_core.py``
-(``flash_attention_bwd``), written in PyTorch on purpose: the JAX package
-has no Pallas backward to port (its ``flash_core._bwd`` is plain JAX, and
-the Pallas ``ops.py`` promises a ``custom_vjp`` it does not contain).  A
-hand-written CUDA backward is the next step of K1.
+hand-written CUDA backward, ``kernel.flash_attention_bwd``, on the same
+strided views.  The JAX package has no Pallas backward to port (its
+``flash_core._bwd`` is plain JAX, and the Pallas ``ops.py`` promises a
+``custom_vjp`` it does not contain): the kernel computes that ``_bwd``.
+``attention_bwd`` below is its plain version (``flash_attention_bwd`` of
+``models/layers/flash_core.py`` after a reshape), which the CPU tests and
+the card's checks hold the kernel to; nothing on the card's main path calls
+it.
 
-The kernel's launches are counted in ``flash_attention_fwd.launches``; a
-forward recomputed under activation checkpointing launches it again.
+The launches are counted in ``flash_attention_fwd.launches`` and
+``flash_attention_bwd.launches``; a forward recomputed under activation
+checkpointing launches the forward again.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers.flash_core import flash_attention_bwd
+from .kernel import flash_attention_bwd as kernel_bwd
 from .kernel import flash_attention_fwd
 from .ref import attention_ref
 
@@ -44,7 +49,7 @@ def flash_attention(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1's forward and ``flash_attention_bwd``, in the ``(b, s, h, d)`` layout."""
+    """K1's forward and backward kernels, in the ``(b, s, h, d)`` layout."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -57,7 +62,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        return (*attention_bwd(*ctx.saved_tensors, dout, causal=ctx.causal), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v)]
+        kernel_bwd(*(x.transpose(1, 2) for x in (q, k, v, out)), lse, dout.transpose(1, 2), causal=ctx.causal,
+                   **{name: g.transpose(1, 2) for name, g in zip(("dq", "dk", "dv"), grads)})  # fmt: skip
+        return (*grads, None)
 
 
 def attention_bwd(q, k, v, out, lse, dout, *, causal=True):

@@ -15,9 +15,11 @@ of ``repro_torch/kernels/flash_attention`` takes its place.
 log-sum-exp are kept, P is recomputed per (q-block, kv-block) pair, and dq
 is taken in one pass over q blocks, dk and dv in another over kv blocks.  It
 is the backward of ``flash_attention_core`` here (an autograd Function, as
-the JAX function is a ``custom_vjp``) and of the card's kernel
-(``kernels/flash_attention/ops.py``); each caller hands it its lse as ``(b,
-kvh, g, sq)``.
+the JAX function is a ``custom_vjp``), and the plain version of the card's
+backward kernel (``kernels/flash_attention/csrc/flash_attention_bwd.cu``),
+which ``kernels/flash_attention/ops.py:attention_bwd`` calls on the
+kernel's layout and the tests hold the kernel to; each caller hands it its
+lse as ``(b, kvh, g, sq)``.
 """
 
 from __future__ import annotations

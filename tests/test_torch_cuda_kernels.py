@@ -12,10 +12,13 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.kernel import (
+    BWD_PATHS,
     HEAD_DIM_PAIRS,
     HEAD_DIMS,
     PATHS,
+    flash_attention_bwd,
     flash_attention_fwd,
+    kernel_bwd_path,
     kernel_path,
 )
 from repro_torch.kernels.scu_barrier import ops as scu_ops
@@ -28,7 +31,7 @@ from repro_torch.kernels.scu_barrier.kernel import (
     scu_self_signal,
 )
 from repro_torch.kernels.scu_barrier.ref import barrier_ref, notifier_ref, self_signal_ref
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import attention_bwd, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
@@ -253,6 +256,145 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     q, k, v = _inputs(1, 2, 2, 32, 64, 64, torch.bfloat16, card)
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k, v, causal=True)  # sq != sk
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's KERNEL_SHAPES and KERNEL_PAIR_SHAPES: (b, h, kvh, s, dqk, dv)
+BWD_SHAPES = [
+    (1, 4, 4, 128, 64, 64),
+    (2, 8, 2, 256, 64, 64),
+    (1, 4, 1, 256, 128, 128),
+    (1, 2, 2, 512, 64, 64),
+    (2, 6, 2, 200, 128, 128),
+    (1, 2, 2, 128, 64, 64),
+    (1, 7, 1, 333, 128, 128),
+    (1, 4, 4, 200, 80, 80),
+    (2, 8, 2, 333, 80, 80),
+    (2, 4, 2, 130, 16, 16),
+    (1, 16, 16, 77, 192, 128),
+    (2, 16, 16, 513, 192, 128),
+    (1, 16, 16, 200, 192, 128),
+]
+# The kernel against its plain version (``ops.attention_bwd``, float32
+# products) on the same q, k, v, out, lse and dout, each gradient within tol
+# of its largest entry.  float32 2e-5: the same f32 arithmetic in another
+# order.  bf16 2e-2: the kernel rounds P and dS to bf16 as tensor-core
+# operands where the plain version keeps them in f32 (but dq's dS), and both
+# round the gradients to bf16.
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _bwd_case(b, h, kvh, sq, sk, dqk, dv, dtype, causal, device, seed=9):
+    """(q, k, v, out, lse, dout) in the models' (b, s, h, d) layout, out and lse from K1's forward."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    q, k, v, dout = mk(b, sq, h, dqk), mk(b, sk, kvh, dqk), mk(b, sk, kvh, dv), mk(b, sq, h, dv)
+    out, lse = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    return q, k, v, out.transpose(1, 2), lse, dout
+
+
+def _hold_bwd_to_plain(q, k, v, out, lse, dout, causal):
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*(x.transpose(1, 2) for x in (q, k, v, out)), lse, dout.transpose(1, 2),
+                              causal=causal)  # fmt: skip
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        g = g.transpose(1, 2)
+        assert g.shape == x.shape and g.dtype == x.dtype and torch.isfinite(g).all(), name
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= BWD_TOL[x.dtype] * max(1.0, scale), (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(card, b, h, kvh, s, dqk, dv, causal, dtype):
+    """Every shape of the forward's card checks, causal and not; not causal
+    with fewer keys than queries (sk = 2 s / 3 + 5)."""
+    sk = s if causal else 2 * s // 3 + 5
+    assert kernel_bwd_path(dtype, dqk, dv) == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    _hold_bwd_to_plain(*_bwd_case(b, h, kvh, s, sk, dqk, dv, dtype, causal, card), causal)
+
+
+@pytest.mark.parametrize("sq,sk", [(70, 333), (300, 40)])
+@pytest.mark.parametrize("dqk,dv", [(128, 128), (192, 128), (80, 80), (64, 64)])
+def test_flash_bwd_kernel_cross_attention(card, sq, sk, dqk, dv):
+    _hold_bwd_to_plain(*_bwd_case(1, 4, 2, sq, sk, dqk, dv, torch.bfloat16, False, card), False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 80, 16])
+def test_flash_bwd_strided_views_and_broadcast_dout_through_ops(card, d, dtype):
+    """The layers' (b, s, h, d) slices of one fused projection go in as strided
+    views; the loss is a sum, so autograd hands the backward a dout with zero
+    strides, which the wrapper copies.  One backward launch; the gradients
+    those of ``attention_bwd`` on the same tensors."""
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal((2, 333, 6 + 2 + 2, d), dtype=np.float32)).to(card, dtype)
+    leaves = qkv.requires_grad_(True)
+    q, k, v = leaves[:, :, :6], leaves[:, :, 6:8], leaves[:, :, 8:]
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    out = flash_attention(q, k, v, causal=True)
+    (got,) = torch.autograd.grad(out.sum(), leaves)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    _, lse = flash_attention_fwd(qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2), causal=True)
+    want = torch.cat(attention_bwd(qd, kd, vd, out.detach(), lse, torch.ones_like(out), causal=True), dim=2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BWD_TOL[dtype] * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype,dqk,dv", [(torch.bfloat16, 128, 128), (torch.bfloat16, 192, 128),
+                                          (torch.bfloat16, 80, 80), (torch.float32, 128, 128)])
+def test_flash_bwd_two_calls_are_bitwise_equal(card, dtype, dqk, dv):
+    """No atomics: every output element is written once, by one CTA."""
+    q, k, v, out, lse, dout = _bwd_case(2, 6, 2, 333, 333, dqk, dv, dtype, True, card)
+    args = (*(x.transpose(1, 2) for x in (q, k, v, out)), lse, dout.transpose(1, 2))
+    first = flash_attention_bwd(*args, causal=True)
+    second = flash_attention_bwd(*args, causal=True)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+def test_flash_bwd_path_table_is_the_sources(card):
+    """``kernel_bwd_path`` and the source's ``flash_attention_bwd_path`` are one
+    table over a grid around the built head dims: the same family where
+    built, -1 and a ``ValueError`` where not."""
+    fn = flash_kernel.build_bwd()
+    dims = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
+    built = set(HEAD_DIM_PAIRS) | {(d, d) for d in HEAD_DIMS}
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for dqk in dims:
+            for dv in dims:
+                if (dqk, dv) in built:
+                    assert BWD_PATHS[fn.path(code, dqk, dv)] == kernel_bwd_path(dtype, dqk, dv)
+                else:
+                    assert fn.path(code, dqk, dv) == -1, (dqk, dv)
+                    with pytest.raises(ValueError, match="not built"):
+                        kernel_bwd_path(dtype, dqk, dv)
+    assert fn.path(2, 128, 128) == -1  # float16: not built
+
+
+def test_flash_bwd_kernel_refuses_what_it_does_not_take(card):
+    q, k, v, out, lse, dout = (x.transpose(1, 2) if x.dim() == 4 else x
+                               for x in _bwd_case(1, 2, 2, 64, 64, 64, 64, torch.bfloat16, True, card))  # fmt: skip
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="sq == sk"):
+        flash_attention_bwd(q, k[:, :, :32], v[:, :, :32], out, lse, dout, causal=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, lse[:, :, :32], dout)
+    with pytest.raises(ValueError, match="share"):
+        flash_attention_bwd(q, k, v, out.float(), lse, dout)
+    with pytest.raises(ValueError, match="dq"):
+        flash_attention_bwd(q, k, v, out, lse, dout, dq=torch.empty_like(q, dtype=torch.float32))
+    assert flash_attention_bwd.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_config, get_smoke_config
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import attention_bwd, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
@@ -49,27 +49,31 @@ def _grads(out_fn, inputs, dout):
     return out.detach(), torch.autograd.grad(out, leaves, dout)
 
 
-# Each gradient of K1's Function (kernel forward, PyTorch FA-2 backward) and
+# Each gradient of K1's Function (kernel forward, kernel backward) and
 # of PyTorch's autograd of the plain version on the same inputs, both against
 # autograd of the plain version on float32 copies of them.  float32: 1e-4 of
 # the largest entry (the same float32 arithmetic in another order).  bf16:
 # the kernel path may stray no further than 1.5x the plain bf16 path does,
 # plus 1e-2 of the largest entry (both round p, out and dq's ds to 8 bits of
-# mantissa, at different places).
+# mantissa, at different places; the kernel path rounds dk's and dv's p and ds
+# too, as tensor-core operands).
+#
+# The grid: every (dqk, dv) that K1 builds, g = 1, 3 and 8, and lengths that
+# the kernels' tiles do not divide.
+FLASH_GRID = [
+    (2, 4, 4, 130, 16, 16),
+    (1, 6, 2, 256, 64, 64),
+    (2, 8, 1, 200, 64, 64),
+    (1, 3, 1, 333, 80, 80),
+    (1, 24, 8, 512, 128, 128),
+    (2, 8, 8, 256, 128, 128),
+    (1, 16, 16, 300, 192, 128),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize(
-    "b,h,kvh,s,dqk,dv",
-    [
-        (2, 4, 4, 130, 16, 16),
-        (1, 6, 2, 256, 64, 64),
-        (2, 8, 1, 200, 64, 64),
-        (1, 3, 1, 333, 80, 80),
-        (1, 24, 8, 512, 128, 128),
-        (2, 8, 8, 256, 128, 128),
-        (1, 16, 16, 300, 192, 128),
-    ],
-)
+@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", FLASH_GRID)
 def test_flash_attention_function_gradients_match_plain_autograd(card, b, h, kvh, s, dqk, dv, causal, dtype):
     rng = np.random.default_rng(11)
     q = _normal(rng, (b, s, h, dqk), card, dtype)
@@ -80,12 +84,18 @@ def test_flash_attention_function_gradients_match_plain_autograd(card, b, h, kvh
     def plain(q, k, v):
         return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal).transpose(1, 2)
 
-    before = flash_attention_fwd.launches
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
     out, got = _grads(lambda q, k, v: flash_attention(q, k, v, causal=causal), (q, k, v), dout)
-    assert flash_attention_fwd.launches == before + 1
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
     _, plain_grads = _grads(plain, (q, k, v), dout)
     _, ref = _grads(plain, [t.float() for t in (q, k, v)], dout.float())
-    for name, g, p, r, x in zip("qkv", got, plain_grads, ref, (q, k, v)):
+    _assert_grads_within(got, plain_grads, ref, (q, k, v), dtype)
+
+
+def _assert_grads_within(got, plain_grads, ref, like, dtype):
+    """The tolerances above: float32 1e-4 of the largest entry; bf16 1.5x the
+    plain bf16 path's error plus 1e-2 of the largest entry."""
+    for name, g, p, r, x in zip("qkv", got, plain_grads, ref, like):
         assert g.shape == x.shape and g.dtype == x.dtype and torch.isfinite(g).all(), name
         scale = r.abs().max().item()
         err = (g.float() - r).abs().max().item()
@@ -94,6 +104,53 @@ def test_flash_attention_function_gradients_match_plain_autograd(card, b, h, kvh
         else:
             plain_err = (p.float() - r).abs().max().item()
             assert err <= 1.5 * plain_err + 1e-2 * max(1.0, scale), (name, err, plain_err)
+
+
+# K1's backward kernel called directly, on the grid above, against its plain
+# version (``flash_attention_bwd`` of ``models/layers/flash_core.py``, through
+# ``ops.attention_bwd``) on the same q, k, v, out, lse and dout, both held to
+# the plain version on float32 copies of them with the Function's tolerances.
+# One call adds one launch to ``flash_attention_bwd.launches``.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", FLASH_GRID)
+def test_flash_bwd_kernel_matches_plain_backward(card, b, h, kvh, s, dqk, dv, causal, dtype):
+    rng = np.random.default_rng(12)
+    q = _normal(rng, (b, s, h, dqk), card, dtype)
+    k = _normal(rng, (b, s, kvh, dqk), card, dtype)
+    v = _normal(rng, (b, s, kvh, dv), card, dtype)
+    dout = _normal(rng, (b, s, h, dv), card, dtype)
+    out, lse = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    out = out.transpose(1, 2)
+
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*(x.transpose(1, 2) for x in (q, k, v, out)), lse, dout.transpose(1, 2),
+                              causal=causal)  # fmt: skip
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    got = [g.transpose(1, 2) for g in got]
+    plain_grads = attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    ref = attention_bwd(*(x.float() for x in (q, k, v, out)), lse, dout.float(), causal=causal)
+    _assert_grads_within(got, plain_grads, [r.float() for r in ref], (q, k, v), dtype)
+
+
+# What K1 does not build raises on CUDA tensors before any launch: head dims
+# around the built ones, a pair other than MLA's, and float16.
+@pytest.mark.parametrize(
+    "dtype,dqk,dv",
+    [(torch.bfloat16, 48, 48), (torch.float32, 96, 96), (torch.bfloat16, 256, 256), (torch.bfloat16, 192, 64),
+     (torch.float32, 128, 192), (torch.float16, 128, 128)],
+)
+def test_flash_bwd_kernel_raises_on_what_is_not_built(card, dtype, dqk, dv):
+    b, h, kvh, s = 1, 4, 2, 64
+    q, k = torch.zeros(b, h, s, dqk, device=card, dtype=dtype), torch.zeros(b, kvh, s, dqk, device=card, dtype=dtype)
+    v = torch.zeros(b, kvh, s, dv, device=card, dtype=dtype)
+    out = dout = torch.zeros(b, h, s, dv, device=card, dtype=dtype)
+    lse = torch.zeros(b, h, s, device=card)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="not built|float32 or bfloat16"):
+        flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    assert flash_attention_bwd.launches == before
 
 
 def _ssd_inputs(rng, b, s, h, p, n, device, dtype):

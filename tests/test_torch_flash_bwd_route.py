@@ -1,0 +1,184 @@
+"""K1's backward on the CPU: which of the backward source's kernel families
+takes a call (a pure function of dtype and head dims, the same table of built
+dims as the forward's ``kernel_path``), the CPU route that neither builds nor
+launches anything, and the plain version that the card holds the CUDA
+backward to (``ops.attention_bwd``) against JAX's ``jax.vjp`` of
+``flash_attention_core`` in the kernel's layout."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.layers import flash_core as jfc
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.kernel import (
+    BWD_PATHS,
+    HEAD_DIM_PAIRS,
+    HEAD_DIMS,
+    kernel_bwd_path,
+    kernel_path,
+)
+from repro_torch.kernels.flash_attention.ops import attention_bwd, flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
+
+from _torch_parity import close, normal
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Any build of either flash-attention source fails the test."""
+
+    def refuse(*_):
+        raise AssertionError("a CUDA source was built")
+
+    monkeypatch.setattr(flash_kernel, "build", refuse)
+    monkeypatch.setattr(flash_kernel, "build_bwd", refuse)
+
+
+# ---------------------------------------------------------------------------
+# the path table
+# ---------------------------------------------------------------------------
+
+# The backward's families: the Hopper passes for bf16 at every built dim (the
+# smoke configs' 16 padded to 32, as 80 to 96), the FMA passes for float32
+EXPECTED_BWD = {
+    (torch.bfloat16, 16, 16): "wgmma",
+    (torch.bfloat16, 64, 64): "wgmma",
+    (torch.bfloat16, 80, 80): "wgmma",
+    (torch.bfloat16, 128, 128): "wgmma",
+    (torch.bfloat16, 192, 128): "wgmma",
+    (torch.float32, 16, 16): "fma",
+    (torch.float32, 64, 64): "fma",
+    (torch.float32, 80, 80): "fma",
+    (torch.float32, 128, 128): "fma",
+    (torch.float32, 192, 128): "fma",
+}
+
+# a grid around the built head dims, built and not
+GRID_DIMS = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
+
+
+def test_every_built_backward_has_a_case():
+    built = {(d, d) for d in HEAD_DIMS} | set(HEAD_DIM_PAIRS)
+    assert {(dqk, dv) for _, dqk, dv in EXPECTED_BWD} == built
+    assert set(EXPECTED_BWD.values()) == set(BWD_PATHS)
+
+
+@pytest.mark.parametrize("dtype,dqk,dv", sorted(EXPECTED_BWD, key=str))
+def test_kernel_bwd_path(no_build, dtype, dqk, dv):
+    assert kernel_bwd_path(dtype, dqk, dv) == EXPECTED_BWD[(dtype, dqk, dv)]
+
+
+def _refusal(fn, *args):
+    try:
+        fn(*args)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_backward_table_is_the_forwards(no_build, dtype):
+    """Over the grid, the backward takes exactly what the forward takes and
+    refuses the rest with the forward's own words, before any build."""
+    for dqk in GRID_DIMS:
+        for dv in GRID_DIMS:
+            fwd, bwd = _refusal(kernel_path, dtype, dqk, dv), _refusal(kernel_bwd_path, dtype, dqk, dv)
+            assert fwd == bwd, (dqk, dv, fwd, bwd)
+            if bwd is None:
+                assert kernel_bwd_path(dtype, dqk, dv) in BWD_PATHS
+
+
+@pytest.mark.parametrize("dqk,dv", [(8, 8), (48, 48), (96, 96), (256, 256), (192, 64), (128, 192)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unbuilt_backward_raises_before_any_build(no_build, dtype, dqk, dv):
+    with pytest.raises(ValueError, match="not built"):
+        kernel_bwd_path(dtype, dqk, dv)
+
+
+def test_backward_of_an_unbuilt_dtype_raises_before_any_build(no_build):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernel_bwd_path(torch.float16, 128)
+
+
+# ---------------------------------------------------------------------------
+# the CPU route
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_backward_refuses_cpu_tensors(no_build):
+    q = torch.zeros(1, 2, 8, 64)
+    lse = torch.zeros(1, 2, 8)
+    before = flash_kernel.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="on the card"):
+        flash_kernel.flash_attention_bwd(q, q, q, q, lse, q)
+    assert flash_kernel.flash_attention_bwd.launches == before
+
+
+# A CPU tensor's gradient through ``flash_attention`` is autograd of the plain
+# version: neither library is built and no kernel launches.  GQA (g = 3 and
+# 8), MLA's (192, 128) and the smoke configs' 16, causal and not; exact,
+# since both sides run the same PyTorch ops.
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kvh,dqk,dv", [(6, 2, 64, 64), (8, 1, 16, 16), (2, 2, 192, 128)])
+def test_cpu_backward_builds_and_launches_nothing(no_build, h, kvh, dqk, dv, causal):
+    gen = torch.Generator().manual_seed(4)
+    b, s = 2, 37
+    q, k, v = (torch.randn(b, s, n, d, generator=gen) for n, d in ((h, dqk), (kvh, dqk), (kvh, dv)))
+    dout = torch.randn(b, s, h, dv, generator=gen)
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+    def plain(q, k, v):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal).transpose(1, 2)
+
+    before = (flash_kernel.flash_attention_fwd.launches, flash_kernel.flash_attention_bwd.launches)
+    got = grads(lambda q, k, v: flash_attention(q, k, v, causal=causal))
+    assert (flash_kernel.flash_attention_fwd.launches, flash_kernel.flash_attention_bwd.launches) == before
+    for g, w, x in zip(got, grads(plain), (q, k, v)):
+        assert g.shape == x.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the plain version against JAX
+# ---------------------------------------------------------------------------
+
+
+# The plain version in the kernel's layout (q (b, s, h, d), lse (b, h, s),
+# reshaped into the core's (kvh, g) split) against jax.vjp of the JAX core,
+# at lengths that the kernels' tiles (32, 64 and 128 rows) do not divide: 37
+# (shorter than a tile) and 130 (a tile and a ragged one), where JAX takes
+# chunks of 37 and 13 and the port one block.  g = 3 and 8; dqk != dv both
+# ways.  float32, 1e-5.
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kvh,dqk,dv", [(6, 2, 24, 16), (8, 1, 16, 24)])
+@pytest.mark.parametrize("s,chunk", [(37, 37), (130, 13)])
+def test_plain_backward_at_ragged_lengths_matches_jax_vjp(causal, h, kvh, dqk, dv, s, chunk):
+    rng = np.random.default_rng(5)
+    b, g = 2, h // kvh
+    q, k, v = normal(rng, b, s, h, dqk), normal(rng, b, s, kvh, dqk), normal(rng, b, s, kvh, dv)
+    dout = normal(rng, b, s, h, dv)
+
+    def jax_attention(q, k, v):
+        out = jfc.flash_attention_core(q.reshape(b, s, kvh, g, dqk), k, v, causal, chunk, chunk, 0)
+        return out.reshape(b, s, h, dv)
+
+    def both(dout, q, k, v):
+        out, vjp = jax.vjp(jax_attention, q, k, v)
+        return out, vjp(dout)
+
+    jout, jgrads = jax.jit(both)(*map(jnp.asarray, (dout, q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    qt, kt, vt = tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2)
+    out = attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
+    close(out, jout, 1e-5)
+    lse = attention_ref_lse(qt, kt, causal=causal)  # what K1 writes, (b, h, s)
+    grads = attention_bwd(tq, tk, tv, out, lse, torch.from_numpy(dout), causal=causal)
+    for t, j, x in zip(grads, jgrads, (q, k, v)):
+        assert t.shape == x.shape
+        close(t, j, 1e-5)
