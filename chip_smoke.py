@@ -85,7 +85,22 @@ non-zero exit if it fails:
             count set to 0 just before, read just after).
             Reports step ms, peak memory, and one profiled step's device busy
             time, idle share and largest kernels.
-6. sync:    the chip-level barrier sweep (``repro_torch.launch.barriers``,
+6. loop:    the training loop, the checkpoint and the data pipeline
+            (``repro_torch.launch.train``'s objects, ``train/loop.py``,
+            ``train/checkpoint.py``, ``train/data.py``): mamba2-1.3b whole
+            at 4 x 4096 SyntheticLM tokens a step (bf16, the scu policy, full
+            remat, the launcher's lr 3e-3 and 10-step warm-up).  (A) 4 steps
+            without a checkpoint; (B) ``launch.train.main`` itself, 2 steps
+            with a checkpoint at step 2 under ``build/`` (removed at the end);
+            (C) 4 steps in that directory, which resume at step 2.  Checks
+            that C's losses are A's within rtol 1e-5 (atol 1e-6), that every
+            step of A and C launched K2 twice a layer (counts set to 0 just
+            before a step, read just after), and that every loss is finite.
+            Reports the free disk and host memory, A's step ms beside the
+            train phase's, SyntheticLM's ms a batch, the checkpoint's bytes,
+            the snapshot's, the background write's and the restore's seconds,
+            peak device memory and the largest loss gap.
+7. sync:    the chip-level barrier sweep (``repro_torch.launch.barriers``,
             the paper's Fig. 5 at chip granularity) with 8 parties under all
             seven registered policies: microseconds per barrier and the
             overhead curve for each.  Checks that every party is released
@@ -93,7 +108,7 @@ non-zero exit if it fails:
             barrier (16 a region a pass), and that K5 raised the arrival
             words and K4 delivered the counts once a policy (every count
             set to 0 just before, read just after).
-7. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5), the
+8. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5), the
             card line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -206,6 +221,15 @@ TRAIN_STEPS = 5
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
 # the float32 step through the kernels against the plain versions: depth, length
 F32_STEP_LAYERS, F32_STEP_LEN = 4, 512
+# the loop phase: the launcher's arguments (its defaults otherwise: lr 3e-3 after a
+# 10-step warm-up, SyntheticLM from seed 0), the steps of the uninterrupted run, and
+# the step at which the interrupted run checkpoints; the resumed losses are held to
+# the reference's resume tolerance (tests/test_train.py::test_checkpoint_resume_is_exact)
+LOOP_BATCH, LOOP_SEQ = 4, 4096
+LOOP_ARGS = ["--arch", "mamba2-1.3b", "--batch", str(LOOP_BATCH), "--seq", str(LOOP_SEQ), "--sync", "scu",
+             "--remat", "full"]  # fmt: skip
+LOOP_STEPS, LOOP_CKPT_STEP = 4, 2
+LOOP_RTOL, LOOP_ATOL = 1e-5, 1e-6
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1439,6 +1463,132 @@ def train_at_full_width(cfg, counters, batch: int, seq: int) -> dict:
             "peak_gib": peak, "launches_per_step": launches[-1], "expected_per_step": want}  # fmt: skip
 
 
+def _host_memory_gib() -> tuple:
+    """(total, available) host memory in GiB, from ``/proc/meminfo``."""
+    fields = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    return tuple(int(fields[k].split()[0]) / 2**20 for k in ("MemTotal", "MemAvailable"))
+
+
+def train_through_the_loop(card: str, counters, train_step_ms: list) -> dict:
+    """The loop phase: ``mamba2-1.3b`` whole through ``repro_torch.launch.train``'s
+    objects and the port's ``train``, three runs: (A) ``LOOP_STEPS`` steps
+    without a checkpoint; (B) ``launch.train.main`` itself for
+    ``LOOP_CKPT_STEP`` steps with a checkpoint at its end; (C) the A run's
+    steps again in B's directory, resuming from B's checkpoint.  Holds C's
+    losses to A's, every step's kernel launches (counts set to 0 just before
+    a step, read just after it), and the losses' finiteness.  The checkpoint
+    directory lies under ``build/`` and is removed at the end, failed or not."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import loop as loop_mod
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    ckpt_dir = build / "loop_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    disk = shutil.disk_usage(build)
+    ram_total, ram_avail = _host_memory_gib()
+    print(f"[loop] {card}; free disk under build/ {disk.free / 1e9:.1f} GB of {disk.total / 1e9:.1f} GB; host "
+          f"memory {ram_total:.1f} GiB, {ram_avail:.1f} GiB available")
+    run_a = launcher.build_run(LOOP_ARGS + ["--steps", str(LOOP_STEPS)])
+    cfg, opt, batch_fn = run_a[0], run_a[1].opt, run_a[4]
+    want = train_expected_launches(cfg)
+
+    def counted(run):
+        """``train`` on a launcher's objects: (history, kernel launches of each step)."""
+        cfg, tcfg, trainer, mesh, batch_fn, device = run
+        launches = []
+
+        def on_metrics(i, metrics):
+            launches.append({name: counters[name].launches for name in want})
+            for counter in counters.values():
+                counter.launches = 0
+
+        for counter in counters.values():
+            counter.launches = 0
+        history = loop_mod.train(cfg, tcfg, trainer, mesh, batch_fn, on_metrics, device=device)[2]
+        return history, launches
+
+    def with_peak(fn):
+        """``fn()``, its peak device memory in GiB appended to ``peaks``."""
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.empty_cache()
+        return out
+
+    batch_ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        batch_fn(1000 + i)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+
+    managers, restore_s, peaks = [], [], []
+    kept_manager, kept_restore = loop_mod.CheckpointManager, loop_mod.restore_checkpoint
+
+    def manager(*args, **kwargs):
+        managers.append(kept_manager(*args, **kwargs))
+        return managers[-1]
+
+    def restore(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = kept_restore(*args, **kwargs)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        return out
+
+    args_b = LOOP_ARGS + ["--steps", str(LOOP_CKPT_STEP), "--ckpt-dir", str(ckpt_dir),
+                          "--ckpt-every", str(LOOP_CKPT_STEP)]  # fmt: skip
+    args_c = LOOP_ARGS + ["--steps", str(LOOP_STEPS), "--ckpt-dir", str(ckpt_dir)]
+    try:
+        hist_a, launches_a = with_peak(lambda: counted(run_a))
+        with _swapped(loop_mod, "CheckpointManager", manager):
+            hist_b = with_peak(lambda: launcher.main(args_b)[2])
+        ckpt_bytes = sum(f.stat().st_size for f in (ckpt_dir / f"step_{LOOP_CKPT_STEP:09d}").iterdir())
+        with _swapped(loop_mod, "restore_checkpoint", restore):
+            hist_c, launches_c = with_peak(lambda: counted(launcher.build_run(args_c)))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    loss_a, loss_b, loss_c = ([h["loss"] for h in hist] for hist in (hist_a, hist_b, hist_c))
+    a_ms = [h["step_time_s"] * 1e3 for h in hist_a]
+    gaps = [abs(c - a) for c, a in zip(loss_c, loss_a[LOOP_CKPT_STEP:])]
+    rel = max(g / abs(a) for g, a in zip(gaps, loss_a[LOOP_CKPT_STEP:]))
+    bit_equal = loss_c == loss_a[LOOP_CKPT_STEP:]
+    print(f"[loop] {cfg.name} whole ({cfg.n_layers} layers), {LOOP_BATCH} x {LOOP_SEQ} SyntheticLM tokens a step, "
+          f"bf16, scu, remat full, lr {opt.lr:g} (warm-up {opt.warmup_steps}): (A) {LOOP_STEPS} steps, losses "
+          f"{loss_a}; (B) launch.train.main, {LOOP_CKPT_STEP} steps and a checkpoint, losses {loss_b}; (C) resumed "
+          f"at step {LOOP_CKPT_STEP}, losses {loss_c}")
+    print(f"[loop] C against A: largest loss gap {max(gaps):.3e} (rel {rel:.3e}; tol rtol {LOOP_RTOL:g}, atol "
+          f"{LOOP_ATOL:g}); bit-equal: {bit_equal}; B's steps against A's bit-equal: "
+          f"{loss_b == loss_a[:LOOP_CKPT_STEP]}")
+    print(f"[loop] step ms of A (host clock: batch drawn, moved to the card, step, metrics read): "
+          f"{[round(t, 1) for t in a_ms]}; the [train] phase's at the same shape: "
+          f"{[round(t, 1) for t in train_step_ms]}; SyntheticLM.batch({LOOP_BATCH} x {LOOP_SEQ}) on the host: "
+          f"{[round(t, 1) for t in batch_ms]} ms")
+    mgr = managers[0]
+    print(f"[loop] checkpoint of step {LOOP_CKPT_STEP}: {ckpt_bytes} bytes on disk ({ckpt_bytes / 1e9:.2f} GB); "
+          f"snapshot to host {mgr.snapshot_s:.2f} s, background write {mgr.write_s:.2f} s; restore_checkpoint "
+          f"{restore_s[0]:.2f} s; peak device memory A {peaks[0]:.2f}, B {peaks[1]:.2f}, C {peaks[2]:.2f} GiB; "
+          f"kernel launches a step A {launches_a[-1]}, C {launches_c[-1]} (expected {want})")
+    if not all(np.isfinite(loss_a + loss_b + loss_c)):
+        raise SystemExit(f"[loop] a loss is not finite: A {loss_a}, B {loss_b}, C {loss_c}")
+    if len(loss_c) != LOOP_STEPS - LOOP_CKPT_STEP or not all(
+            g <= LOOP_ATOL + LOOP_RTOL * abs(a) for g, a in zip(gaps, loss_a[LOOP_CKPT_STEP:])):
+        raise SystemExit(f"[loop] the resumed losses {loss_c} are not A's {loss_a[LOOP_CKPT_STEP:]}")
+    if len(launches_a) != LOOP_STEPS or any(got != want for got in launches_a + launches_c):
+        raise SystemExit(f"[loop] kernel launches a step A {launches_a}, C {launches_c}, expected {want}")
+    return {"model": cfg.name, "layers": cfg.n_layers, "batch": LOOP_BATCH, "seq": LOOP_SEQ, "losses_a": loss_a,
+            "losses_b": loss_b, "losses_c": loss_c, "max_loss_gap": max(gaps), "bit_equal": bit_equal,
+            "step_ms_a": a_ms, "batch_ms": batch_ms, "ckpt_bytes": ckpt_bytes, "snapshot_s": mgr.snapshot_s,
+            "write_s": mgr.write_s, "restore_s": restore_s[0], "peak_gib": dict(zip("ABC", peaks)),
+            "launches_per_step": launches_a[-1]}  # fmt: skip
+
+
 def check_train_step_against_plain(cfg, plain, grad_tol: float) -> dict:
     """One float32 train step at ``cfg``'s full width cut to ``F32_STEP_LAYERS``
     layers and ``F32_STEP_LEN`` tokens, through the kernels and through their
@@ -1614,12 +1764,15 @@ def main() -> int:
     # the backward runs on the training path only: its launches are a phi4 step's
     k1b["launches"] = k1b["launches_per_train_step"][phi4.name]
 
-    # ---- 6. sync -------------------------------------------------------------
+    # ---- 6. loop -------------------------------------------------------------
+    k2["loop"] = train_through_the_loop(card, counters, trained[mamba2.name]["step_ms"])
+
+    # ---- 7. sync -------------------------------------------------------------
     swept = barrier_sweep(counters)
     for entry in (k3, k4, k5):
         entry["launches"] = swept[entry["name"]]
 
-    # ---- 7. result ----------------------------------------------------------
+    # ---- 8. result ----------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1b, k2, k3, k4, k5]}))
     print(card)

@@ -1,4 +1,4 @@
-"""The port stands alone: it imports ``torch``, never ``jax`` or ``repro``."""
+"""The port stands alone: it imports ``torch``, never ``jax``, ``repro`` or ``ml_dtypes``."""
 
 import os
 import re
@@ -45,7 +45,16 @@ state = (params, repro_torch.train.optimizer.init_opt_state(params), torch.tenso
 _, _, step, metrics = step_fn(*state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
 assert int(step) == 1 and bool(torch.isfinite(metrics["loss"]))
 assert repro_torch.configs.base.sync_policy_choices() == repro_torch.sync.available_policies()
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+import tempfile
+import repro_torch.train.data, repro_torch.train.checkpoint, repro_torch.train.elastic, repro_torch.launch.mesh
+from repro_torch.launch import train as launch_train
+with tempfile.TemporaryDirectory() as ckpt_dir:
+    args = ["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu", "--batch", "2", "--seq", "8",
+            "--ckpt-dir", ckpt_dir, "--ckpt-every", "2"]
+    launch_train.main(args + ["--steps", "2"])
+    _, _, history = launch_train.main(args + ["--steps", "3"])  # resumes at step 2
+    assert len(history) == 1 and repro_torch.train.checkpoint.latest_step(ckpt_dir) == 2
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 print("PROBE-OK")
 """
@@ -60,10 +69,11 @@ def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
     assert "PROBE-OK" in proc.stdout
     assert proc.stdout.count("[serve] decoded 3 tokens x 2 seqs") == 5
     assert "== Chip-level barrier disciplines (3 parties on cpu) ==" in proc.stdout
+    assert proc.stdout.count("[train] step     0 loss") == 1 and "[train] resuming from step 2" in proc.stdout
 
 
 def test_no_import_statement_names_jax_or_repro():
-    pattern = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from) (jax|repro|ml_dtypes)(\.|\s|$)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for path in files:

@@ -22,15 +22,16 @@ from repro.models.layers import flash_core as jfc
 from repro.models.layers import ssm as jssm
 from repro.train import optimizer as jopt
 from repro.train import step as jstep
-from repro.train.data import SyntheticLM
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.kernels.flash_attention.ops import attention_bwd
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_bwd
 from repro_torch.models import lm as tlm
 from repro_torch.models.layers import flash_core as tfc
+from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as tstep
+from repro_torch.train.data import SyntheticLM
 
 from _torch_parity import close, f32, jax_to_torch_params, normal, tree_close
 
@@ -348,17 +349,10 @@ def test_train_step_loss_path_matches_jax():
     tree_close(tp, jp, 1e-3)
 
 
-def _train(cfg, tcfg, steps, batch_fn, seed=0):
-    """``step_fn`` in a loop from a seeded init: the history of its metrics."""
-    step_fn, _, _, _ = tstep.make_train_step(cfg, tcfg, MESH)
-    params = tlm.init_lm(torch.Generator().manual_seed(seed), cfg, torch.bfloat16)
-    opt_state, step = topt.init_opt_state(params), torch.tensor(0, dtype=torch.int32)
-    history = []
-    for i in range(steps):
-        batch = {k: torch.from_numpy(v).long() for k, v in batch_fn(i).items()}
-        params, opt_state, step, metrics = step_fn(params, opt_state, step, batch)
-        history.append({k: float(v) for k, v in metrics.items()})
-    return history
+def _history(cfg, tcfg, steps, batch_fn, seed=0):
+    """The metrics history of the port's ``train`` from a seeded init, on the CPU."""
+    trainer = tloop.TrainerConfig(steps=steps, ckpt_every=1000, log_every=1000, seed=seed)
+    return tloop.train(cfg, tcfg, trainer, MESH, batch_fn, device="cpu")[2]
 
 
 def test_tiny_training_loss_decreases():
@@ -366,7 +360,7 @@ def test_tiny_training_loss_decreases():
     cfg = get_smoke_config("stablelm-3b")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, seed=0)
     tcfg = tstep.TrainConfig(remat_policy="none", opt=topt.OptConfig(**FAST_OPT))
-    history = _train(cfg, tcfg, 30, lambda i: data.batch(i, batch_size=8))
+    history = _history(cfg, tcfg, 30, lambda i: data.batch(i, batch_size=8))
     first = np.mean([h["loss"] for h in history[:5]])
     last = np.mean([h["loss"] for h in history[-5:]])
     assert last < first - 0.1, f"loss did not decrease: {first:.3f} -> {last:.3f}"
@@ -381,7 +375,7 @@ def test_sync_strategies_numerically_identical(pair):
     losses = {}
     for strategy in pair:
         tcfg = tstep.TrainConfig(sync_strategy=strategy, remat_policy="none")
-        losses[strategy] = [h["loss"] for h in _train(cfg, tcfg, 5, lambda i: data.batch(i, batch_size=4), seed=3)]
+        losses[strategy] = [h["loss"] for h in _history(cfg, tcfg, 5, lambda i: data.batch(i, batch_size=4), seed=3)]
     a, b = pair
     np.testing.assert_allclose(losses[a], losses[b], rtol=2e-4, atol=2e-4)
 
@@ -394,7 +388,7 @@ def test_grad_accum_matches_full_batch():
     losses = {}
     for accum in (1, 2):
         tcfg = tstep.TrainConfig(remat_policy="none", grad_accum=accum)
-        losses[accum] = [h["loss"] for h in _train(cfg, tcfg, 4, lambda i: data.batch(i, batch_size=8), seed=5)]
+        losses[accum] = [h["loss"] for h in _history(cfg, tcfg, 4, lambda i: data.batch(i, batch_size=8), seed=5)]
     np.testing.assert_allclose(losses[1], losses[2], rtol=1e-3, atol=1e-3)
 
 
@@ -403,7 +397,7 @@ def test_int8_compression_trains():
     cfg = get_smoke_config("stablelm-3b")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16, seed=4)
     tcfg = tstep.TrainConfig(remat_policy="none", opt=topt.OptConfig(compression="int8", **FAST_OPT))
-    history = _train(cfg, tcfg, 6, lambda i: data.batch(0, batch_size=4))
+    history = _history(cfg, tcfg, 6, lambda i: data.batch(0, batch_size=4))
     assert history[-1]["loss"] < history[0]["loss"]
 
 
