@@ -26,7 +26,9 @@ non-zero exit if it fails:
             (both on ``wgmma`` in bf16, which the run checks), and is also
             timed at musicgen's heads (24 of 64), deepseek's MLA prefill (16
             heads, qk 192, v 128) and stablelm's head dim 80 beside SDPA and
-            its bound.  K3
+            its bound; held to its plain version (a sequence at a time) and
+            timed beside SDPA at llava-next's prefill (56 / 8 heads: 7 q
+            heads a kv head) and command-r-plus's (96 / 8: 12).  K3
             exact in its cluster form (n = 1 to 8, and 9 and 16 where the
             card allows a cluster of 16) and its
             dissemination form (n = 64, 128 and the largest resident
@@ -59,8 +61,22 @@ non-zero exit if it fails:
             qwen3-moe-30b-a3b (48 GQA + MoE layers) whole; and
             jamba-v0.1-52b cut to one group of 8 of its 32 layers (1
             attention and 7 SSD layers, 4 MoE; the whole model does not fit
-            the card).  Checks that the logits are finite and the tokens in
-            the vocabulary, that prefill launched the attention kernel once
+            the card); then the four archs first served in this phase:
+            codeqwen1.5-7b (32 layers, QKV bias) and musicgen-medium (48
+            layers, frame embeddings from its stubbed frontend) whole,
+            llava-next-34b whole (60 layers, 68.8 GB; its checks at 4
+            layers) and command-r-plus-104b cut to 16 of its 64 layers
+            (56.7 GB of 207.6; its checks at 2).  A check at a cut depth
+            runs on the cut drawn alone before the served model, from its
+            seed (the same weights).  Every model decodes its request
+            through one captured CUDA graph and nothing else (the eager
+            step refuses to be made), and the graph is held to the eager
+            step: the same staged cache in two copies, 32 steps each,
+            tokens equal at every step and the logits' largest gap within
+            5e-2 of the largest logit (printed, and whether it is 0); ms a
+            step of each in turns, one profiled step's idle share of each,
+            and the peak memory with each.  Checks that the logits are
+            finite and the tokens in the vocabulary, that prefill launched the attention kernel once
             per attention layer and the SSD kernel once per SSD layer (every
             count set to 0 just before, read just after), that the kernel
             path strays from a float32 model no further than the plain bf16
@@ -72,6 +88,13 @@ non-zero exit if it fails:
             answers one prompt alone (K2 in clusters of 2, counted the same
             way), and that prefill is timed in turns with K2's sequential
             form, the form of a card without cluster launch.
+4b. batch:  ``serve_stream`` on phi4-mini-3.8b whole: 24 requests from seed
+            3 (prompts of 128-1024 tokens, 8-64 new tokens each) over 8
+            slots of a 1152-position cache, through the graph, then the same
+            stream through the eager step.  Checks that every request
+            finishes with its tokens, that both runs' tokens are equal, and
+            that K1 ran one batch-1 prefill per request (32 launches each);
+            prints requests/s, generated tokens/s and ms a step of each.
 5. train:   make_train_step (bf16 params, the scu policy, full remat) for
             5 steps on one fixed random batch: mamba2-1.3b whole (48 layers,
             4 x 4096) and phi4-mini-3.8b whole (32 layers, 1 x 4096), after a
@@ -132,8 +155,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # (b, h, kvh, s, d, causal): the four shapes of tests/test_kernels.py, one
-# ragged length, the non-causal case, llava's 7 q heads a kv head at a ragged
-# length, head dim 80 (causal, and non-causal at 4 q heads a kv head) and the
+# ragged length, the non-causal case, llava's 7 and command-r's 12 q heads a kv
+# head at a ragged length, head dim 80 (causal, and non-causal at 4 q heads a kv head) and the
 # smoke configs' 16
 KERNEL_SHAPES = [
     (1, 4, 4, 128, 64, True),
@@ -143,6 +166,7 @@ KERNEL_SHAPES = [
     (2, 6, 2, 200, 128, True),
     (1, 2, 2, 128, 64, False),
     (1, 7, 1, 333, 128, True),
+    (1, 12, 1, 333, 128, True),
     (1, 4, 4, 200, 80, True),
     (2, 8, 2, 333, 80, False),
     (2, 4, 2, 130, 16, True),
@@ -193,6 +217,12 @@ SCU_SIGNAL_SIZES = [8, 1, 7, 4099, 2**20]
 SWEEP_PARTIES = 8  # the paper's eight-core cluster
 # the one-prompt mamba2 prefill in K2's two forms: pairs timed in turns
 ONE_SEQUENCE_PAIRS = 10
+# command-r-plus-104b is served at this depth: 16 of its 64 layers (56.7 GB in bf16)
+COMMAND_R_LAYERS = 16
+# the [batch] phase: serve_stream on phi4-mini-3.8b whole, requests drawn from a
+# seed with prompt lengths and max_new_tokens in these ranges (both ends included)
+STREAM_SLOTS, STREAM_REQUESTS, STREAM_SEED = 8, 24, 3
+STREAM_PROMPT, STREAM_NEW, STREAM_MAX_SEQ = (128, 1024), (8, 64), 1152
 
 # K1's autograd Function (kernel forward, kernel backward) is checked at b=1,
 # s=GRAD_LEN; the backward kernel is checked against its plain version and
@@ -301,10 +331,12 @@ def ssd_bound(b, s, h, p, n, chunk, dtype_name):
     return bound(nbytes, ssd_flops(b, s, h, p, n, chunk), dtype_name)
 
 
-def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg) -> dict:
+def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg, group_cfgs) -> dict:
     """Phase 3 for K1, the flash-attention forward.  Returns its entry of the
     kernels line: timed at ``cfg``'s serving shape, musicgen's heads,
-    ``mla_cfg``'s MLA pair (qk 192, v 128) and ``d80_cfg``'s head dim 80."""
+    ``mla_cfg``'s MLA pair (qk 192, v 128) and ``d80_cfg``'s head dim 80; held
+    to its plain version and timed at each of ``group_cfgs``' prefill shapes
+    (llava's 7 and command-r's 12 q heads a kv head)."""
     import torch
     import torch.nn.functional as F
 
@@ -352,9 +384,14 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg) -> dict:
         out = flash_attention(q, k, v, causal=True)
         _, lse = flash_attention_fwd(qt, kt, vt, causal=True)
         torch.cuda.synchronize()
-        ref = attention_ref(qt, kt, vt, causal=True).transpose(1, 2)
+        # the plain version a sequence at a time: its float32 scores of all b at
+        # command-r's 96 heads would take 26 GB
+        rows = range(b)
+        ref = torch.cat([attention_ref(qt[i : i + 1], kt[i : i + 1], vt[i : i + 1], causal=True) for i in rows])
+        ref = ref.transpose(1, 2)
         err = (out.float() - ref.float()).abs().max().item()
-        lse_err = (lse - attention_ref_lse(qt, kt, causal=True)).abs().max().item()
+        ref_lse = torch.cat([attention_ref_lse(qt[i : i + 1], kt[i : i + 1], causal=True) for i in rows])
+        lse_err = (lse - ref_lse).abs().max().item()
         tol = KERNEL_TOL["bfloat16"]
         dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) or not lse_err <= 2e-3:
@@ -393,6 +430,10 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg) -> dict:
     mla = at_full_size(BATCH, mla_cfg.n_heads, mla_cfg.n_kv_heads, m.qk_nope_dim + m.qk_rope_dim,
                        with_plain=True, dv=m.v_head_dim)
     d80 = at_full_size(BATCH, d80_cfg.n_heads, d80_cfg.n_kv_heads, d80_cfg.resolved_head_dim, with_plain=True)
+    # before llava and command-r serve: the first groups that do not divide 8 (bands of 2) and
+    # that exceed it (bands of 1)
+    groups = {c.name: at_full_size(BATCH, c.n_heads, c.n_kv_heads, c.resolved_head_dim, with_plain=False)
+              for c in group_cfgs}  # fmt: skip
     keys = ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "flash_attention_fwd",
@@ -405,6 +446,9 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg) -> dict:
         # launches: one a layer of a deepseek or a stablelm prefill, filled in by the serving phase
         "mla": {"model": mla_cfg.name, "launches": 0, **{key: mla[key] for key in keys}},
         "d80": {"model": d80_cfg.name, "launches": 0, **{key: d80[key] for key in keys}},
+        # by model, the group (q heads a kv head) and the launches of its prefill, filled in by the serving phase
+        "groups": {name: {"group": c.n_heads // c.n_kv_heads, "launches": 0, **{key: groups[name][key] for key in keys}}
+                   for name, c in zip(groups, group_cfgs)},  # fmt: skip
         "launches_by_model": {},
     }
 
@@ -1043,22 +1087,6 @@ def ample_capacity(model):
     return CausalLM(cfg, model.params)
 
 
-def depth_cut(model, n_layers: int):
-    """The served model's first ``n_layers`` layers (the prelude and the first
-    groups), sharing its weights: a copy at full width and reduced depth."""
-    from repro_torch.models.blocks import prelude_layers
-    from repro_torch.serve.decode import CausalLM
-
-    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
-    n_groups = (n_layers - prelude_layers(cfg)) // cfg.block_group
-
-    def head(tree):
-        return {k: head(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:n_groups]
-
-    params = model.params
-    return CausalLM(cfg, {**params, "blocks": head(params["blocks"])})
-
-
 def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int, s: int = 512,
                               offload: bool = False) -> None:
     """The kernel path against the plain path and a float32 model at a prompt
@@ -1077,22 +1105,32 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
     against the kernel), which flips near-tie top-k choices; the flips are
     counted and the unpinned error printed beside the held one.  ``offload``
     moves the bf16 model to the host while its float32 copy is on the card.
+    An arch whose frontend is a stub (musicgen, llava) is prefilled with the
+    embedding table's rows of the same tokens, the embeddings its decode step
+    takes for a token, so that prefill(n) + one step and prefill(n + 1) see
+    the same inputs.
     """
     import torch
 
-    from repro_torch.launch.serve import make_inputs, stage_prefill_cache
+    from repro_torch.launch.serve import stage_prefill_cache
     from repro_torch.serve.decode import CausalLM
     from repro_torch.train.optimizer import tree_map
 
     cfg = model.cfg
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(3)
-    tokens = make_inputs(cfg, batch, s + 1, gen)["tokens"]
+    tokens = torch.randint(0, cfg.vocab_size, (batch, s + 1), generator=gen, device=dev)
+
+    def prompt(m, upto):
+        if cfg.frontend is None:
+            return {"tokens": tokens[:, :upto]}
+        return {"embeddings": m.params["embed"]["table"][tokens[:, :upto]]}
+
     routes = {"kernel": [], "plain": [], "float32": []}
     with recorded_routing(routes["kernel"]):
-        logits, cache = model.prefill({"tokens": tokens[:, :s]})
+        logits, cache = model.prefill(prompt(model, s))
     with plain(), recorded_routing(routes["plain"]):
-        plain_logits, plain_cache = model.prefill({"tokens": tokens[:, :s]})
+        plain_logits, plain_cache = model.prefill(prompt(model, s))
     name, first = next((k, v) for k, v in cache["blocks"]["pos_0"].items())
     leaf_err = (first[-1].float() - plain_cache["blocks"]["pos_0"][name][-1].float()).abs().max().item()
     del cache, plain_cache
@@ -1105,8 +1143,8 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
         """(decode step logits, longer prefill logits, what was pinned)."""
         longer_routes, free_routes = [], []
         with recorded_routing(longer_routes):
-            longer = m.prefill({"tokens": tokens[:, : n + 1]})[0]
-        small = m.prefill({"tokens": tokens[:, :n]})[1]
+            longer = m.prefill(prompt(m, n + 1))[0]
+        small = m.prefill(prompt(m, n))[1]
         position = torch.full((batch,), n, dtype=torch.int32, device=m.device)
 
         def step():  # on a cache staged afresh: a step advances an SSD layer's state
@@ -1139,7 +1177,7 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
     model32 = CausalLM(dataclasses.replace(cfg, dtype="float32"),
                        tree_map(lambda t: t.to(dev, torch.float32), model.params))
     with plain(), recorded_routing(routes["float32"]):
-        true_logits, _ = model32.prefill({"tokens": tokens[:, :s]})
+        true_logits, _ = model32.prefill(prompt(model32, s))
     err = (logits - plain_logits).abs().max().item()
     err_kernel = (logits - true_logits).abs().max().item()
     err_plain = (plain_logits - true_logits).abs().max().item()
@@ -1165,7 +1203,7 @@ def check_model_against_plain(model, batch: int, plain, max_stray, step_len: int
     # the same in float32 through the kernels, where the staged cache must be exact
     step32, longer32, pinned = step_against_longer(ample_capacity(model32))
     with plain():
-        plain32 = ample_capacity(model32).prefill({"tokens": tokens[:, : n + 1]})[0]
+        plain32 = ample_capacity(model32).prefill(prompt(model32, n + 1))[0]
     e32 = (step32 - longer32).abs().max().item()
     e_plain = (longer32 - plain32).abs().max().item()
     print(f"[serve] {cfg.name} float32 through the kernels: prefill({n}) + staged cache + one decode step vs "
@@ -1185,14 +1223,157 @@ def expected_launches(cfg) -> dict:
     return {"flash_attention_fwd": attn, "ssd_scan_fwd": cfg.n_layers - attn, "flash_attention_bwd": 0}
 
 
+@contextlib.contextmanager
+def graph_only(captured: list):
+    """Within the block the launchers decode through the captured graph and
+    nothing else: the eager step refuses to be made, and every captured step
+    is appended to ``captured`` (its ``replays`` count the graph's launches)."""
+    from repro_torch.launch import serve as serve_mod
+
+    kept = serve_mod.capture_serve_step
+
+    def refused(*args):
+        raise SystemExit("a launcher made the eager decode step on the card")
+
+    def counted(*args):
+        step = kept(*args)
+        captured.append(step)
+        return step
+
+    with _swapped(serve_mod, "EagerServeStep", refused), _swapped(serve_mod, "capture_serve_step", counted):
+        yield
+
+
+def eager_launchers():
+    """Within the block the launchers decode with the eager step on the card:
+    the yardstick the graph is held to."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve.decode import EagerServeStep
+
+    return _swapped(serve_mod, "capture_serve_step", EagerServeStep)
+
+
+def graph_against_eager(model, inputs) -> dict:
+    """The decode graph against the eager step on one served request: its
+    staged cache in two copies, ``GEN`` steps of each from the prefill's
+    token, tokens equal at every step and the logits' largest gap within the
+    serving tolerance (5e-2 of the largest logit; 0 where the same kernels
+    run).  Then ms a step of each (host clock around ``GEN`` steps and a
+    synchronise) in turns (eager, graph, graph, eager), one profiled step of
+    each (device busy and idle share, as ``scripts/profile_serve_torch.py``
+    reads them), the peak device memory of each run (both caches live) and
+    the capture's seconds."""
+    import torch
+
+    from repro_torch.launch.serve import stage_prefill_cache
+    from repro_torch.serve.decode import capture_serve_step
+    from repro_torch.train.optimizer import tree_map
+
+    cfg, dev = model.cfg, model.device
+    batch, prompt_len = next(iter(inputs.values())).shape[:2]
+    logits, small = model.prefill(inputs)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    eager_cache = stage_prefill_cache(small, model.init_cache(batch, prompt_len + GEN), prompt_len)
+    del logits, small
+    graph_cache = tree_map(torch.clone, eager_cache)
+    start = torch.full((batch,), prompt_len, dtype=torch.int32, device=dev)
+
+    def eager(keep=None):
+        tok = first
+        for i in range(GEN):
+            next_tok, step_logits, _ = model.decode_step(eager_cache, tok, start + i)
+            tok = next_tok[:, None]
+            if keep is not None:
+                keep.append((next_tok, step_logits))
+
+    def graph(keep=None):
+        step.feed(first, start)
+        for _ in range(GEN):
+            next_tok, step_logits = step.replay()
+            if keep is not None:
+                keep.append((next_tok.clone(), step_logits.clone()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    by_eager = []
+    eager(by_eager)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = capture_serve_step(cfg, model.params, graph_cache, batch)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    by_graph = []
+    graph(by_graph)
+    torch.cuda.synchronize()
+    graph_peak = torch.cuda.max_memory_allocated() / 2**30
+    if step.replays != GEN:
+        raise SystemExit(f"{cfg.name}: the graph was replayed {step.replays} times for {GEN} steps")
+
+    differ = [i for i, (e, g) in enumerate(zip(by_eager, by_graph)) if not torch.equal(e[0], g[0])]
+    gap = max((e[1] - g[1]).abs().max().item() for e, g in zip(by_eager, by_graph))
+    bitwise = all(torch.equal(e[1], g[1]) for e, g in zip(by_eager, by_graph))
+    scale = max(e[1].abs().max().item() for e in by_eager)
+    tol = 5e-2 * max(1.0, scale)
+    finite = all(torch.isfinite(g[1]).all() for g in by_graph)
+    print(f"[graph] {cfg.name} {GEN} decode steps from the staged cache, graph vs eager: tokens equal at "
+          f"{GEN - len(differ)} of {GEN} steps, logits' largest gap {gap:.3e} (bit for bit: {bitwise}; tol "
+          f"{tol:.3e}, 5e-2 of the largest logit {scale:.2f}); capture {capture_s:.2f} s")
+    if differ or gap > tol or not finite:
+        raise SystemExit(f"{cfg.name}: the decode graph disagrees with the eager step (steps {differ}, gap {gap})")
+    del by_eager, by_graph
+
+    def per_step_ms(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / GEN * 1e3
+
+    ms = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        ms[name].append(per_step_ms(eager if name == "eager" else graph))
+    _, e_wall, e_busy, _ = _profiled(lambda: model.decode_step(eager_cache, first, start))
+    step.feed(first, start)
+    _, g_wall, g_busy, g_kernels = _profiled(step.replay)
+    e_idle, g_idle = max(0.0, 1 - e_busy / e_wall), max(0.0, 1 - g_busy / g_wall)
+    # the same busy time against the unprofiled ms a step: the profiler's own start and stop
+    # weigh on one replay's wall
+    g_idle_steady = max(0.0, 1 - g_busy / min(ms["graph"]))
+    groups = {}
+    for name, kernel_ms, _ in g_kernels:
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + kernel_ms
+    print(f"[graph] {cfg.name} ms a step (host clock, {GEN} steps, in turns eager, graph, graph, eager): eager "
+          f"{[round(t, 2) for t in ms['eager']]}, graph {[round(t, 2) for t in ms['graph']]}; one profiled step: "
+          f"eager wall {e_wall:.2f} ms, device busy {e_busy:.2f} ms, idle {e_idle:.2f}; graph wall {g_wall:.2f} ms, "
+          f"device busy {g_busy:.2f} ms ({len(g_kernels)} kernels by name), idle {g_idle:.2f} (against the "
+          f"unprofiled ms a step: {g_idle_steady:.2f}); peak device memory eager {eager_peak:.2f} GiB, graph "
+          f"{graph_peak:.2f} GiB (both caches live)")
+    print(f"[graph] {cfg.name} the graph's step by kernel group, device ms: "
+          + ", ".join(f"{group} {t:.2f}" for group, t in sorted(groups.items(), key=lambda kv: -kv[1]))
+          + "; largest: " + "; ".join(f"{t:.2f} ms x{n} {name[:60]}" for name, t, n in g_kernels[:3]))
+    del step, eager_cache, graph_cache
+    torch.cuda.empty_cache()
+    return {"eager_ms": ms["eager"], "graph_ms": ms["graph"], "eager_idle": e_idle, "graph_idle": g_idle,
+            "eager_busy_ms": e_busy, "graph_busy_ms": g_busy, "graph_idle_steady": g_idle_steady,
+            "max_logit_gap": gap, "bitwise": bitwise,
+            "eager_peak_gib": eager_peak, "graph_peak_gib": graph_peak, "capture_s": capture_s}  # fmt: skip
+
+
 def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequence=None,
-                        check_layers=None, offload=False) -> dict:
-    """Phase 4 for one model: returns the kernels' launches in its served request.
+                        check_layers=None, offload=False) -> tuple:
+    """Phase 4 for one model: returns the kernels' launches in its served
+    request and its decode graph's numbers (``graph_against_eager``).
 
     The checks against the plain path and a float32 model run on the served
     model's first ``check_layers`` layers (all of them where None), moved to
     the host while its float32 copy is on the card where ``offload`` says.
-    ``one_sequence``, where given, is then called with the model."""
+    A cut is drawn alone, before the served model: ``init_lm`` draws group by
+    group from one generator, so its weights are the served model's first
+    layers.  The served request decodes through the graph and nothing else
+    (``graph_only``).  ``one_sequence``, where given, is then called with the
+    model."""
     import torch
 
     from repro_torch.launch.serve import make_inputs, serve
@@ -1200,29 +1381,41 @@ def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequ
     from repro_torch.serve.decode import CausalLM
 
     dev = torch.device("cuda")
+
+    def draw(c):
+        return CausalLM(c, init_lm(torch.Generator(device=dev).manual_seed(0), c, torch.bfloat16))
+
+    if check_layers is not None and check_layers != cfg.n_layers:
+        print(f"[serve] {cfg.name}: the checks against the plain path and the float32 model run on its first "
+              f"{check_layers} layers at full width (a float32 copy of all {cfg.n_layers} does not fit beside "
+              "the bf16 model), drawn alone before it from its seed")
+        check_model_against_plain(draw(dataclasses.replace(cfg, n_layers=check_layers)), BATCH, plain, max_stray,
+                                  step_len, offload=offload)  # fmt: skip
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    model = CausalLM(cfg, init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16))
+    model = draw(cfg)
     n_params = sum(t.numel() for t in model.buffers())
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e9:.2f} B parameters in bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
     if check_layers is None or check_layers == cfg.n_layers:
         check_model_against_plain(model, BATCH, plain, max_stray, step_len, offload=offload)
-    else:
-        print(f"[serve] {cfg.name}: the checks against the plain path and the float32 model run on its first "
-              f"{check_layers} layers at full width (a float32 copy of all {cfg.n_layers} does not fit beside "
-              "the bf16 model)")
-        check_model_against_plain(depth_cut(model, check_layers), BATCH, plain, max_stray, step_len)
 
     inputs = make_inputs(cfg, BATCH, PROMPT_LEN, torch.Generator(device=dev).manual_seed(1))
     torch.cuda.reset_peak_memory_stats()
     for counted in counters.values():
         counted.launches = 0
-    result = serve(model, inputs, GEN)
+    captured = []
+    with graph_only(captured):
+        result = serve(model, inputs, GEN)
     launches = {name: counted.launches for name, counted in counters.items()}
     want = expected_launches(cfg)
     if {name: launches[name] for name in want} != want:
         raise SystemExit(f"{cfg.name}: prefill launched {launches}, not once per layer of each kind ({want})")
+    if [step.replays for step in captured] != [GEN]:
+        raise SystemExit(f"{cfg.name}: serve replayed {[step.replays for step in captured]} graphs, "
+                         f"not one {GEN} times")
+    del captured
     if result["prefill_logits"].shape != (BATCH, cfg.vocab_size) or result["tokens"].shape != (BATCH, GEN + 1):
         raise SystemExit(f"{cfg.name}: serve returned the wrong shapes")
     if not (torch.isfinite(result["prefill_logits"]).all() and torch.isfinite(result["last_logits"]).all()):
@@ -1231,14 +1424,16 @@ def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequ
         raise SystemExit(f"{cfg.name}: serve produced token ids outside the vocabulary")
     tokens_in = BATCH * PROMPT_LEN
     print(f"[serve] {cfg.name} prefill {result['prefill_s'] * 1e3:.1f} ms ({tokens_in / result['prefill_s']:.0f} tok/s), "
-          f"decode {result['decode_s'] / GEN * 1e3:.2f} ms/step ({GEN * BATCH / result['decode_s']:.1f} tok/s), "
+          f"decode through one CUDA graph (captured in {result['capture_s']:.2f} s) "
+          f"{result['decode_s'] / GEN * 1e3:.2f} ms/step ({GEN * BATCH / result['decode_s']:.1f} tok/s), "
           f"kernel launches {launches}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del result
+    graph = graph_against_eager(model, inputs)
     if one_sequence is not None:
         one_sequence(model)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, graph
 
 
 def serve_one_sequence(model, cfg, counters, entry) -> None:
@@ -1260,7 +1455,8 @@ def serve_one_sequence(model, cfg, counters, entry) -> None:
     inputs = make_inputs(cfg, 1, PROMPT_LEN, torch.Generator(device=model.device).manual_seed(2))
     for counted in counters.values():
         counted.launches = 0
-    result = serve(model, inputs, GEN)
+    with graph_only([]):
+        result = serve(model, inputs, GEN)
     launches = {name: counted.launches for name, counted in counters.items()}
     if launches["ssd_scan_fwd"] != cfg.n_layers:
         raise SystemExit(f"{cfg.name}: one prompt launched ssd_scan_fwd {launches['ssd_scan_fwd']} times, "
@@ -1308,6 +1504,75 @@ def serve_one_sequence(model, cfg, counters, entry) -> None:
           f"{form.name} faster in {wins} of {ONE_SEQUENCE_PAIRS} pairs; last logits, the two forms apart by {gap:.3e}")
     print(f"[serve] {cfg.name} one-prompt prefill ms, {form.name}: {[round(t, 2) for t in times[form.name]]}, "
           f"sequential: {[round(t, 2) for t in times['sequential']]}")
+
+
+def serve_a_stream(cfg, counters) -> dict:
+    """The ``[batch]`` phase: ``serve_stream`` on ``cfg`` whole, a stream of
+    ``STREAM_REQUESTS`` requests from seed ``STREAM_SEED`` over
+    ``STREAM_SLOTS`` slots, decoded through the graph (and nothing else),
+    then the same stream through the eager step.  Checks that every request
+    finishes with its ``max_new_tokens`` tokens, that the two runs' tokens
+    are equal, and that K1 ran one batch-1 prefill per admitted request."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import serve_stream
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.batching import Request
+    from repro_torch.serve.decode import CausalLM
+
+    dev = torch.device("cuda")
+    model = CausalLM(cfg, init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16))
+
+    def requests():
+        rng = np.random.default_rng(STREAM_SEED)
+        lens = rng.integers(STREAM_PROMPT[0], STREAM_PROMPT[1] + 1, STREAM_REQUESTS)
+        new = rng.integers(STREAM_NEW[0], STREAM_NEW[1] + 1, STREAM_REQUESTS)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)).tolist(), max_new_tokens=int(m))
+                for i, (n, m) in enumerate(zip(lens, new))]  # fmt: skip
+
+    asked = {req.rid: req.max_new_tokens for req in requests()}
+    prompt_tokens = sum(len(req.prompt) for req in requests())
+    torch.cuda.reset_peak_memory_stats()
+    for counted in counters.values():
+        counted.launches = 0
+    captured = []
+    with graph_only(captured):
+        graph = serve_stream(model, requests(), STREAM_SLOTS, STREAM_MAX_SEQ)
+    launches = {name: counted.launches for name, counted in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with eager_launchers():
+        eager = serve_stream(model, requests(), STREAM_SLOTS, STREAM_MAX_SEQ)
+    want = {"flash_attention_fwd": STREAM_REQUESTS * expected_launches(cfg)["flash_attention_fwd"],
+            "ssd_scan_fwd": 0, "flash_attention_bwd": 0}  # fmt: skip
+    if {name: launches[name] for name in want} != want:
+        raise SystemExit(f"[batch] the stream launched {launches}, not one prefill's per request ({want})")
+    if [step.replays for step in captured] != [graph["steps"]]:
+        raise SystemExit(f"[batch] {len(captured)} graphs replayed {[s.replays for s in captured]} times for "
+                         f"{graph['steps']} steps")
+    short = {rid: len(toks) for rid, toks in graph["tokens"].items() if len(toks) != asked[rid]}
+    if sorted(graph["tokens"]) != sorted(asked) or short:
+        raise SystemExit(f"[batch] requests that did not finish with their max_new_tokens: {short}")
+    differ = [rid for rid in asked if graph["tokens"][rid] != eager["tokens"].get(rid)]
+    if differ or graph["steps"] != eager["steps"]:
+        raise SystemExit(f"[batch] the graph's tokens differ from the eager step's for requests {differ}")
+    print(f"[batch] {cfg.name} whole: {STREAM_REQUESTS} requests (seed {STREAM_SEED}, prompts "
+          f"{STREAM_PROMPT[0]}-{STREAM_PROMPT[1]} tokens, {prompt_tokens} in all; max_new_tokens "
+          f"{STREAM_NEW[0]}-{STREAM_NEW[1]}) over {STREAM_SLOTS} slots, cache max_seq {STREAM_MAX_SEQ}: every "
+          f"request finished with its tokens ({graph['generated']} in all), the graph's equal to the eager step's "
+          f"for every request; K1 launches {launches['flash_attention_fwd']} (one batch-1 prefill of "
+          f"{expected_launches(cfg)['flash_attention_fwd']} a request); peak device memory {peak:.2f} GiB")
+    for name, run in (("graph", graph), ("eager", eager)):
+        print(f"[batch] {name}: {run['steps']} steps in {run['wall_s']:.3f} s ({STREAM_REQUESTS / run['wall_s']:.2f} "
+              f"requests/s, {run['generated'] / run['wall_s']:.1f} generated tokens/s); prefill and staging "
+              f"{run['prefill_s']:.3f} s, decode {run['decode_s'] / run['steps'] * 1e3:.2f} ms a step (feed, "
+              f"step, read back the tokens, observe); capture {run['capture_s']:.2f} s (set-up, not in the wall)")
+    del model
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "requests": STREAM_REQUESTS, "slots": STREAM_SLOTS, "steps": graph["steps"],
+            "launches": launches["flash_attention_fwd"],
+            **{f"{name}_{key}": run[key] for name, run in (("graph", graph), ("eager", eager))
+               for key in ("wall_s", "prefill_s", "decode_s")}}  # fmt: skip
 
 
 @contextlib.contextmanager
@@ -1705,7 +1970,11 @@ def main() -> int:
     phi4, mamba2 = get_config("phi4-mini-3.8b"), get_config("mamba2-1.3b")
     deepseek, qwen3 = get_config("deepseek-v2-lite-16b"), get_config("qwen3-moe-30b-a3b")
     stablelm = get_config("stablelm-3b")
-    k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, stablelm)
+    codeqwen, musicgen = get_config("codeqwen1.5-7b"), get_config("musicgen-medium")
+    llava = get_config("llava-next-34b")
+    # command-r-plus: 16 of its 64 layers (see the serve phase)
+    command_r = dataclasses.replace(get_config("command-r-plus-104b"), n_layers=COMMAND_R_LAYERS)
+    k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, stablelm, (llava, command_r))
     k1b = check_attention_backward(phi4, deepseek, stablelm)
     k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
     k2["backward"] = check_ssd_backward(mamba2)
@@ -1717,22 +1986,24 @@ def main() -> int:
                 "scu_barrier": scu_kernel.scu_barrier, "scu_notifier": scu_kernel.scu_notifier,
                 "scu_self_signal": scu_kernel.scu_self_signal}
     # 513 is no multiple of any attention tile: the ragged edge on the serving path
-    by_model = {}
-    by_model[phi4.name] = serve_at_full_width(phi4, counters, plain_attention, 5e-2, 512)
+    by_model, graphs = {}, {}
+    by_model[phi4.name], graphs[phi4.name] = serve_at_full_width(phi4, counters, plain_attention, 5e-2, 512)
     # stablelm whole (32 layers of 32 heads of 80): K1's head dim 80 on the serving path
-    by_model[stablelm.name] = serve_at_full_width(stablelm, counters, plain_attention, 5e-2, 512)
+    by_model[stablelm.name], graphs[stablelm.name] = serve_at_full_width(stablelm, counters, plain_attention, 5e-2,
+                                                                         512)  # fmt: skip
     # the SSD chunk must divide the prompt: 255 and 256 are one chunk each (255 the ragged one).
     # 48 layers of random SSD weights in bf16 stray from float32 further than 5 % of the
     # largest logit on either path, so only the plain path bounds the kernel's
     # then one prompt alone, where K2 takes a chunk-parallel form
-    by_model[mamba2.name] = serve_at_full_width(mamba2, counters, plain_ssd_scan, None, 255,
-                                                lambda model: serve_one_sequence(model, mamba2, counters, k2))
+    by_model[mamba2.name], graphs[mamba2.name] = serve_at_full_width(
+        mamba2, counters, plain_ssd_scan, None, 255, lambda model: serve_one_sequence(model, mamba2, counters, k2))
     # deepseek (27 layers, 15.7 B) and qwen3-moe (48 layers, 30.5 B) whole; their checks at 4
     # layers (deepseek: the dense prelude and 3 MoE layers).  bf16 routing flips between the
     # two paths move the logits of a random MoE model by more than 5 % of the largest one,
     # so only the plain path bounds the kernel's, as for mamba2.
-    by_model[deepseek.name] = serve_at_full_width(deepseek, counters, plain_attention, None, 512, check_layers=4)
-    by_model[qwen3.name] = serve_at_full_width(qwen3, counters, plain_attention, None, 512, check_layers=4)
+    for cfg in (deepseek, qwen3):
+        by_model[cfg.name], graphs[cfg.name] = serve_at_full_width(cfg, counters, plain_attention, None, 512,
+                                                                   check_layers=4)  # fmt: skip
     # jamba: one group of 8 of its 32 layers (1 attention, 7 SSD, 4 MoE): 13.3 B parameters
     # (26.5 GB in bf16) of 51.6 B, which would take 103 GB; the group keeps the 1:7 pattern.
     # Its checks take that whole group, with the bf16 model on the host while the float32
@@ -1741,11 +2012,41 @@ def main() -> int:
     print(f"[serve] {jamba.name}: cut to one group of {jamba.block_group} layers of its "
           f"{get_config('jamba-v0.1-52b').n_layers} ({jamba.n_params() / 1e9:.1f} B parameters of "
           f"{get_config('jamba-v0.1-52b').n_params() / 1e9:.1f} B; the whole model does not fit the card in bf16)")
-    by_model[jamba.name] = serve_at_full_width(jamba, counters, plain_hybrid, None, 127, offload=True)
+    by_model[jamba.name], graphs[jamba.name] = serve_at_full_width(jamba, counters, plain_hybrid, None, 127,
+                                                                   offload=True)  # fmt: skip
+    # the four archs first served here: codeqwen (32 layers, 32 heads of 128 with a QKV bias,
+    # no GQA; 8.2 B) and musicgen (48 layers, 24 heads of 64, sinusoidal positions,
+    # LayerNorm, GELU, frame embeddings from its stubbed frontend; 1.4 B) whole;
+    # llava-next (60 layers, 56 / 8 heads of 128: K1 at group 7; 34.4 B, 68.8 GB) whole,
+    # its checks at 4 layers.
+    phase_t0 = time.perf_counter()
+    for cfg in (codeqwen, musicgen):
+        by_model[cfg.name], graphs[cfg.name] = serve_at_full_width(cfg, counters, plain_attention, 5e-2, 512)
+    by_model[llava.name], graphs[llava.name] = serve_at_full_width(llava, counters, plain_attention, 5e-2, 512,
+                                                                   check_layers=4)  # fmt: skip
+    # command-r-plus: 16 of its 64 layers (96 / 8 heads of 128: K1 at group 12; a parallel
+    # block, the tied 256000-row embedding): 56.7 GB of its 207.6 GB in bf16.  Its checks at
+    # 2 layers, drawn alone: the float32 embedding alone takes 12.6 GB.
+    whole_r = get_config("command-r-plus-104b")
+    print(f"[serve] {command_r.name}: cut to {command_r.n_layers} of its {whole_r.n_layers} layers "
+          f"({command_r.n_params() / 1e9:.1f} B parameters of {whole_r.n_params() / 1e9:.1f} B; the whole model "
+          f"does not fit the card in bf16)")
+    by_model[command_r.name], graphs[command_r.name] = serve_at_full_width(command_r, counters, plain_attention,
+                                                                           5e-2, 512, check_layers=2)  # fmt: skip
+    print(f"[serve] codeqwen, musicgen, llava-next and command-r-plus: {time.perf_counter() - phase_t0:.1f} s")
+    print(f"[graph] every served model decoded through one CUDA graph; graph vs eager: "
+          + json.dumps({name: {key: got[key] for key in ("max_logit_gap", "bitwise")} for name, got in graphs.items()}))
+
+    # ---- 4b. batch -----------------------------------------------------------
+    stream = serve_a_stream(phi4, counters)
+
     k1["launches"] = by_model[phi4.name]["flash_attention_fwd"]
     k2["launches"] = by_model[mamba2.name]["ssd_scan_fwd"]
     k1["mla"]["launches"] = by_model[deepseek.name]["flash_attention_fwd"]
     k1["d80"]["launches"] = by_model[stablelm.name]["flash_attention_fwd"]
+    for name, entry in k1["groups"].items():
+        entry["launches"] = by_model[name]["flash_attention_fwd"]
+    k1["stream"] = stream
     for entry in (k1, k1b, k2):
         entry["launches_by_model"] = {name: got[entry["name"]] for name, got in by_model.items()}
 

@@ -6,7 +6,9 @@
 
 Needs an NVIDIA GPU.  It draws random bf16 weights at the model's full width,
 warms up, then traces one prefill and ``--steps`` decode steps with
-``torch.profiler`` and prints, for each phase: the wall time (host clock
+``torch.profiler``, the decode steps both as the launcher runs them (replays
+of the step captured as one CUDA graph, ``capture_serve_step``) and as the
+eager step (``CausalLM.decode_step``), and prints, for each phase: the wall time (host clock
 around a synchronised region), the device's busy time (the sum of kernel
 times) and idle share, and the kernels by total device time.  Kernel names
 are the device's own; ``flash_fwd_hopper`` is this repo's attention kernel
@@ -32,7 +34,7 @@ from repro_torch.compat import card_name_and_power_limit, resolve_device
 from repro_torch.configs.registry import get_config
 from repro_torch.launch.serve import make_inputs, stage_prefill_cache
 from repro_torch.models.lm import init_lm
-from repro_torch.serve.decode import CausalLM
+from repro_torch.serve.decode import CausalLM, capture_serve_step
 
 
 def traced(name, fn, lines, top=14):
@@ -81,6 +83,12 @@ def main() -> None:
             tok, _logits, cache = model.decode_step(cache, tok[:, None], position + i)
         return tok
 
+    def replay(step, tok, start, n):
+        step.feed(tok[:, None], torch.full((args.batch,), start, dtype=torch.int32, device=dev))
+        for _ in range(n):
+            tok = step.replay()[0]
+        return tok.clone()
+
     # warm up both phases (cuBLAS handles, kernel build), then time without the profiler
     logits, small = model.prefill(inputs)
     cache = stage_prefill_cache(small, model.init_cache(args.batch, max_seq), args.prompt_len)
@@ -94,10 +102,17 @@ def main() -> None:
     t0 = time.perf_counter()
     tok = decode(cache, tok, args.prompt_len + 2, args.steps)
     torch.cuda.synchronize()
-    lines.append(f"decode, profiler off: {(time.perf_counter() - t0) * 1e3 / args.steps:.2f} ms/step")
+    lines.append(f"decode (eager), profiler off: {(time.perf_counter() - t0) * 1e3 / args.steps:.2f} ms/step")
+    step = capture_serve_step(cfg, model.params, cache, args.batch)
+    t0 = time.perf_counter()
+    replay(step, tok, args.prompt_len + 2, args.steps)
+    torch.cuda.synchronize()
+    lines.append(f"decode (graph), profiler off: {(time.perf_counter() - t0) * 1e3 / args.steps:.2f} ms/step")
 
     traced("prefill", lambda: model.prefill(inputs), lines)
-    traced(f"decode x{args.steps}", lambda: decode(cache, tok, args.prompt_len + 2 + args.steps, args.steps), lines)
+    start = args.prompt_len + 2 + args.steps
+    traced(f"decode (graph) x{args.steps}", lambda: replay(step, tok, start, args.steps), lines)
+    traced(f"decode (eager) x{args.steps}", lambda: decode(cache, tok, start, args.steps), lines)
 
     text = "\n".join(lines)
     print(text)

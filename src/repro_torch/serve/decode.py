@@ -12,6 +12,13 @@ stacked parameter layout: one entry per group position, stacked over groups
   * SSD (mamba2):   ``{"ssm": (G, b, H, P, N) float32, "conv": (G, b, w, conv_dim)}``
                     -- O(1)-size state, no sequence axis at all.
 
+The reference launches its step as one compiled program
+(``serve_fn = jax.jit(serve_fn)``, ``repro/launch/serve.py``).  The port's
+counterpart is :func:`capture_serve_step`: the step captured once as a CUDA
+graph on static token and position buffers, then replayed once a token.
+:class:`EagerServeStep` is the same interface over the eager step, for the
+CPU.
+
 ``cache_specs`` and every ``NamedSharding`` of the JAX module are sharding:
 they wait for the sharding slice.  The factories keep their names and take a
 ``device`` where the JAX ones take a mesh.
@@ -51,7 +58,10 @@ from repro_torch.models.lm import sinusoidal_positions, tree_index
 
 __all__ = [
     "CausalLM",
+    "EagerServeStep",
+    "ServeGraph",
     "cache_shapes",
+    "capture_serve_step",
     "init_cache",
     "make_serve_step",
     "make_prefill",
@@ -355,6 +365,115 @@ def make_prefill(cfg: ModelConfig, device, batch: int, seq: int):
 
 
 # ---------------------------------------------------------------------------
+# The decode step on static buffers: eager, or one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class EagerServeStep:
+    """``make_serve_step``'s step on static buffers: ``tokens (batch, 1)`` and
+    ``position (batch,)`` on the cache's device, which every step advances
+    itself (its greedy tokens copied into ``tokens``, 1 added to
+    ``position``), and the cache it is given, which every step writes.
+
+    ``feed`` sets the next step's inputs; ``replay`` runs one step and
+    returns ``(next_tokens, logits)``.  This is the step ``serve`` and
+    ``serve_stream`` decode with on the CPU; on the card they take
+    :class:`ServeGraph`, the same interface.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any], cache: Any, batch: int):
+        self.device = next(leaf for _, leaf in _flatten(cache)).device
+        self._fn = make_serve_step(cfg, self.device, batch, _cache_len(cache))
+        # held for as long as the step: a graph reads them at the addresses it captured
+        self._params, self._cache = params, cache
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
+        self.position = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        self.replays = 0
+
+    def feed(self, tokens, position) -> None:
+        """Copy the next step's tokens ``(batch, 1)`` and positions ``(batch,)``
+        (tensors or host arrays) into the static buffers."""
+        self.tokens.copy_(torch.as_tensor(tokens).reshape(self.tokens.shape))
+        self.position.copy_(torch.as_tensor(position).reshape(self.position.shape))
+
+    def _step(self):
+        next_tokens, logits, _ = self._fn(self._params, self._cache, self.tokens, self.position)
+        self.tokens.copy_(next_tokens[:, None])
+        self.position.add_(1)
+        return next_tokens, logits
+
+    def replay(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.replays += 1
+        return self._step()
+
+
+class ServeGraph(EagerServeStep):
+    """The decode step captured as one CUDA graph: the port's
+    ``jax.jit(serve_fn)``.  ``replay`` launches the whole step -- every
+    layer, the greedy token, and the buffers' advance -- by one
+    ``CUDAGraph.replay()``, and returns the graph's static ``next_tokens``
+    and ``logits``: the next replay overwrites them, so a caller clones what
+    it keeps.
+
+    Capture follows PyTorch's recipe: warm-up calls on a side stream (they
+    set up cuBLAS and the allocator), then the capture, in which nothing
+    runs.  A warm-up call is a real step on the live cache:
+
+    * it replaces every SSD layer's state and conv window, so those leaves
+      are copied before the warm-up and restored after it;
+    * it writes the new key and value (or latents) of every attention layer
+      at the row its ``position`` names, and the warm-up runs at the cache's
+      last row (``max_seq - 1``).  That row is never read before it is
+      written again: a step at position ``p`` writes row ``p`` in each
+      attention layer before that layer reads the cache, and reads no row
+      past ``p`` (masked to exactly zero weight, on finite values).  So the
+      step that first reads the row rewrites it, as a step would after any
+      earlier request that left rows there.
+
+    Nothing on the decode path syncs with the host, and a capture that meets
+    one raises: there is no eager fallback.  The decode step launches no
+    kernel of this package (K1 and K2 run in prefill); one that it came to
+    launch takes the current, capturing, stream, and would count one launch
+    in its wrapper's ``launches`` at capture and none at a replay.
+    """
+
+    WARMUP = 2
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any], cache: Any, batch: int):
+        super().__init__(cfg, params, cache, batch)
+        if self.device.type != "cuda":
+            raise ValueError(f"capture_serve_step captures a CUDA graph: the cache lies on {self.device}")
+        max_seq = _cache_len(cache)
+        self.position.fill_(0 if max_seq is None else max_seq - 1)
+        kept = [(leaf, leaf.clone()) for name, leaf in _flatten(cache) if name.split(_SEP)[-1] not in SEQ_AXIS]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                self._fn(params, cache, self.tokens, self.position)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        for leaf, copy in kept:
+            leaf.copy_(copy)
+        del kept
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.next_tokens, self.logits = self._step()
+
+    def replay(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.graph.replay()
+        self.replays += 1
+        return self.next_tokens, self.logits
+
+
+def capture_serve_step(cfg: ModelConfig, params: Dict[str, Any], cache: Any, batch: int) -> ServeGraph:
+    """``make_serve_step``'s step for ``batch`` sequences on ``cache`` (on the
+    card), captured as one CUDA graph.  Raises for a cache on the CPU and
+    when the capture fails.  Feed the first step's inputs before the first
+    replay."""
+    return ServeGraph(cfg, params, cache, batch)
+
+
+# ---------------------------------------------------------------------------
 # The module that owns a parameter tree
 # ---------------------------------------------------------------------------
 
@@ -381,6 +500,7 @@ class CausalLM(nn.Module):
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
         super().__init__()
         self.cfg = cfg
+        self._serve_fns: Dict[Tuple[torch.device, int, Optional[int]], Any] = {}
         for name, leaf in _flatten(params):
             self.register_buffer(name, leaf)
 
@@ -406,12 +526,15 @@ class CausalLM(nn.Module):
         return make_prefill(self.cfg, self.device, b, s)(self.params, inputs)
 
     def decode_step(self, cache: Any, tokens: torch.Tensor, position: torch.Tensor):
-        """One greedy decode step; writes into ``cache`` and returns
-        ``(next_tokens, logits, cache)``."""
-        max_seq = _cache_len(cache)
-        return make_serve_step(self.cfg, self.device, tokens.shape[0], max_seq)(
-            self.params, cache, tokens, position
-        )
+        """One greedy decode step, eager; writes into ``cache`` and returns
+        ``(next_tokens, logits, cache)``.  ``serve_fn`` is made once per
+        (device, batch, max_seq).  On the card the launchers decode through
+        :func:`capture_serve_step`; this step is what its checks hold the
+        graph against."""
+        key = (self.device, tokens.shape[0], _cache_len(cache))
+        if key not in self._serve_fns:
+            self._serve_fns[key] = make_serve_step(self.cfg, *key)
+        return self._serve_fns[key](self.params, cache, tokens, position)
 
     def init_cache(self, batch: int, max_seq: int) -> Any:
         return init_cache(self.cfg, batch, max_seq, self.device)

@@ -54,6 +54,13 @@ with tempfile.TemporaryDirectory() as ckpt_dir:
     launch_train.main(args + ["--steps", "2"])
     _, _, history = launch_train.main(args + ["--steps", "3"])  # resumes at step 2
     assert len(history) == 1 and repro_torch.train.checkpoint.latest_step(ckpt_dir) == 2
+import repro_torch.serve.batching
+from repro_torch.serve.decode import CausalLM
+cfg = get_smoke_config("phi4-mini-3.8b")
+model = CausalLM(cfg, init_lm(torch.Generator().manual_seed(0), cfg, torch.bfloat16))
+reqs = [repro_torch.serve.batching.Request(rid=i, prompt=[1, 2, 3][: i + 1], max_new_tokens=2) for i in range(3)]
+out = serve.serve_stream(model, reqs, 2, 16)
+assert sorted(out["tokens"]) == [0, 1, 2] and out["generated"] == 6
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 print("PROBE-OK")
@@ -70,6 +77,7 @@ def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
     assert proc.stdout.count("[serve] decoded 3 tokens x 2 seqs") == 5
     assert "== Chip-level barrier disciplines (3 parties on cpu) ==" in proc.stdout
     assert proc.stdout.count("[train] step     0 loss") == 1 and "[train] resuming from step 2" in proc.stdout
+    assert "[serve] stream of 3 requests over 2 slots: 4 steps, 6 tokens" in proc.stdout
 
 
 def test_no_import_statement_names_jax_or_repro():
