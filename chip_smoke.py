@@ -131,7 +131,28 @@ non-zero exit if it fails:
             barrier (16 a region a pass), and that K5 raised the arrival
             words and K4 delivered the counts once a policy (every count
             set to 0 just before, read just after).
-8. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5), the
+8. trace:   the simulator's trace executor (``repro_torch.core.scu.trace_exec``
+            ``run_traces_torch``: a block of cycles as one captured CUDA
+            graph), every program built by the port's own ``TraceBuilder``
+            and lowering.  (a) On the card against its CPU run, every field
+            bit for bit: pure-TCDM programs at 4, 8 and 64 cores, a contended
+            test-and-set lock, a store and loads of one word in one cycle,
+            the ``sw``, ``tree`` and ``tree4`` barriers, the ``sw`` mutex and
+            the ``sw``, ``tree`` and ``tree4`` barrier-synchronous chains (6
+            items through 8 stages) at 8 cores, and the ``sw`` barrier at 64;
+            the card at K = 1 and the default K.  (b) The paper's software barrier across the card:
+            8,192 clusters of 8 cores (65,536 lanes, each cluster on its own
+            16 banks), 8 barriers a core after an SFR of 0, 32, 128 or 512
+            cycles, or 2 after one of 2048 (cut to keep the phase under 60
+            s), in one call.  Checks that every cluster equals its
+            SFR's cluster run alone on the CPU (counters, finish cycles,
+            words), and the batch's bank conflicts and cycles; prints cycles
+            a barrier and the overhead per SFR (the SW curve of the paper's
+            Fig. 5), simulated cycles/s and lane-cycles/s, ms a replay,
+            replays, capture s, and the CPU's us a cycle at 8 lanes.  No
+            kernel launches in this phase (every count set to 0 just before,
+            read just after).
+9. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5), the
             card line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -260,6 +281,15 @@ LOOP_ARGS = ["--arch", "mamba2-1.3b", "--batch", str(LOOP_BATCH), "--seq", str(L
              "--remat", "full"]  # fmt: skip
 LOOP_STEPS, LOOP_CKPT_STEP = 4, 2
 LOOP_RTOL, LOOP_ATOL = 1e-5, 1e-6
+# the trace phase: the paper's software barrier (the ``sw`` policy) as TRACE_CLUSTERS
+# independent clusters of TRACE_CORES cores (65,536 lanes), each on its own
+# TRACE_BANKS banks (an eight-core cluster's, banking factor 2), TRACE_ITERS
+# barriers a core after an SFR of each size in turn, cluster by cluster.  SFR
+# 2048 is cut to TRACE_CUT_ITERS barriers: at 8 its 17,768 cycles would set the
+# batch's length, and with the run of its cluster alone on the CPU take the phase
+# past its 60 s on an H100
+TRACE_CLUSTERS, TRACE_CORES, TRACE_BANKS = 8192, 8, 16
+TRACE_SFRS, TRACE_ITERS, TRACE_CUT_ITERS = (0, 32, 128, 512, 2048), 8, {2048: 2}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -990,6 +1020,193 @@ def barrier_sweep(counters) -> dict:
     print(f"[sync] every party released with {n} under every policy; kernel launches {launches} "
           f"(scu_barrier {N_BARRIERS} a region a pass under the scu policy)")
     return launches
+
+
+def tcdm_traces(tb_class, n: int) -> list:
+    """Small pure-TCDM programs of ``n`` cores with contention on one bank
+    (``tests/test_trace.py``'s ``_tcdm_traces``), built with ``tb_class``."""
+    out = []
+    for cid in range(n):
+        tb = tb_class()
+        for it in range(3):
+            tb.mark()
+            tb.compute(2 + cid)
+            tb.mem("sw", 0x80 + 4 * cid, 10 * cid + it)
+            tb.mem("lw", 0x80 + 4 * ((cid + 1) % n))
+            tb.mem("lw", 0x40)  # everyone hits one bank: forced conflicts
+        out.append(tb.build(label=f"xp:{cid}"))
+    return out
+
+
+def tas_lock_traces(tb_class) -> list:
+    """Four cores contend for one test-and-set lock, hold it 5 cycles and free it."""
+    out = []
+    for _ in range(4):
+        tb = tb_class()
+        tb.compute(2)
+        tb.poll("tas", 0x40, 0, 1, 2)
+        tb.compute(5)
+        tb.mem("sw", 0x40, 0)
+        out.append(tb.build())
+    return out
+
+
+def same_word_traces(tb_class) -> list:
+    """Core 0 stores 7 to a word while three cores load it in the same cycle."""
+    out = []
+    for cid in range(4):
+        tb = tb_class()
+        if cid == 0:
+            tb.mem("sw", 0x40, 7)
+        else:
+            tb.mem("lw", 0x40)
+        out.append(tb.build())
+    return out
+
+
+def relocated_address(addr: int, cluster: int, n_clusters: int, banks: int) -> int:
+    """Where word ``w = addr >> 2`` of a cluster of ``banks`` banks lies when the
+    cluster is number ``cluster`` of ``n_clusters``, each on its own banks:
+    ``(w // banks) * banks * n_clusters + banks * cluster + w % banks``.  In a
+    run over ``banks * n_clusters`` banks each word keeps its bank within the
+    cluster, and each bank its round-robin order, so the clusters run as they
+    would alone."""
+    w = addr >> 2
+    return ((w // banks) * banks * n_clusters + banks * cluster + w % banks) << 2 | (addr & 3)
+
+
+def relocate_cluster(programs, cluster: int, n_clusters: int, banks: int) -> list:
+    """One cluster's programs with every address moved by :func:`relocated_address`;
+    new programs, of the input's class."""
+    from repro_torch.core.scu.trace import T_MEM, T_POLL
+
+    moved = {}
+    for p in programs:
+        for r in p.rows:
+            if r[0] in (T_MEM, T_POLL) and r[3] not in moved:
+                moved[r[3]] = relocated_address(r[3], cluster, n_clusters, banks)
+    return [type(p)(rows=tuple(r[:3] + (moved[r[3]],) + r[4:] if r[0] in (T_MEM, T_POLL) else r for r in p.rows),
+                    label=f"{p.label}@{cluster}")
+            for p in programs]  # fmt: skip
+
+
+def same_trace_result(a: dict, b: dict) -> bool:
+    """Two executor results equal on every field, bit for bit."""
+    import numpy as np
+
+    return (a["cycles"] == b["cycles"] and a["bank_conflicts"] == b["bank_conflicts"] and a["tcdm"] == b["tcdm"]
+            and np.array_equal(a["finished_at"], b["finished_at"])
+            and all(np.array_equal(a["counters"][k], b["counters"][k]) for k in a["counters"]))  # fmt: skip
+
+
+def trace_parity_programs() -> dict:
+    """The parity programs of the trace phase: name -> (a fresh program list, n_banks)."""
+    from repro_torch.core.scu.programs import trace_barrier_programs, trace_chain_programs, trace_mutex_programs
+    from repro_torch.core.scu.trace import TraceBuilder
+
+    cases = {f"tcdm x{n}": (lambda n=n: tcdm_traces(TraceBuilder, n), 2 * n) for n in (4, 8, 64)}
+    cases["contended tas lock x4"] = (lambda: tas_lock_traces(TraceBuilder), 8)
+    cases["same-word store and loads x4"] = (lambda: same_word_traces(TraceBuilder), 8)
+    for v in ("sw", "tree", "tree4"):
+        cases[f"{v} barrier x8"] = (lambda v=v: trace_barrier_programs(v, 8, sfr=7, iters=6), 16)
+    cases["sw mutex x8"] = (lambda: trace_mutex_programs("sw", 8, t_crit=3, iters=4), 16)
+    for v in ("sw", "tree", "tree4"):
+        cases[f"{v} chain x8"] = (lambda v=v: trace_chain_programs(v, 8, sfr=7, iters=6), 16)
+    cases["sw barrier x64, 1 iteration"] = (lambda: trace_barrier_programs("sw", 64, sfr=7, iters=1), 128)
+    return cases
+
+
+def trace_batch(card: str) -> dict:
+    """The trace phase: the trace executor on the card against its CPU run, and
+    the paper's software barrier as TRACE_CLUSTERS eight-core clusters in one call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.scu.programs import trace_barrier_programs
+    from repro_torch.core.scu.trace_exec import BLOCK_CYCLES, run_traces_torch
+
+    t_phase = time.perf_counter()
+    # (a) parity: the card against the CPU on every field, bit for bit
+    for name, (make, n_banks) in trace_parity_programs().items():
+        cpu = run_traces_torch(make(), n_banks=n_banks, device="cpu")
+        gpu = run_traces_torch(make(), n_banks=n_banks)
+        if not same_trace_result(gpu, cpu):
+            raise SystemExit(f"[trace] {name}: the card's result differs from the CPU's")
+        print(f"[trace] {name}: card = CPU on every field ({cpu['cycles']} cycles, "
+              f"{cpu['bank_conflicts']} bank conflicts)")
+    make, n_banks = trace_parity_programs()["sw barrier x8"]
+    one = run_traces_torch(make(), n_banks=n_banks, block_cycles=1)
+    if not same_trace_result(one, run_traces_torch(make(), n_banks=n_banks)):
+        raise SystemExit("[trace] sw barrier x8: K = 1 and the default K differ on the card")
+    print(f"[trace] sw barrier x8 on the card: K = 1 and K = {BLOCK_CYCLES} give the same result")
+
+    # (b) the software baseline across the card
+    n_clusters, cores, banks = TRACE_CLUSTERS, TRACE_CORES, TRACE_BANKS
+    sfrs = TRACE_SFRS
+    iters = {sfr: TRACE_CUT_ITERS.get(sfr, TRACE_ITERS) for sfr in sfrs}
+    t0 = time.perf_counter()
+    templates = {sfr: trace_barrier_programs("sw", cores, sfr=sfr, iters=iters[sfr]) for sfr in sfrs}
+    programs = [p for c in range(n_clusters)
+                for p in relocate_cluster(templates[sfrs[c % len(sfrs)]], c, n_clusters, banks)]  # fmt: skip
+    build_s = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    got = run_traces_torch(programs, n_banks=banks * n_clusters, stats=stats)
+    call_s = time.perf_counter() - t0
+    lanes = n_clusters * cores
+    cnt = np.stack([got["counters"][k] for k in got["counters"]]).reshape(-1, n_clusters, cores)
+    fin = got["finished_at"].reshape(n_clusters, cores)
+    alone, cpu_s, cpu_cycles, conflicts = {}, 0.0, 0, 0
+    for i, sfr in enumerate(sfrs):
+        cst = {}
+        ref = run_traces_torch(trace_barrier_programs("sw", cores, sfr=sfr, iters=iters[sfr]), n_banks=banks,
+                               device="cpu", stats=cst)  # fmt: skip
+        alone[sfr] = ref
+        cpu_s += cst["run_s"]
+        cpu_cycles += ref["cycles"]
+        mine = cnt[:, i::len(sfrs)]
+        ref_cnt = np.stack([ref["counters"][k] for k in ref["counters"]])
+        if not (mine == mine[:, :1]).all():
+            raise SystemExit(f"[trace] SFR {sfr}: the clusters' counters differ")
+        if not (np.array_equal(mine[:, 0], ref_cnt) and np.array_equal(fin[i], ref["finished_at"])):
+            raise SystemExit(f"[trace] SFR {sfr}: cluster {i} differs from the cluster run alone on the CPU")
+        if (fin[i::len(sfrs)] != ref["finished_at"]).any():
+            raise SystemExit(f"[trace] SFR {sfr}: a cluster finished otherwise than the cluster run alone")
+        if fin[i].max() + 1 != ref["cycles"]:
+            raise SystemExit(f"[trace] SFR {sfr}: the cluster's last core finished at {fin[i].max()}, "
+                             f"the run alone took {ref['cycles']} cycles")
+        for c in range(i, n_clusters, len(sfrs)):
+            if any(got["tcdm"][relocated_address(a, c, n_clusters, banks)] != v for a, v in ref["tcdm"].items()):
+                raise SystemExit(f"[trace] SFR {sfr}: cluster {c}'s words differ from the cluster run alone")
+        conflicts += len(range(i, n_clusters, len(sfrs))) * ref["bank_conflicts"]
+    if got["bank_conflicts"] != conflicts or got["cycles"] != max(r["cycles"] for r in alone.values()):
+        raise SystemExit(f"[trace] the batch's bank conflicts {got['bank_conflicts']} and cycles {got['cycles']}, "
+                         f"the clusters alone {conflicts} and {max(r['cycles'] for r in alone.values())}")
+    print(f"[trace] {n_clusters} clusters of {cores} cores ({lanes} lanes, {banks * n_clusters} banks), "
+          f"the sw barrier {TRACE_ITERS} times a core after an SFR of {list(sfrs)} cluster by cluster ("
+          + ", ".join(f"SFR {sfr} cut to {k}" for sfr, k in TRACE_CUT_ITERS.items())
+          + ", to keep the phase under 60 s), in one call: "
+          f"every cluster of an SFR has the same counters, finish cycles and words as that cluster run "
+          f"alone on the CPU; bank conflicts {got['bank_conflicts']} = the clusters' sum; {got['cycles']} cycles = the "
+          f"longest cluster's")
+    print(f"[trace] {card}: SFR, barriers a core, cycles alone, cycles an iteration, cycles a barrier, "
+          f"overhead 1 - SFR x barriers / cycles:")
+    for sfr, ref in alone.items():
+        k = iters[sfr]
+        print(f"[trace]   {sfr:5d} {k:3d} {ref['cycles']:7d} {ref['cycles'] / k:9.1f} {ref['cycles'] / k - sfr:8.1f} "
+              f"{1 - sfr * k / ref['cycles']:7.3f}")
+    run_s = stats["run_s"]
+    print(f"[trace] {card}: {got['cycles'] / run_s:,.0f} simulated cycles/s, {lanes * got['cycles'] / run_s:,.0f} "
+          f"lane-cycles/s ({run_s:.3f} s for {got['cycles']} cycles); {run_s / stats['replays'] * 1e3:.3f} ms a "
+          f"replay of K = {stats['block_cycles']} cycles ({run_s / got['cycles'] * 1e6:.1f} us a cycle), "
+          f"{stats['replays']} replays and as many host syncs; capture {stats['capture_s']:.2f} s; "
+          f"{stats['depth']} fetch passes a cycle; programs built and relocated in {build_s:.1f} s, the call "
+          f"{call_s:.1f} s")
+    print(f"[trace] the CPU at 8 lanes: {cpu_s / cpu_cycles * 1e6:.1f} us a cycle ({cpu_cycles} cycles, "
+          f"{cpu_s:.1f} s); the card at {lanes} lanes: {run_s / got['cycles'] * 1e6:.1f} us a cycle")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[trace] phase {phase_s:.1f} s")
+    return {"lanes": lanes, "cycles": got["cycles"], "run_s": run_s, "phase_s": phase_s}
 
 
 def plain_attention():
@@ -2073,7 +2290,16 @@ def main() -> int:
     for entry in (k3, k4, k5):
         entry["launches"] = swept[entry["name"]]
 
-    # ---- 8. result ----------------------------------------------------------
+    # ---- 8. trace ------------------------------------------------------------
+    # the simulator's trace executor launches none of the kernels (its cycle step is PyTorch ops)
+    for counted in counters.values():
+        counted.launches = 0
+    trace_batch(card)
+    if any(counted.launches for counted in counters.values()):
+        raise SystemExit(f"[trace] kernels launched in the trace phase: "
+                         f"{ {name: counted.launches for name, counted in counters.items()} }")
+
+    # ---- 9. result ----------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1b, k2, k3, k4, k5]}))
     print(card)

@@ -3,9 +3,11 @@
 Copy of the records ``Compute``, ``Mem``, ``Poll`` and ``Scu`` of
 ``repro/core/scu/engine.py``, field for field, so that the port's sync
 fragments (``primitives``, ``repro_torch.sync``) are written against the
-same records.  The engine itself, which resolves arbitration, SCU events and
-clock gating over these records, is not ported: it is numpy, and the part of
-the simulator that ran on the accelerator is the trace executor, owed later.
+same records, and of ``_COUNTERS``, the nine per-core counters in the
+engine's order, which the trace executor (``trace_exec``) returns.  The
+engine itself, which resolves arbitration, SCU events and clock gating over
+these records, is not ported: it is numpy, and it is the oracle that the
+trace executor is held to.
 """
 
 from __future__ import annotations
@@ -14,6 +16,19 @@ import dataclasses
 from typing import Any
 
 __all__ = ["Compute", "Mem", "Poll", "Scu"]
+
+# The per-core counters, in the order of ``repro/core/scu/engine.py``'s ``_COUNTERS``.
+_COUNTERS = (
+    "active_cycles",
+    "comp_cycles",
+    "wait_cycles",
+    "gated_cycles",
+    "stall_cycles",
+    "instructions",
+    "tcdm_accesses",
+    "tas_accesses",
+    "scu_accesses",
+)
 
 
 @dataclasses.dataclass

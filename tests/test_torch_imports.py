@@ -61,6 +61,13 @@ model = CausalLM(cfg, init_lm(torch.Generator().manual_seed(0), cfg, torch.bfloa
 reqs = [repro_torch.serve.batching.Request(rid=i, prompt=[1, 2, 3][: i + 1], max_new_tokens=2) for i in range(3)]
 out = serve.serve_stream(model, reqs, 2, 16)
 assert sorted(out["tokens"]) == [0, 1, 2] and out["generated"] == 6
+import repro_torch.core.scu.trace, repro_torch.core.scu.programs, repro_torch.core.scu.trace_exec
+traced = repro_torch.core.scu.trace_exec.run_traces_torch(
+    repro_torch.core.scu.programs.trace_barrier_programs("sw", 4, 8, 2), n_banks=8, device="cpu")
+assert traced["cycles"] > 16 and (traced["finished_at"] >= 0).all()
+chained = repro_torch.core.scu.trace_exec.run_traces_torch(
+    repro_torch.core.scu.programs.trace_chain_programs("tree", 4, 5, 3), n_banks=8, device="cpu")
+assert chained["cycles"] > 6 * 5 and (chained["finished_at"] >= 0).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 print("PROBE-OK")
