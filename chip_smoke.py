@@ -108,6 +108,21 @@ non-zero exit if it fails:
             count set to 0 just before, read just after).
             Reports step ms, peak memory, and one profiled step's device busy
             time, idle share and largest kernels.
+5b. dist:   the data axis through ``torch.distributed``: one process, an NCCL
+            group of world 1 (``file://`` rendezvous under ``build/``) and its
+            ``{"data": 1, "model": 1}`` ``DeviceMesh``, after the train
+            phase's memory is freed.  phi4-mini-3.8b whole trains 3 steps at
+            1 x 4096 (the train phase's batch, bf16, scu, full remat) through
+            ``make_train_step`` over the ``DeviceMesh`` (the scu policy's
+            gradient collectives over NCCL, the step's placements) and 3
+            steps without a group: losses and params bit-equal; K1's forward
+            and backward launches a step those of the train phase (counts set
+            to 0 just before a step, read just after).  The seven chip
+            barriers over the mesh's data axis through NCCL equal the stacked
+            shim at n = 1.  The params and the step saved by the group and
+            restored with their placements, bit-equal (under ``build/``,
+            removed after).  Prints the NCCL version, ms a step beside the
+            train phase's, the checkpoint's seconds and the phase's.
 6. loop:    the training loop, the checkpoint and the data pipeline
             (``repro_torch.launch.train``'s objects, ``train/loop.py``,
             ``train/checkpoint.py``, ``train/data.py``): mamba2-1.3b whole
@@ -276,6 +291,10 @@ F32_STEP_LAYERS, F32_STEP_LEN = 4, 512
 # 10-step warm-up, SyntheticLM from seed 0), the steps of the uninterrupted run, and
 # the step at which the interrupted run checkpoints; the resumed losses are held to
 # the reference's resume tolerance (tests/test_train.py::test_checkpoint_resume_is_exact)
+# the dist phase: steps of phi4-mini-3.8b through the DeviceMesh step and without a
+# group (the train phase's batch and optimizer); the barrier words' shapes
+DIST_ARCH, DIST_STEPS = "phi4-mini-3.8b", 3
+DIST_WORD_SHAPES = ((), (3,), (2, 5))
 LOOP_BATCH, LOOP_SEQ = 4, 4096
 LOOP_ARGS = ["--arch", "mamba2-1.3b", "--batch", str(LOOP_BATCH), "--seq", str(LOOP_SEQ), "--sync", "scu",
              "--remat", "full"]  # fmt: skip
@@ -2071,6 +2090,159 @@ def train_through_the_loop(card: str, counters, train_step_ms: list) -> dict:
             "launches_per_step": launches_a[-1]}  # fmt: skip
 
 
+def data_axis_through_nccl(card: str, counters, train_step_ms: list, train_launches: dict) -> dict:
+    """The dist phase (see the module note).  The group, its rendezvous file
+    and the checkpoint directory are gone at the end, failed or not."""
+    import shutil
+    import uuid
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.lm import init_lm
+    from repro_torch.parallel.dist import init_distributed
+    from repro_torch.sync import available_policies, get_policy
+    from repro_torch.sync.axis import MeshAxis
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.optimizer import OptConfig, init_opt_state, tree_leaves, tree_map
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    rendezvous = build / f"dist_rendezvous_{uuid.uuid4().hex[:8]}"
+    ckpt_dir = build / "dist_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = get_config(DIST_ARCH)
+    batch, seq = next((b, s) for arch, b, s in TRAIN_RUNS if arch == DIST_ARCH)
+    tcfg = TrainConfig(sync_strategy="scu", remat_policy="full", param_dtype="bfloat16",
+                       opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))  # fmt: skip
+    want = train_expected_launches(cfg)
+    try:
+        dev = init_distributed("cuda", rank=0, world=1, init_method=f"file://{rendezvous}", timeout=300)
+        mesh = device_mesh({"data": 1, "model": 1}, dev)
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        print(f"[dist] {card}; NCCL {nccl}; backend {dist.get_backend()}, world {dist.get_world_size()}, "
+              f"DeviceMesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=torch.Generator(device=dev).manual_seed(1),
+                               device=dev)  # fmt: skip
+        data = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+        def run(step_mesh):
+            """DIST_STEPS steps from the train phase's params: (params, step,
+            shardings, losses, ms a step, launches a step)."""
+            params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
+            step_fn, (in_sh, _), _, _ = make_train_step(cfg, tcfg, step_mesh)
+            opt_state = init_opt_state(params, None if isinstance(step_mesh, dict) else in_sh[1])
+            step = torch.zeros((), dtype=torch.int32, device=dev)
+            losses, step_ms, launches = [], [], []
+            for _ in range(DIST_STEPS):
+                for counted in counters.values():
+                    counted.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, step, metrics = step_fn(params, opt_state, step, data)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append({name: counters[name].launches for name in want})
+                losses.append(metrics["loss"].item())
+            del opt_state
+            return params, step, in_sh, losses, step_ms, launches
+
+        params_a, _, _, loss_a, ms_a, launches_a = run({"data": 1, "model": 1})
+        host_a = [t.to("cpu", copy=True) for t in tree_leaves(params_a)]
+        del params_a
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params_b, step_b, sh_b, loss_b, ms_b, launches_b = run(mesh)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        params_equal = all(torch.equal(a, b.cpu()) for a, b in zip(host_a, tree_leaves(params_b)))
+        del host_a
+        torch.cuda.empty_cache()
+
+        axis = MeshAxis(mesh, "data")
+        barriers = {}
+        for name in available_policies():
+            for shape in DIST_WORD_SHAPES:
+                words = torch.arange(1, 1 + max(1, torch.Size(shape).numel()), dtype=torch.float32, device=dev)
+                words = (words * 7 % 50).reshape(shape)
+                got = get_policy(name).chip_barrier(words, axis)
+                stacked = get_policy(name).chip_barrier(words[None], "x")[0]
+                barriers[(name, shape)] = bool(torch.equal(got, stacked))
+        torch.cuda.synchronize()
+
+        state = {"params": params_b, "step": step_b}
+        placements = {"params": sh_b[0], "step": sh_b[2]}
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt_dir), DIST_STEPS, state, placements)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in (ckpt_dir / f"step_{DIST_STEPS:09d}").iterdir())
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(str(ckpt_dir), DIST_STEPS, tree_map(lambda t: t.to("meta"), state),
+                                      placements, device=dev)  # fmt: skip
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ckpt_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(restored), tree_leaves(state)))
+        del restored, state, params_b
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+
+    print(f"[dist] {cfg.name} whole ({cfg.n_layers} layers), {batch} x {seq}, bf16, scu, remat full: {DIST_STEPS} "
+          f"steps through the DeviceMesh step, losses {loss_b}; without a group {loss_a}; losses bit-equal "
+          f"{loss_b == loss_a}, params bit-equal {params_equal}")
+    print(f"[dist] step ms (host clock) through the DeviceMesh {[round(t, 1) for t in ms_b]}, without a group "
+          f"{[round(t, 1) for t in ms_a]}, the [train] phase's {[round(t, 1) for t in train_step_ms]}; peak "
+          f"device memory through the DeviceMesh {peak:.2f} GiB; kernel launches a step {launches_b[-1]} "
+          f"(the [train] phase's {train_launches})")
+    print(f"[dist] the seven chip barriers over the data axis through NCCL against the stacked shim at n = 1, "
+          f"shapes {list(DIST_WORD_SHAPES)}: {sum(barriers.values())} of {len(barriers)} equal")
+    print(f"[dist] checkpoint of the params and the step, saved by the group and restored at their placements: "
+          f"{ckpt_bytes} bytes ({ckpt_bytes / 1e9:.2f} GB), save {save_s:.2f} s, restore {restore_s:.2f} s, "
+          f"bit-equal {ckpt_equal}; phase {phase_s:.1f} s")
+    if not (loss_b == loss_a and params_equal):
+        raise SystemExit(f"[dist] the DeviceMesh steps differ from the steps without a group: losses {loss_b} "
+                         f"against {loss_a}, params bit-equal {params_equal}")
+    if any(got != want for got in launches_a + launches_b) or launches_b[-1] != train_launches:
+        raise SystemExit(f"[dist] kernel launches a step {launches_b} (without a group {launches_a}), expected "
+                         f"{want}, the [train] phase's {train_launches}")
+    if not all(barriers.values()):
+        raise SystemExit(f"[dist] chip barriers through NCCL differ from the stacked shim: "
+                         f"{[key for key, ok in barriers.items() if not ok]}")
+    if not ckpt_equal:
+        raise SystemExit("[dist] the checkpoint restored at its placements is not the saved state")
+    return {"model": cfg.name, "losses": loss_b, "losses_without_group": loss_a, "step_ms": ms_b,
+            "step_ms_without_group": ms_a, "peak_gib": peak, "launches_per_step": launches_b[-1],
+            "ckpt_bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s, "phase_s": phase_s, "nccl": nccl}
+
+
+def dist_alone() -> dict:
+    """The dist phase by itself (about 80 s on an H100, K1's two builds
+    included), held to the launches a train step must make in place of the
+    train phase's: ``python3 -c 'import chip_smoke; chip_smoke.dist_alone()'``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.compat import card_name_and_power_limit
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    flash_kernel.build()
+    flash_kernel.build_bwd()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
+                "flash_attention_bwd": flash_kernel.flash_attention_bwd, "ssd_scan_fwd": ssd_kernel.ssd_scan_fwd}
+    want = train_expected_launches(get_config(DIST_ARCH))
+    return data_axis_through_nccl(card_name_and_power_limit(), counters, [], want)
+
+
 def check_train_step_against_plain(cfg, plain, grad_tol: float) -> dict:
     """One float32 train step at ``cfg``'s full width cut to ``F32_STEP_LAYERS``
     layers and ``F32_STEP_LEN`` tokens, through the kernels and through their
@@ -2281,6 +2453,9 @@ def main() -> int:
                                             for name, got in trained.items()}  # fmt: skip
     # the backward runs on the training path only: its launches are a phi4 step's
     k1b["launches"] = k1b["launches_per_train_step"][phi4.name]
+
+    # ---- 5b. dist ------------------------------------------------------------
+    data_axis_through_nccl(card, counters, trained[phi4.name]["step_ms"], trained[phi4.name]["launches_per_step"])
 
     # ---- 6. loop -------------------------------------------------------------
     k2["loop"] = train_through_the_loop(card, counters, trained[mamba2.name]["step_ms"])

@@ -16,6 +16,13 @@ prompt.  On the card the decode step runs as one captured CUDA graph
 (``serve.decode.capture_serve_step``, the reference's ``jax.jit(serve_fn)``),
 and nowhere eagerly; on the CPU it runs eagerly.
 
+Over N processes, one a device (``torchrun``, as ``launch/train.py``), the
+launcher serves data-parallel: ``serve(..., mesh=...)`` splits the batch over
+the data axes of a ``{"data": N, "model": 1}`` ``DeviceMesh``, each process
+prefills and decodes its rows into its block of the cache (placed by
+``serve/decode.py``'s ``cache_specs``), and the tokens are gathered back; only
+rank 0 prints.
+
 ``serve_stream`` is the loop ``serve/batching.py``'s ``ContinuousBatcher``
 was written for: requests are admitted into a fixed set of slots, each prompt
 prefilled alone and staged into its slot, and the one graph decodes every
@@ -30,11 +37,15 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.compat import resolve_device, synchronize, torch_dtype
+from repro_torch.compat import synchronize, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.launch.mesh import device_mesh, make_host_mesh
 from repro_torch.models.lm import init_lm
+from repro_torch.parallel.dist import is_distributed, join_if_launched
+from repro_torch.parallel.sharding import NamedSharding, axis_sizes, batch_spec, check_data_parallel, gather, shard_local
 from repro_torch.serve.batching import ContinuousBatcher, Request
 from repro_torch.serve.decode import SEQ_AXIS, CausalLM, EagerServeStep, capture_serve_step
 
@@ -109,17 +120,29 @@ def make_inputs(
 
 
 def serve(
-    model: CausalLM, inputs: Dict[str, torch.Tensor], gen_len: int, log=print
+    model: CausalLM, inputs: Dict[str, torch.Tensor], gen_len: int, log=print, mesh: Any = None
 ) -> Dict[str, Any]:
     """Prefill ``inputs``, stage the cache, greedy-decode ``gen_len`` tokens.
 
     Returns the prefill's last logits, the generated tokens ``(b, gen_len + 1)``
     (the first comes from the prefill), the last step's logits, both times
-    and the capture's (0 on the CPU).
+    and the capture's (0 on the CPU).  With a ``DeviceMesh`` ``mesh`` (one
+    process a device, every process calling with the same ``inputs``), the
+    batch is split over the mesh's data axes: each process serves its rows
+    into its block of the cache, every process gets all the tokens (an
+    all-gather over the data axes), and the logits are this process's rows.
+    A mesh with ``model > 1`` raises ``NotImplementedError``.
     """
     device = model.device
-    batch, prompt_len = next(iter(inputs.values())).shape[:2]
+    global_batch, prompt_len = next(iter(inputs.values())).shape[:2]
     max_seq = prompt_len + gen_len
+    rows = None
+    if mesh is not None:
+        check_data_parallel(mesh)
+        rows = NamedSharding(mesh, batch_spec(axis_sizes(mesh), extra_dims=1))
+        inputs = {k: shard_local(v, NamedSharding(mesh, batch_spec(axis_sizes(mesh), extra_dims=v.dim() - 1)))
+                  for k, v in inputs.items()}  # fmt: skip
+    batch = next(iter(inputs.values())).shape[0]
 
     synchronize(device)
     t0 = time.perf_counter()
@@ -130,7 +153,7 @@ def serve(
     log(f"[serve] prefill({batch}x{prompt_len}) {prefill_s:.2f}s")
 
     # decode against a max_seq cache, the prefill cache staged into it
-    cache = stage_prefill_cache(prefill_cache, model.init_cache(batch, max_seq), prompt_len)
+    cache = stage_prefill_cache(prefill_cache, model.init_cache(global_batch, max_seq, mesh), prompt_len)
     del prefill_cache
     t0 = time.perf_counter()
     step = decode_step_for(model, cache, batch)
@@ -151,9 +174,11 @@ def serve(
     decode_s = time.perf_counter() - t0
     log(
         f"[serve] decoded {gen_len} tokens x {batch} seqs in {decode_s:.2f}s "
-        f"({gen_len * batch / max(decode_s, 1e-9):.1f} tok/s)"
+        f"({gen_len * batch / max(decode_s, 1e-9):.1f} tok/s)" + (" on each data process" if rows is not None else "")
     )
     tokens = torch.stack(out, dim=1)
+    if rows is not None:
+        tokens = gather(tokens, rows)
     log(f"[serve] sample continuation: {[int(t) for t in tokens[0, :10]]}")
     return {
         "prefill_logits": logits,
@@ -237,18 +262,26 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--layers", type=int, default=None, help="serve only this many layers (default: all)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    params = init_lm(torch.Generator(device=device).manual_seed(0), cfg, torch.bfloat16)
-    model = CausalLM(cfg, params)
-    n_params = sum(t.numel() for t in model.buffers())
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters in bf16 on {device}")
-    inputs = make_inputs(
-        cfg, args.batch, args.prompt_len, torch.Generator(device=device).manual_seed(1)
-    )
-    serve(model, inputs, args.gen)
+    device, joined = join_if_launched(args.device)
+    mesh = None
+    if is_distributed():
+        mesh = device_mesh(make_host_mesh(data=dist.get_world_size(), model=1, device=device), device)
+    log = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
+    try:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        if args.layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        params = init_lm(torch.Generator(device=device).manual_seed(0), cfg, torch.bfloat16)
+        model = CausalLM(cfg, params)
+        n_params = sum(t.numel() for t in model.buffers())
+        log(f"[serve] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters in bf16 on {device}")
+        inputs = make_inputs(
+            cfg, args.batch, args.prompt_len, torch.Generator(device=device).manual_seed(1)
+        )
+        serve(model, inputs, args.gen, log=log, mesh=mesh)
+    finally:
+        if joined and is_distributed():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

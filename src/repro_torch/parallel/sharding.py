@@ -19,24 +19,46 @@ Parallelism layout (as in the reference):
 
 Specs are derived from the parameter tree by path+shape rules (the tree is
 the one ``repro_torch.models.lm.init_lm`` builds); any axis whose size does
-not divide the mesh axis falls back to replication.  Applying the specs
-(``param_shardings``, ``tree_size_bytes`` in the reference) needs more than
-one device and waits for a ``torch.distributed`` backend.
+not divide the mesh axis falls back to replication.
+
+Applying the specs: the spec functions take the ``{axis: size}`` mapping or
+a ``torch.distributed`` ``DeviceMesh`` with named dimensions (one process a
+device, ``repro_torch.launch.mesh.device_mesh``); :func:`axis_sizes` reads
+either.  A placed array is a plain local tensor -- this process's block --
+beside a :class:`NamedSharding` record of (mesh, spec), not a ``DTensor``:
+the kernels take raw pointers and the decode step is a captured CUDA graph,
+which a tensor subclass's dispatch reaches neither of.  ``shard_local`` takes
+this process's block of a whole array at its mesh coordinates, ``gather``
+joins the blocks again, and ``param_shardings`` / ``tree_size_bytes`` are
+the reference's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Callable, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.parallel import dist as pdist
 
 __all__ = [
+    "NamedSharding",
     "Spec",
+    "axis_sizes",
     "batch_spec",
-    "is_spec",
+    "check_data_parallel",
     "dp_axes",
+    "gather",
+    "is_spec",
+    "mesh_coords",
     "model_axis_size",
+    "param_shardings",
     "param_specs",
+    "shard_local",
     "tree_map_with_path",
+    "tree_size_bytes",
     "zero_spec",
 ]
 
@@ -95,12 +117,20 @@ def tree_map_with_path(fn: Callable[..., Any], tree: Any, *rest: Any,
 # ---------------------------------------------------------------------------
 
 
+def axis_sizes(mesh: Any) -> Dict[str, int]:
+    """A mesh as its ``{axis: size}`` mapping: the mapping itself, or a
+    ``DeviceMesh``'s named dimensions in order."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
 def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
-    return tuple(a for a in mesh if a in ("pod", "data"))
+    return tuple(a for a in axis_sizes(mesh) if a in ("pod", "data"))
 
 
 def model_axis_size(mesh: Mesh) -> int:
-    return mesh.get("model", 1)
+    return axis_sizes(mesh).get("model", 1)
 
 
 def _div(n: int, m: int) -> bool:
@@ -199,7 +229,7 @@ def zero_spec(spec: Spec, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
     the first yet-unsharded axis divisible by the DP world size over the data
     axes.  Falls back to the original spec."""
     dp = dp_axes(mesh)
-    dp_size = math.prod(mesh[a] for a in dp)
+    dp_size = math.prod(axis_sizes(mesh)[a] for a in dp)
     if dp_size <= 1:
         return spec
     # already ZeRO/FSDP-sharded somewhere: a mesh axis may appear only once
@@ -215,3 +245,131 @@ def zero_spec(spec: Spec, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
             entries[i] = dp
             return Spec(*entries)
     return spec
+
+
+# ---------------------------------------------------------------------------
+# Placements
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry: Any) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, major to minor (``None`` is none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """``jax.sharding.NamedSharding``: a spec placed on a mesh.
+
+    ``mesh`` is a ``DeviceMesh`` (the placement of a process group) or an
+    ``{axis: size}`` mapping (spec level: every block is named by explicit
+    coordinates).  Dimension ``d`` of an array of ``shape`` is split into
+    ``shape[d] / prod(sizes of its axes)`` blocks; the block a process holds
+    is numbered by its coordinates on those axes, major to minor.
+    """
+
+    mesh: Any
+    spec: Spec
+
+    def _entries(self, ndim: int) -> list:
+        if len(self.spec) > ndim:
+            raise ValueError(f"{self.spec} has more entries than the {ndim} dimensions of the array")
+        return list(self.spec) + [None] * (ndim - len(self.spec))
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of one process's block of an array of ``shape``."""
+        sizes = axis_sizes(self.mesh)
+        out = []
+        for dim, entry in zip(shape, self._entries(len(shape))):
+            n = math.prod(sizes[a] for a in entry_axes(entry))
+            if dim % n:
+                raise ValueError(f"dimension {dim} of {tuple(shape)} does not split over {entry!r} ({n} blocks)")
+            out.append(dim // n)
+        return tuple(out)
+
+    def global_shape(self, shard_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The whole array's shape from the shape of one process's block."""
+        sizes = axis_sizes(self.mesh)
+        return tuple(d * math.prod(sizes[a] for a in entry_axes(e))
+                     for d, e in zip(shard_shape, self._entries(len(shard_shape))))  # fmt: skip
+
+    def index(self, shape: Sequence[int], coords: Optional[Mapping[str, int]] = None) -> Tuple[slice, ...]:
+        """The slices of the block at ``coords`` (``{axis: index}``; default:
+        this process's coordinates on the ``DeviceMesh``) of an array of ``shape``."""
+        if coords is None:
+            coords = dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
+        sizes = axis_sizes(self.mesh)
+        out = []
+        for dim, block, entry in zip(shape, self.shard_shape(shape), self._entries(len(shape))):
+            pos = 0
+            for a in entry_axes(entry):
+                pos = pos * sizes[a] + coords[a]
+            out.append(slice(pos * block, (pos + 1) * block) if block != dim else slice(0, dim))
+        return tuple(out)
+
+    def sharded_axes(self) -> Tuple[str, ...]:
+        """Every mesh axis the spec splits an array over."""
+        return tuple(a for entry in self.spec for a in entry_axes(entry))
+
+
+def mesh_coords(mesh: Any, rank: int) -> Dict[str, int]:
+    """The coordinates ``{axis: index}`` of global ``rank`` on a ``DeviceMesh``."""
+    pos = (mesh.mesh == rank).nonzero()
+    if pos.shape[0] != 1:
+        raise ValueError(f"rank {rank} is not on the mesh {mesh}")
+    return dict(zip(mesh.mesh_dim_names, pos[0].tolist()))
+
+
+def param_shardings(params_tree: Any, mesh: Any, cfg=None) -> Any:
+    """A :class:`NamedSharding` tree over ``mesh`` for ``param_specs``'s tree."""
+    specs = param_specs(params_tree, axis_sizes(mesh), cfg=cfg)
+    return tree_map_with_path(lambda path, s: NamedSharding(mesh, s), specs, is_leaf=is_spec)
+
+
+def tree_size_bytes(tree: Any, shardings: Optional[Any] = None) -> int:
+    """Bytes of the whole (global) arrays of ``tree``.  Its leaves are whole
+    (``meta`` tensors too), or, with ``shardings``, each process's block of
+    an array placed by the sharding at the same path."""
+
+    sizes = []
+
+    def one(path, leaf, *sh):
+        shape = sh[0].global_shape(leaf.shape) if sh else leaf.shape
+        sizes.append(math.prod(shape) * leaf.element_size())
+
+    tree_map_with_path(one, tree, *((shardings,) if shardings is not None else ()))
+    return sum(sizes)
+
+
+def shard_local(x: torch.Tensor, sharding: NamedSharding, coords: Optional[Mapping[str, int]] = None) -> torch.Tensor:
+    """This process's block (or the one at ``coords``) of the whole array ``x``,
+    a contiguous copy: the whole array may be freed after."""
+    return x[sharding.index(tuple(x.shape), coords)].clone(memory_format=torch.contiguous_format)
+
+
+def gather(local: torch.Tensor, sharding: NamedSharding, axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """The whole array from every process's block (``all_gather`` over the
+    axis groups of the ``DeviceMesh``): a new tensor, or ``local`` itself
+    where no dimension is split.  With ``axes``, only the dimensions split
+    over axes among them are joined."""
+    out = local
+    for d, entry in enumerate(sharding._entries(local.dim())):
+        names = entry_axes(entry)
+        if not names or (axes is not None and not set(names) <= set(axes)):
+            continue
+        out = pdist.all_gather(out, d, sharding.mesh, names)
+    return out
+
+
+def check_data_parallel(mesh: Any) -> None:
+    """Raise unless ``mesh`` is data-parallel only: a train or serve step
+    across processes splits the batch over the data axes, and its forward
+    does not split a layer over ``model``."""
+    if model_axis_size(mesh) > 1:
+        raise NotImplementedError(
+            f"mesh {axis_sizes(mesh)}: tensor and expert parallelism of the forward over 'model' is not "
+            "in the port yet (ROADMAP Queue 1 item 5); a train or serve step across processes takes "
+            "model = 1, and nothing is replicated in its place"
+        )

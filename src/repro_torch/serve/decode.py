@@ -19,9 +19,12 @@ graph on static token and position buffers, then replayed once a token.
 :class:`EagerServeStep` is the same interface over the eager step, for the
 CPU.
 
-``cache_specs`` and every ``NamedSharding`` of the JAX module are sharding:
-they wait for the sharding slice.  The factories keep their names and take a
-``device`` where the JAX ones take a mesh.
+``cache_specs`` is the reference's placement of the cache (batch over the
+data axes, sequence or heads over ``model``), and ``init_cache(...,
+mesh=...)`` applies it over a ``DeviceMesh``: each process allocates its own
+block, so that a data-parallel server prefills and decodes its rows of the
+batch (``repro_torch/launch/serve.py``).  The factories keep their names and
+take a ``device`` where the JAX ones take a mesh; their shardings are gone.
 
 Decode attention (``_gqa_decode``, ``_mla_decode``) is einsum + softmax in
 the JAX package, not a Pallas kernel, and is plain PyTorch here; so are the
@@ -55,9 +58,11 @@ from repro_torch.models.layers.basics import (
 from repro_torch.models.layers.moe import moe_apply
 from repro_torch.models.layers.ssm import ssm_decode_step, ssm_state_shapes
 from repro_torch.models.lm import sinusoidal_positions, tree_index
+from repro_torch.parallel.sharding import NamedSharding, Spec, axis_sizes, dp_axes
 
 __all__ = [
     "CausalLM",
+    "cache_specs",
     "EagerServeStep",
     "ServeGraph",
     "cache_shapes",
@@ -124,15 +129,57 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     return out
 
 
-def _alloc(tree, device, fill):
+def cache_specs(cfg: ModelConfig, mesh: Any, batch: int, max_seq: int) -> Any:
+    """Spec tree of the cache: batch over the data axes; seq (or heads) over model.
+
+    Any non-divisible axis falls back to replication (e.g. a single
+    sequence: the batch cannot split over data).  ``mesh`` is an ``{axis:
+    size}`` mapping or a ``DeviceMesh``."""
+    sizes = axis_sizes(mesh)
+    dp_all = dp_axes(sizes)
+    dp_size = 1
+    for a in dp_all:
+        dp_size *= sizes[a]
+    dp = dp_all if (batch % max(dp_size, 1) == 0) else None
+    model = sizes.get("model", 1)
+
+    def spec_for(path_key: str, shape: Tuple[int, ...], stacked: bool) -> Spec:
+        lead = (None,) if stacked else ()
+        body = shape[1:] if stacked else shape
+        if path_key in ("k", "v"):  # (b, S, kvh, hd): seq over model
+            s_ok = body[1] % model == 0
+            return Spec(*lead, dp, "model" if s_ok else None, None, None)
+        if path_key in ("c_kv", "k_r"):  # (b, S, r)
+            s_ok = body[1] % model == 0
+            return Spec(*lead, dp, "model" if s_ok else None, None)
+        if path_key == "ssm":  # (b, H, P, N): heads over model
+            h_ok = body[1] % model == 0
+            return Spec(*lead, dp, "model" if h_ok else None, None, None)
+        if path_key == "conv":  # (b, w, conv_dim)
+            return Spec(*lead, dp, None, None)
+        raise KeyError(path_key)
+
+    def walk(tree, stacked):
+        return {k: walk(v, stacked) if isinstance(v, dict) else spec_for(k, tuple(v.shape), stacked)
+                for k, v in tree.items()}  # fmt: skip
+
+    return {k: walk(v, stacked=(k == "blocks")) for k, v in cache_shapes(cfg, batch, max_seq).items()}
+
+
+def _alloc(tree, device, fill, specs=None, mesh=None):
     if isinstance(tree, dict):
-        return {k: _alloc(v, device, fill) for k, v in tree.items()}
-    return fill(tree.shape, dtype=tree.dtype, device=device)
+        return {k: _alloc(v, device, fill, None if specs is None else specs[k], mesh) for k, v in tree.items()}
+    shape = tree.shape if specs is None else NamedSharding(mesh, specs).shard_shape(tree.shape)
+    return fill(shape, dtype=tree.dtype, device=device)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> Any:
-    """Concrete zero-filled cache on ``device``."""
-    return _alloc(cache_shapes(cfg, batch, max_seq), resolve_device(device), torch.zeros)
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda", mesh: Any = None) -> Any:
+    """Concrete zero-filled cache on ``device``.  With a ``DeviceMesh``
+    ``mesh``, each leaf is this process's block of the cache of ``batch``
+    sequences placed by ``cache_specs``."""
+    shapes = cache_shapes(cfg, batch, max_seq)
+    specs = cache_specs(cfg, mesh, batch, max_seq) if mesh is not None else None
+    return _alloc(shapes, resolve_device(device), torch.zeros, specs, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -536,8 +583,8 @@ class CausalLM(nn.Module):
             self._serve_fns[key] = make_serve_step(self.cfg, *key)
         return self._serve_fns[key](self.params, cache, tokens, position)
 
-    def init_cache(self, batch: int, max_seq: int) -> Any:
-        return init_cache(self.cfg, batch, max_seq, self.device)
+    def init_cache(self, batch: int, max_seq: int, mesh: Any = None) -> Any:
+        return init_cache(self.cfg, batch, max_seq, self.device, mesh)
 
 
 def _cache_len(cache: Any) -> Optional[int]:

@@ -11,9 +11,11 @@ the repo exercises that comparison at three layers:
   (a) the cycle-accurate cluster simulator -- barrier / mutex generator
       *fragments* made of ``Compute``/``Mem``/``Poll``/``Scu`` ops
       (``repro_torch.core.scu``),
-  (b) chip-level barriers -- here over parties stacked on the leading axis
-      of a tensor on one device (``repro_torch.sync.axis``); the ``scu``
-      policy's barrier is the CUDA kernel K3 on a card,
+  (b) chip-level barriers -- over parties stacked on the leading axis of a
+      tensor on one device, or one party a process of a ``torch.distributed``
+      group (``repro_torch.sync.axis``); the ``scu`` policy's barrier is the
+      CUDA kernel K3 on stacked parties on a card, an ``all_reduce`` over
+      processes,
   (c) the training schedule -- how gradients are synchronized and how the
       optimizer state is sharded.
 
@@ -25,7 +27,7 @@ Layer hook signatures (see :class:`SyncPolicy`):
   * ``make_sim_state(n_cores)``            -> per-run shared simulator state
   * ``sim_barrier(cluster, cid, state, cost_model)``      -> op generator
   * ``sim_mutex(cluster, cid, t_crit, state, cost_model)`` -> op generator
-  * ``chip_barrier(arrive, axis)``         -> arrival count, ``(n, *s)``
+  * ``chip_barrier(arrive, axis)``         -> arrival count, shaped as ``arrive``
   * ``shape_gradients(grads, params_shape, mesh, cfg)``   -> shaped grads
   * ``opt_state_specs(params_shape, mesh, cfg)``          -> spec dict
 
@@ -74,7 +76,7 @@ class SyncPolicy(Protocol):
 
     def sim_mutex(self, cluster, cid: int, t_crit: int, state, cost_model=None): ...
 
-    def chip_barrier(self, arrive, axis: str): ...
+    def chip_barrier(self, arrive, axis): ...
 
     def shape_gradients(self, grads, params_shape, mesh, cfg=None): ...
 

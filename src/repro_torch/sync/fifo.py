@@ -1,7 +1,7 @@
 """The producer-consumer event-FIFO discipline (paper Sec. 4.3, SCU FIFO).
 
-Counterpart of ``repro/sync/fifo.py``; the chip level runs over the stacked
-party axis of ``repro_torch.sync.axis``.
+Counterpart of ``repro/sync/fifo.py``; the chip level runs over a party axis
+of ``repro_torch.sync.axis`` (stacked, or one party a process).
 
 The SCU's event FIFO exists precisely for the fine-grain producer-consumer
 chains that pure barriers serve poorly: a producer pushes an 8-bit event the
@@ -32,7 +32,8 @@ discipline shows up at every layer:
     onto the ZeRO shards exactly like ``scu`` (numerically identical), with
     the tensors grouped into pipeline stages handed off in order.  On one
     device there is nothing to hand off (see ``policies``): the leaves come
-    back bit-identical.
+    back bit-identical; over a ``DeviceMesh`` the stages are the
+    reduce-scatters' hand-off order.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from repro_torch.core.scu.engine import Compute, Scu
 from repro_torch.core.scu.primitives import DEFAULT_COSTS
 from repro_torch.sync.api import PolicyDef, register_policy
 from repro_torch.sync.axis import axis_index, axis_size, ppermute
-from repro_torch.sync.policies import zero_opt_state_specs, zero_shape_gradients
+from repro_torch.sync.policies import _no_collectives, _zero_reduce, zero_opt_state_specs, zero_shape_gradients
 
 __all__ = [
     "FIFO",
@@ -276,7 +277,7 @@ def fifo_work_queue_programs(
 # ---------------------------------------------------------------------------
 
 
-def fifo_chip_barrier(arrive: torch.Tensor, axis: str) -> torch.Tensor:
+def fifo_chip_barrier(arrive: torch.Tensor, axis) -> torch.Tensor:
     """Point-to-point pipelined chain: gather along the ring, stream back.
 
     Forward phase (n-1 neighbor hops): party i adds its arrival word to the
@@ -317,12 +318,15 @@ def fifo_shape_gradients(grads, params_shape, mesh, cfg=None):
 
     Gradients reduce-scatter onto the ZeRO shards exactly like the ``scu``
     policy; the tensors are grouped into ``FIFO_PIPELINE_STAGES`` contiguous
-    stages in leaf order, handed off stage after stage (finer than ``tas``'s
-    single sync point, coarser than ``sw``'s per-tensor chain).  On one
-    device there is nothing to hand off: the same leaves come back,
-    bit-identical, and the stages wait for a ``torch.distributed`` backend.
+    stages in leaf order, handed off stage after stage: a stage's collectives
+    are in flight together and waited before the next stage's are issued
+    (finer than ``tas``'s single sync point, coarser than ``sw``'s per-tensor
+    chain).  On one device there is nothing to hand off: the same leaves come
+    back, bit-identical.
     """
-    return zero_shape_gradients(grads, params_shape, mesh, cfg=cfg)
+    if _no_collectives(mesh):
+        return zero_shape_gradients(grads, params_shape, mesh, cfg=cfg)
+    return _zero_reduce(grads, params_shape, mesh, cfg, stages=FIFO_PIPELINE_STAGES)
 
 
 FIFO = register_policy(PolicyDef(

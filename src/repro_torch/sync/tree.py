@@ -1,7 +1,7 @@
 """A fourth discipline: log-depth tree/hierarchical barrier (MemPool-style).
 
-Counterpart of ``repro/sync/tree.py``; the chip level runs over the stacked
-party axis of ``repro_torch.sync.axis``.
+Counterpart of ``repro/sync/tree.py``; the chip level runs over a party axis
+of ``repro_torch.sync.axis`` (stacked, or one party a process).
 
 Proves the ``repro_torch.sync`` extension point: this policy is registered once
 and shows up with zero per-layer special-casing in Table 1, the Fig. 5
@@ -206,7 +206,7 @@ def make_tree_policy(
     )
 
 
-def tree_chip_barrier(arrive: torch.Tensor, axis: str) -> torch.Tensor:
+def tree_chip_barrier(arrive: torch.Tensor, axis) -> torch.Tensor:
     """Butterfly exchange: log2(n) pairwise rounds, partner = idx XOR 2**k.
 
     At round k every party holds the sum of its 2**k-aligned block; the XOR

@@ -18,10 +18,19 @@ so that either package reads the other's checkpoints:
 
 A tensor is saved as the JAX function saves a ``jax.Array`` on one device:
 one shard, slot 0, whose index spans the whole shape.  A numpy array or a
-Python number is saved as there too, with the index ``null``.  On one device
-there is nothing to re-shard: ``restore_checkpoint`` accepts the port's spec
-trees as ``shardings``, applies none of them, and places every leaf on one
-``device``.
+Python number is saved as there too, with the index ``null``.
+
+In a ``torch.distributed`` group (one process a device) a save takes the
+tree's ``shardings`` (``repro_torch.parallel.sharding.NamedSharding`` trees
+over a ``DeviceMesh``, the leaves being each process's block): rank 0
+gathers every rank's block of a leaf and writes one slot a rank, in rank
+order, with the block's index -- what a sharded JAX run writes from its
+``addressable_shards`` on one host, duplicates of a replicated leaf
+included.  Rank 0 alone writes and commits; the others wait for the commit.
+``restore_checkpoint`` reassembles each array whole from its slots (so any
+topology's checkpoint restores) and, given ``NamedSharding`` trees as
+``shardings``, keeps only this process's block; spec trees (one device)
+place nothing, and every leaf goes to one ``device``.
 
 ``CheckpointManager.save`` snapshots the tree into host memory with a real
 copy of every tensor before it returns, then writes on a background thread.
@@ -43,9 +52,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.compat import resolve_device
-from repro_torch.train.optimizer import tree_map
+from repro_torch.parallel.dist import is_distributed
+from repro_torch.parallel.sharding import NamedSharding, mesh_coords
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager"]
 
@@ -101,8 +112,54 @@ def _unflatten_like(target: Any, leaves: Dict[str, Any], prefix: str = "") -> An
             for key, value in target.items()}  # fmt: skip
 
 
-def save_checkpoint(directory: str, step: int, tree: Any) -> Path:
-    """Atomic save.  Returns the committed directory."""
+class _Shards:
+    """A leaf gathered from a process group: its whole shape and every rank's
+    block in host memory, in rank order, each with its index ``[[start, stop], ...]``."""
+
+    def __init__(self, shape, pieces):
+        self.shape, self.pieces = tuple(shape), pieces
+
+
+def _rank() -> int:
+    return dist.get_rank() if is_distributed() else 0
+
+
+def _gather_leaf(leaf: Any, sharding: Any) -> Optional[_Shards]:
+    """Every rank's block of ``leaf`` placed by ``sharding``, on rank 0 (None
+    elsewhere): a ``dist.gather`` of the blocks, then a copy to host memory."""
+    x = leaf.detach().contiguous()
+    blocks = [torch.empty_like(x) for _ in range(dist.get_world_size())] if _rank() == 0 else None
+    dist.gather(x, blocks, dst=0)
+    if blocks is None:
+        return None
+    shape = sharding.global_shape(x.shape)
+    pieces = []
+    for r, block in enumerate(blocks):
+        index = sharding.index(shape, mesh_coords(sharding.mesh, r))
+        pieces.append(([[sl.start, sl.stop] for sl in index], block.to("cpu", copy=True)))
+    del blocks
+    return _Shards(shape, pieces)
+
+
+def _snapshot(tree: Any, shardings: Optional[Any]) -> Optional[Dict[str, Any]]:
+    """``{path: leaf}`` of ``tree`` in host memory, a copy of every tensor.  In
+    a process group: on rank 0 only (None elsewhere), each leaf placed by a
+    ``NamedSharding`` of ``shardings`` gathered from every rank (collective:
+    every rank calls this in the same order)."""
+    flat_sh = _flatten_with_paths(shardings) if shardings is not None else {}
+    writer = _rank() == 0
+    out: Dict[str, Any] = {}
+    for key, leaf in _flatten_with_paths(tree).items():
+        sharding = flat_sh.get(key)
+        if is_distributed() and isinstance(sharding, NamedSharding) and isinstance(leaf, torch.Tensor):
+            out[key] = _gather_leaf(leaf, sharding)
+        elif writer:
+            out[key] = _host_copy(leaf)
+    return out if writer else None
+
+
+def _write(directory: str, step: int, flat: Dict[str, Any]) -> Path:
+    """Write a snapshot and commit it atomically.  Returns the committed directory."""
     base = Path(directory)
     base.mkdir(parents=True, exist_ok=True)
     tmp = base / f"step_{step:09d}.tmp_{uuid.uuid4().hex[:8]}"
@@ -111,7 +168,14 @@ def save_checkpoint(directory: str, step: int, tree: Any) -> Path:
 
     index: Dict[str, Any] = {"step": step, "arrays": {}}
     payload: Dict[str, np.ndarray] = {}
-    for key, leaf in _flatten_with_paths(tree).items():
+    for key, leaf in flat.items():
+        if isinstance(leaf, _Shards):
+            slots = []
+            for slot, (shard_index, block) in enumerate(leaf.pieces):
+                payload[f"{key}@@{slot}"], dname = _encode(block)
+                slots.append({"slot": slot, "index": shard_index})
+            index["arrays"][key] = {"shape": list(leaf.shape), "dtype": dname, "shards": slots}
+            continue
         enc, dname = _encode(leaf)
         payload[f"{key}@@0"] = enc
         shape = list(enc.shape)
@@ -121,6 +185,19 @@ def save_checkpoint(directory: str, step: int, tree: Any) -> Path:
     np.savez(tmp / "host_0.npz", **payload)
     (tmp / "index.json").write_text(json.dumps(index))
     os.replace(tmp, final)  # atomic commit
+    return final
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, shardings: Optional[Any] = None) -> Path:
+    """Atomic save.  Returns the committed directory.  In a process group
+    every rank calls it (see the module note): rank 0 writes, and every rank
+    returns once the step is committed."""
+    flat = _snapshot(tree, shardings)
+    final = Path(directory) / f"step_{step:09d}"
+    if flat is not None:
+        final = _write(directory, step, flat)
+    if is_distributed():
+        dist.barrier()
     return final
 
 
@@ -148,12 +225,14 @@ def restore_checkpoint(
     included: only its structure is read), every leaf on ``device``.
 
     The data is reassembled whole from its shards, so a checkpoint written
-    by a sharded JAX run restores here too.  ``shardings`` (spec trees) is
-    accepted and, on one device, applied to nothing.
+    by a sharded JAX run restores here too.  A leaf whose ``shardings`` entry
+    is a ``NamedSharding`` keeps only this process's block of it; spec trees
+    (one device) are accepted and applied to nothing.
     """
     device = resolve_device(device)
     base = Path(directory) / f"step_{step:09d}"
     index = json.loads((base / "index.json").read_text())
+    flat_sh = _flatten_with_paths(shardings) if shardings is not None else {}
 
     restored: Dict[str, torch.Tensor] = {}
     with np.load(base / "host_0.npz") as data:
@@ -167,6 +246,9 @@ def restore_checkpoint(
                 full = np.zeros(shape, pieces[0][1].dtype)
                 for idx, piece in pieces:
                     full[tuple(slice(a, b) for a, b in idx)] = piece
+            sharding = flat_sh.get(key)
+            if isinstance(sharding, NamedSharding) and shape:
+                full = np.ascontiguousarray(full[sharding.index(shape)])
             restored[key] = _decode(full, name).to(device)
             del full, pieces
     return _unflatten_like(target, restored)
@@ -188,18 +270,24 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
-    def save(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, shardings: Optional[Any] = None) -> None:
+        """Snapshot ``tree`` now (in a process group: every rank, gathering
+        the blocks of each leaf ``shardings`` places onto rank 0) and write it
+        on a background thread (rank 0)."""
         # snapshot to host memory synchronously, a copy of every tensor: the
         # next step updates the optimizer state in place
         t0 = time.perf_counter()
-        host_tree = tree_map(_host_copy, tree)
+        flat = _snapshot(tree, shardings)
         self.snapshot_s = time.perf_counter() - t0
-        self.wait()
+        self._join()
+        self._raise()
+        if flat is None:  # not the writing rank
+            return
 
         def work():
             t0 = time.perf_counter()
             try:
-                save_checkpoint(self.directory, step, host_tree)
+                _write(self.directory, step, flat)
                 self._gc()
             except Exception as err:  # raised again by wait()
                 self._error = err
@@ -213,11 +301,17 @@ class CheckpointManager:
             self._raise()
 
     def wait(self) -> None:
-        """Wait for the write in flight; raise what it raised."""
+        """Wait for the write in flight; raise what it raised.  In a process
+        group every rank calls it and returns once rank 0's write is committed."""
+        self._join()
+        if is_distributed():
+            dist.barrier()
+        self._raise()
+
+    def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        self._raise()
 
     def _raise(self) -> None:
         if self._error is not None:

@@ -16,20 +16,30 @@ storage), so the state is never held twice on the device.  Batches come from
 ``batch_fn`` as host numpy arrays and are moved to the device here, token
 ids as int64.  The step updates the optimizer state in place; the
 checkpoint manager snapshots a copy before the next step runs.
+
+Over a ``DeviceMesh`` (one process a device, ``repro_torch.train.step``)
+every process runs this loop: ``batch_fn(i)`` is the global batch, and each
+process takes its rows ``[r b, (r + 1) b)`` of it by the batch's placement,
+as the reference's batch sharding splits it; the state is initialised or
+restored at the step's placements; a checkpoint gathers onto rank 0, which
+writes it; only rank 0 prints.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.compat import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import init_lm
+from repro_torch.parallel.dist import is_distributed
+from repro_torch.parallel.sharding import shard_local
 from repro_torch.train.checkpoint import CheckpointManager, latest_step, restore_checkpoint
 from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.step import TrainConfig, make_train_step
@@ -47,14 +57,14 @@ class TrainerConfig:
     step_timeout_s: float = 3600.0
 
 
-def _device_batch(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+def _device_batch(batch: Dict[str, np.ndarray], device: torch.device, shardings=None) -> Dict[str, torch.Tensor]:
     """A host batch on ``device``: integer arrays (token ids, labels) as
-    int64, the index type of the embedding lookup; others as they are."""
-    out = {}
-    for key, value in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(value))
-        out[key] = t.to(device) if t.is_floating_point() else t.to(device, torch.int64)
-    return out
+    int64, the index type of the embedding lookup; others as they are.  With
+    ``shardings`` (the step's ``batch_shardings``), this process's rows only."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    if shardings is not None:
+        out = {k: shard_local(v, s) for (k, v), s in zip(out.items(), shardings(out).values())}
+    return {k: t.to(device) if t.is_floating_point() else t.to(device, torch.int64) for k, t in out.items()}
 
 
 def train(
@@ -68,23 +78,21 @@ def train(
 ):
     """Run the training loop; returns (params, opt_state, metrics history)."""
     device = resolve_device(device)
-    step_fn, (in_specs, _), _, params_sds = make_train_step(cfg, tcfg, mesh)
+    step_fn, (in_sh, batch_sh), _, params_sds = make_train_step(cfg, tcfg, mesh)
+    placed = not isinstance(mesh, Mapping)
+    state_sh = {"params": in_sh[0], "opt": in_sh[1], "step": in_sh[2]}
+    lead = not is_distributed() or dist.get_rank() == 0
 
     start = 0
     if trainer.ckpt_dir and (ls := latest_step(trainer.ckpt_dir)) is not None:
-        print(f"[train] resuming from step {ls}")
+        if lead:
+            print(f"[train] resuming from step {ls}")
         state_target = {
             "params": params_sds,
             "opt": init_opt_state(params_sds),
             "step": torch.zeros((), dtype=torch.int32, device="meta"),
         }
-        restored = restore_checkpoint(
-            trainer.ckpt_dir,
-            ls,
-            state_target,
-            {"params": in_specs[0], "opt": in_specs[1], "step": in_specs[2]},
-            device=device,
-        )
+        restored = restore_checkpoint(trainer.ckpt_dir, ls, state_target, state_sh, device=device)
         params, opt_state = restored["params"], restored["opt"]
         start = int(restored["step"])
         # the restored params are replaced by the first step's: no other
@@ -93,14 +101,14 @@ def train(
     else:
         gen = torch.Generator(device).manual_seed(trainer.seed)
         params = init_lm(gen, cfg, torch_dtype(tcfg.param_dtype))
-        opt_state = init_opt_state(params)
+        opt_state = init_opt_state(params, in_sh[1] if placed else None)
 
     ckpt = CheckpointManager(trainer.ckpt_dir) if trainer.ckpt_dir else None
     history = []
     step = torch.tensor(start, dtype=torch.int32, device=device)
     for i in range(start, trainer.steps):
         t0 = time.perf_counter()
-        batch = _device_batch(batch_fn(i), device)
+        batch = _device_batch(batch_fn(i), device, batch_sh if placed else None)
         params, opt_state, step, metrics = step_fn(params, opt_state, step, batch)
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics["step_time_s"] = time.perf_counter() - t0
@@ -112,14 +120,14 @@ def train(
         history.append(metrics)
         if on_metrics:
             on_metrics(i, metrics)
-        if trainer.log_every and i % trainer.log_every == 0:
+        if lead and trainer.log_every and i % trainer.log_every == 0:
             print(
                 f"[train] step {i:5d} loss {metrics['loss']:.4f} "
                 f"gnorm {metrics['grad_norm']:.3f} "
                 f"({metrics['step_time_s']*1e3:.0f} ms)"
             )
         if ckpt and (i + 1) % trainer.ckpt_every == 0:
-            ckpt.save(i + 1, {"params": params, "opt": opt_state, "step": step})
+            ckpt.save(i + 1, {"params": params, "opt": opt_state, "step": step}, state_sh if placed else None)
     if ckpt:
         ckpt.wait()
     return params, opt_state, history

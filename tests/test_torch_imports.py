@@ -68,6 +68,22 @@ assert traced["cycles"] > 16 and (traced["finished_at"] >= 0).all()
 chained = repro_torch.core.scu.trace_exec.run_traces_torch(
     repro_torch.core.scu.programs.trace_chain_programs("tree", 4, 5, 3), n_banks=8, device="cpu")
 assert chained["cycles"] > 6 * 5 and (chained["finished_at"] >= 0).all()
+import repro_torch.parallel.dist, repro_torch.sync.axis
+import tests._torch_dist
+from repro_torch.launch.mesh import device_mesh
+with tempfile.TemporaryDirectory() as rendezvous:
+    repro_torch.parallel.dist.init_distributed("cpu", rank=0, world=1, init_method=f"file://{rendezvous}/pg")
+    mesh = device_mesh({"data": 1, "model": 1}, "cpu")
+    axis = repro_torch.sync.axis.MeshAxis(mesh, "data")
+    for name in repro_torch.sync.available_policies():
+        assert float(repro_torch.sync.get_policy(name).chip_barrier(torch.tensor(3.0), axis)) == 3.0
+    step_fn, _, _, _ = repro_torch.train.step.make_train_step(cfg, tcfg, mesh)
+    params = init_lm(torch.Generator().manual_seed(0), cfg, torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    state = (params, repro_torch.train.optimizer.init_opt_state(params), torch.tensor(0, dtype=torch.int32))
+    _, _, step, metrics = step_fn(*state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    assert int(step) == 1 and bool(torch.isfinite(metrics["loss"]))
+    torch.distributed.destroy_process_group()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 print("PROBE-OK")
@@ -75,7 +91,9 @@ print("PROBE-OK")
 
 
 def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread: the suite's workers hold the cores, and a probe spinning a
+    # thread a core of its own beside them runs many times slower than alone
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE], env=env, cwd=ROOT, capture_output=True, text=True, timeout=300
     )
@@ -89,7 +107,7 @@ def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
 
 def test_no_import_statement_names_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from) (jax|repro|ml_dtypes)(\.|\s|$)", re.M)
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"]
     assert len(files) > 15
     for path in files:
         assert not pattern.search(path.read_text()), path
