@@ -123,6 +123,39 @@ non-zero exit if it fails:
             restored with their placements, bit-equal (under ``build/``,
             removed after).  Prints the NCCL version, ms a step beside the
             train phase's, the checkpoint's seconds and the phase's.
+5c. model:  serving over the ``model`` axis: two processes share the card
+            on ``{"data": 1, "model": 2}``.  Each first asks for the NCCL
+            group that ``init_distributed`` takes for a card; NCCL refuses two
+            ranks on one device, and the refusal is printed.  So they join an
+            explicit ``gloo`` group over CUDA tensors (the path's collectives
+            are all ``all_reduce``), the kernels already built here.  Each
+            draws every model leaf by leaf and keeps its ``param_shardings``
+            block, and serves through ``serve(..., mesh=...)`` with the eager
+            step (a ``gloo`` group's collectives cannot be captured in a
+            graph).  phi4-mini-3.8b (12 of 24 q heads and 4 of 8 kv heads a
+            rank, the 200,064-row vocabulary split), mamba2-1.3b (32 of 64
+            SSD heads, the split gated norm) and deepseek-v2-lite-16b (MLA at
+            (192, 128), 8 of 16 heads, 32 of 64 experts a rank, the shared
+            experts and the dense first layer split): (a) float32 at a cut
+            depth (phi4 2 layers, mamba2 and deepseek 4; 2 x 512, 4 eager
+            steps) through the kernels, the routing pinned to the model = 1
+            run's, against the same params served at model = 1 here through
+            the plain versions (no kernel launched): logits within 1e-4 of
+            the largest one, the same tokens, and at most 1 % of the
+            router's own top-k sets at model = 2 otherwise than model = 1's;
+            (b) bf16 at full width and depth on the serve phase's request
+            (4 x 4096, 32 eager steps): prefill s, ms a step, peak GiB and
+            params held by rank, and the tokens' agreement with the serve
+            phase's model = 1 run (printed, not checked: two bf16 partial
+            sums round otherwise).  Checks that every rank launched K1 once
+            a prefill for each attention layer and K2 for each SSD layer on
+            its local heads (counts set to 0 just before, read just after),
+            and that the logits are finite and the tokens in the
+            vocabulary.  Then, back in this process, K1 and K2 are held to
+            their plain versions and timed (beside SDPA and the bound) at
+            the shapes and types the ranks handed them in (b): phi4's 12 /
+            4 heads, deepseek's 8 MLA heads at (192, 128), mamba2's 32 SSD
+            heads, at 4 x 4096.
 6. loop:    the training loop, the checkpoint and the data pipeline
             (``repro_torch.launch.train``'s objects, ``train/loop.py``,
             ``train/checkpoint.py``, ``train/data.py``): mamba2-1.3b whole
@@ -167,8 +200,10 @@ non-zero exit if it fails:
             replays, capture s, and the CPU's us a cycle at 8 lanes.  No
             kernel launches in this phase (every count set to 0 just before,
             read just after).
-9. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5), the
-            card line, and the last line ``{"ok": true, "device": {...}}``.
+9. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5; K1
+            and K2 with, under ``model_axis``, each model's launches by rank
+            at model = 2 and the check and times at a rank's shape), the card line,
+            and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -295,6 +330,22 @@ F32_STEP_LAYERS, F32_STEP_LEN = 4, 512
 # group (the train phase's batch and optimizer); the barrier words' shapes
 DIST_ARCH, DIST_STEPS = "phi4-mini-3.8b", 3
 DIST_WORD_SHAPES = ((), (3,), (2, 5))
+# the model phase: two processes share the card in a gloo group over CUDA tensors
+# (NCCL refuses two ranks on one device) on {"data": 1, "model": 2}.  Its models; each
+# one's float32 check at (layers, prompt), MODEL_F32_BATCH prompts and MODEL_F32_GEN
+# eager steps, against the same params served at model = 1, the logits within
+# MODEL_TOL of the largest one (float32 sums in another order: the row-split
+# projections' partial sums, the softmax combined across sequence blocks); then each
+# at full width and depth in bf16 on the serve phase's request (BATCH x PROMPT_LEN,
+# GEN eager steps)
+MODEL_ARCHS = ("phi4-mini-3.8b", "mamba2-1.3b", "deepseek-v2-lite-16b")
+MODEL_F32 = {"phi4-mini-3.8b": (2, 512), "mamba2-1.3b": (4, 512), "deepseek-v2-lite-16b": (4, 512)}
+MODEL_F32_BATCH, MODEL_F32_GEN = 2, 4
+MODEL_TOL = 1e-4
+# the share of (token, layer) top-k sets that the router at model = 2 may choose
+# otherwise than model = 1's (near-ties; a fault in routing across the split shows as many)
+MODEL_ROUTING_DIFFER = 0.01
+MODEL_RANKS, MODEL_TIMEOUT_S = 2, 400
 LOOP_BATCH, LOOP_SEQ = 4, 4096
 LOOP_ARGS = ["--arch", "mamba2-1.3b", "--batch", str(LOOP_BATCH), "--seq", str(LOOP_SEQ), "--sync", "scu",
              "--remat", "full"]  # fmt: skip
@@ -380,6 +431,67 @@ def ssd_bound(b, s, h, p, n, chunk, dtype_name):
     return bound(nbytes, ssd_flops(b, s, h, p, n, chunk), dtype_name)
 
 
+def attention_at_shape(gen, b, s, h, kvh, d, with_plain, dv=None, tag="[kernels]") -> dict:
+    """K1 through ``ops.flash_attention`` on the models' (b, s, h, d) layout,
+    bf16, causal, on inputs drawn from ``gen``: checked against the plain
+    version, then timed beside it, one SDPA call and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, kernel_path
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
+
+    def draw(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32).to(dtype)
+
+    dv = d if dv is None else dv
+    q = draw(b, s, h, d, dtype=torch.bfloat16)
+    k = draw(b, s, kvh, d, dtype=torch.bfloat16)
+    v = draw(b, s, kvh, dv, dtype=torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = flash_attention(q, k, v, causal=True)
+    _, lse = flash_attention_fwd(qt, kt, vt, causal=True)
+    torch.cuda.synchronize()
+    # the plain version a sequence at a time: its float32 scores of all b at
+    # command-r's 96 heads would take 26 GB
+    rows = range(b)
+    ref = torch.cat([attention_ref(qt[i : i + 1], kt[i : i + 1], vt[i : i + 1], causal=True) for i in rows])
+    ref = ref.transpose(1, 2)
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_lse = torch.cat([attention_ref_lse(qt[i : i + 1], kt[i : i + 1], causal=True) for i in rows])
+    lse_err = (lse - ref_lse).abs().max().item()
+    tol = KERNEL_TOL["bfloat16"]
+    dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
+    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) or not lse_err <= 2e-3:
+        raise SystemExit(f"flash_attention disagrees at b={b} s={s} h={h} kvh={kvh} {dims}: {err}, lse {lse_err}")
+    del ref
+    row = {"path": kernel_path(torch.bfloat16, d, dv), "max_abs_err": err,
+           "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)}
+    row["plain_ms"] = (time_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=3, warmup=1)
+                       if with_plain else None)
+    # the yardstick: one library call for the same function; the port never calls it.
+    # SDPA takes dv != dqk on some of its backends; where none does, there is no such call.
+    try:
+        row["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    except RuntimeError as refused:
+        if dv == d:
+            raise
+        print(f"{tag} SDPA refuses dqk={d} dv={dv}: {str(refused).splitlines()[0]}")
+        row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = attention_bound(b, h, kvh, s, s, d, True, "bfloat16", dv)
+    flops = attention_flops(b, h, s, s, d, dv, True)
+    plain = f"plain {row['plain_ms']:.3f} ms, " if with_plain else ""
+    library = ("none" if row["library_ms"] is None else
+               f"{row['library_ms']:.3f} ms ({row['ms'] / row['library_ms']:.2f}x)")
+    print(f"{tag} flash_attention_fwd b={b} s={s} h={h} kvh={kvh} {dims} bf16 causal, {row['path']} path: "
+          f"max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}; kernel {row['ms']:.3f} ms "
+          f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, {row['bound_ms'] / row['ms'] * 100:.0f} % of the bound's "
+          f"rate), {plain}library (SDPA) {library}, bound {row['bound_ms']:.3f} ms by {row['bound_by']}")
+    return row
+
+
 def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg, group_cfgs) -> dict:
     """Phase 3 for K1, the flash-attention forward.  Returns its entry of the
     kernels line: timed at ``cfg``'s serving shape, musicgen's heads,
@@ -387,10 +499,8 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg, group_cfgs) -
     to its plain version and timed at each of ``group_cfgs``' prefill shapes
     (llava's 7 and command-r's 12 q heads a kv head)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, kernel_path
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
 
     dev = torch.device("cuda")
@@ -421,55 +531,7 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg, group_cfgs) -
                 raise SystemExit(f"flash_attention_fwd lse disagrees: {lse_err}")
 
     def at_full_size(b, h, kvh, d, with_plain, dv=None):
-        """The kernel through ``ops.flash_attention`` on the models' (b, s, h, d)
-        layout at the serving request's length: checked against the plain
-        version, then timed beside it, one SDPA call and the bound."""
-        s = prompt_len
-        dv = d if dv is None else dv
-        q = draw(b, s, h, d, dtype=torch.bfloat16)
-        k = draw(b, s, kvh, d, dtype=torch.bfloat16)
-        v = draw(b, s, kvh, dv, dtype=torch.bfloat16)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        out = flash_attention(q, k, v, causal=True)
-        _, lse = flash_attention_fwd(qt, kt, vt, causal=True)
-        torch.cuda.synchronize()
-        # the plain version a sequence at a time: its float32 scores of all b at
-        # command-r's 96 heads would take 26 GB
-        rows = range(b)
-        ref = torch.cat([attention_ref(qt[i : i + 1], kt[i : i + 1], vt[i : i + 1], causal=True) for i in rows])
-        ref = ref.transpose(1, 2)
-        err = (out.float() - ref.float()).abs().max().item()
-        ref_lse = torch.cat([attention_ref_lse(qt[i : i + 1], kt[i : i + 1], causal=True) for i in rows])
-        lse_err = (lse - ref_lse).abs().max().item()
-        tol = KERNEL_TOL["bfloat16"]
-        dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
-        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) or not lse_err <= 2e-3:
-            raise SystemExit(f"flash_attention disagrees at b={b} s={s} h={h} kvh={kvh} {dims}: {err}, lse {lse_err}")
-        del ref
-        row = {"path": kernel_path(torch.bfloat16, d, dv), "max_abs_err": err,
-               "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)}
-        row["plain_ms"] = (time_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=3, warmup=1)
-                           if with_plain else None)
-        # the yardstick: one library call for the same function; the port never calls it.
-        # SDPA takes dv != dqk on some of its backends; where none does, there is no such call.
-        try:
-            row["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-        except RuntimeError as refused:
-            if dv == d:
-                raise
-            print(f"[kernels] SDPA refuses dqk={d} dv={dv}: {str(refused).splitlines()[0]}")
-            row["library_ms"] = None
-        row["bound_ms"], row["bound_by"] = attention_bound(b, h, kvh, s, s, d, True, "bfloat16", dv)
-        flops = attention_flops(b, h, s, s, d, dv, True)
-        plain = f"plain {row['plain_ms']:.3f} ms, " if with_plain else ""
-        library = ("none" if row["library_ms"] is None else
-                   f"{row['library_ms']:.3f} ms ({row['ms'] / row['library_ms']:.2f}x)")
-        print(f"[kernels] flash_attention_fwd b={b} s={s} h={h} kvh={kvh} {dims} bf16 causal, {row['path']} path: "
-              f"max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}; kernel {row['ms']:.3f} ms "
-              f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, {row['bound_ms'] / row['ms'] * 100:.0f} % of the bound's "
-              f"rate), {plain}library (SDPA) {library}, bound {row['bound_ms']:.3f} ms by {row['bound_by']}")
-        return row
+        return attention_at_shape(gen, b, prompt_len, h, kvh, d, with_plain, dv)
 
     # the shape the serving path gives it, then musicgen's heads at the same length,
     # deepseek's MLA pair (its prefill's shape) and stablelm's head dim 80
@@ -502,40 +564,89 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg, group_cfgs) -
     }
 
 
-def check_ssd_kernel(prompt_len: int, cfg) -> dict:
-    """Phase 3 for K2, the SSD chunked scan.  Returns its entry of the kernels line."""
+def ssd_inputs(gen, b, s, h, p, n, x_dtype, dt_dtype):
+    """K2's inputs drawn from ``gen`` as tests/test_kernels.py draws them."""
     import torch
     import torch.nn.functional as F
+
+    def draw(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+    return (draw(b, s, h, p, scale=0.5, dtype=x_dtype),
+            F.softplus(draw(b, s, h)).to(dt_dtype),
+            -torch.exp(draw(h, scale=0.3)),
+            draw(b, s, n, scale=0.3, dtype=x_dtype),
+            draw(b, s, n, scale=0.3, dtype=x_dtype))  # fmt: skip
+
+
+def ssd_ref32(x, dt, A, B, C, chunk):
+    """K2's plain version on the same values widened to float32."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    return ssd_scan_ref(x.float(), dt.float(), A, B.float(), C.float(), chunk=chunk)
+
+
+def ssd_at_shape(gen, b, s, h, p, n, chunk, tag="[kernels]"):
+    """K2 at a serving path's shape (x, B, C bf16 from the conv, dt f32 from
+    the softplus), on inputs drawn from ``gen``: checked against its plain
+    version, then timed beside it and the bound.  Bound and TFLOP/s count the
+    products at the kernel's own tile, the chunk it walks.  Returns (form,
+    max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    import torch
 
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
+    limit = ssd_kernel.cluster_limit(p, n, 0)
+    form = ssd_kernel.scan_form(b, h, s, chunk, p, n, limit)
+    x, dt, A, B, C = ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, torch.float32)
+    y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    ry, rst = ssd_ref32(x, dt, A, B, C, chunk)
+    scale = ry.abs().max().item()
+    err = (y.float() - ry).abs().max().item()
+    rel = ((y.float() - ry).abs() / (1 + ry.abs())).max().item()
+    floor = (ry.to(torch.bfloat16).float() - ry).abs().max().item()
+    st_err = (st - rst).abs().max().item()
+    print(f"{tag} ssd_scan_fwd at the serving shape b={b} s={s} h={h} p={p} n={n} g=1 chunk={chunk} "
+          f"(x, B, C bf16, dt f32), form {form.name} (CTAs a (batch, head): {form.cluster}; the card's "
+          f"cluster limit {limit}): y max_abs_err {err:.3e} (max |y| {scale:.3f}; rounding y to bf16 alone "
+          f"{floor:.3e}), err/(1+|y|) {rel:.3e}, final_state max_abs_err {st_err:.3e} (max |state| "
+          f"{rst.abs().max().item():.3f})")
+    if not (err <= 3e-2 * max(1.0, scale) and st_err <= 3e-4 * max(1.0, rst.abs().max().item())):
+        raise SystemExit(f"ssd_scan_fwd disagrees with ssd_scan_ref at the serving shape b={b}")
+    if rel > SSD_TOL["bfloat16"] / 2:
+        raise SystemExit(f"ssd_scan_fwd bf16 error {rel} at the serving shape b={b} is above half the tolerance")
+    del ry, rst
+    ms = time_ms(lambda: ssd_scan_fwd(x, dt, A, B, C, chunk=chunk), iters=20)
+    plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, chunk=chunk), iters=3, warmup=1)
+    bound_ms, bound_by = ssd_bound(b, s, h, p, n, ssd_kernel.TILE, "bfloat16")
+    flops = ssd_flops(b, s, h, p, n, ssd_kernel.TILE)
+    print(f"{tag} ssd_scan_fwd at the serving shape b={b}, form {form.name}: kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP at the tile of {ssd_kernel.TILE}, "
+          f"{bound_ms / ms * 100:.1f} % of the bound's rate), plain {plain_ms:.3f} ms, library none (no "
+          f"PyTorch call computes the SSD scan), bound {bound_ms:.4f} ms by {bound_by}")
+    return form, err, ms, plain_ms, bound_ms, bound_by
+
+
+def check_ssd_kernel(prompt_len: int, cfg) -> dict:
+    """Phase 3 for K2, the SSD chunked scan.  Returns its entry of the kernels line."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-
-    def draw(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
-
-    def inputs(b, s, h, p, n, x_dtype, dt_dtype):
-        """Drawn as tests/test_kernels.py draws them."""
-        return (draw(b, s, h, p, scale=0.5, dtype=x_dtype),
-                F.softplus(draw(b, s, h)).to(dt_dtype),
-                -torch.exp(draw(h, scale=0.3)),
-                draw(b, s, n, scale=0.3, dtype=x_dtype),
-                draw(b, s, n, scale=0.3, dtype=x_dtype))  # fmt: skip
-
-    def ref32(x, dt, A, B, C, chunk):
-        """The plain version on the same values widened to float32."""
-        return ssd_scan_ref(x.float(), dt.float(), A, B.float(), C.float(), chunk=chunk)
 
     worst_bf16 = 0.0
     for b, s, h, p, n, chunk in SSD_SHAPES:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            x, dt, A, B, C = inputs(b, s, h, p, n, dtype, dtype)
+            x, dt, A, B, C = ssd_inputs(gen, b, s, h, p, n, dtype, dtype)
             y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
             torch.cuda.synchronize()
-            ry, rst = ref32(x, dt, A, B, C, chunk)
+            ry, rst = ssd_ref32(x, dt, A, B, C, chunk)
             err = (y.float() - ry).abs().max().item()
             rel = ((y.float() - ry).abs() / (1 + ry.abs())).max().item()  # in units of the tolerance's
             floor = (ry.to(dtype).float() - ry).abs().max().item()  # rounding y to the output type alone
@@ -557,56 +668,22 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
     print(f"[kernels] ssd_scan_fwd largest bf16 error at the test shapes: {worst_bf16:.3e} of 3e-2 "
           "(|kernel - plain| / (1 + |plain|), the tolerance's own measure)")
 
-    # the shapes the serving path gives it: x, B, C bf16 from the conv, dt f32
-    # from the softplus; the batch of prompts (b h = 256 pairs: the sequential
-    # form) and one prompt alone (64 pairs: a chunk-parallel form).  Bound and
-    # TFLOP/s count the products at the kernel's own tile, the chunk it walks.
+    # the shapes the serving path gives it: the batch of prompts (b h = 256
+    # pairs: the sequential form) and one prompt alone (64 pairs: a
+    # chunk-parallel form)
     s_cfg = cfg.ssm
     h = s_cfg.expand * cfg.d_model // s_cfg.head_dim
     s, p, n, chunk = prompt_len, s_cfg.head_dim, s_cfg.d_state, min(s_cfg.chunk, prompt_len)
-    limit = ssd_kernel.cluster_limit(p, n, 0)
-
-    def at_serving_shape(b):
-        form = ssd_kernel.scan_form(b, h, s, chunk, p, n, limit)
-        x, dt, A, B, C = inputs(b, s, h, p, n, torch.bfloat16, torch.float32)
-        y, st = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
-        torch.cuda.synchronize()
-        ry, rst = ref32(x, dt, A, B, C, chunk)
-        scale = ry.abs().max().item()
-        err = (y.float() - ry).abs().max().item()
-        rel = ((y.float() - ry).abs() / (1 + ry.abs())).max().item()
-        floor = (ry.to(torch.bfloat16).float() - ry).abs().max().item()
-        st_err = (st - rst).abs().max().item()
-        print(f"[kernels] ssd_scan_fwd at the serving shape b={b} s={s} h={h} p={p} n={n} g=1 chunk={chunk} "
-              f"(x, B, C bf16, dt f32), form {form.name} (CTAs a (batch, head): {form.cluster}; the card's "
-              f"cluster limit {limit}): y max_abs_err {err:.3e} (max |y| {scale:.3f}; rounding y to bf16 alone "
-              f"{floor:.3e}), err/(1+|y|) {rel:.3e}, final_state max_abs_err {st_err:.3e} (max |state| "
-              f"{rst.abs().max().item():.3f})")
-        if not (err <= 3e-2 * max(1.0, scale) and st_err <= 3e-4 * max(1.0, rst.abs().max().item())):
-            raise SystemExit(f"ssd_scan_fwd disagrees with ssd_scan_ref at the serving shape b={b}")
-        if rel > SSD_TOL["bfloat16"] / 2:
-            raise SystemExit(f"ssd_scan_fwd bf16 error {rel} at the serving shape b={b} is above half the tolerance")
-        del ry, rst
-        ms = time_ms(lambda: ssd_scan_fwd(x, dt, A, B, C, chunk=chunk), iters=20)
-        plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, chunk=chunk), iters=3, warmup=1)
-        bound_ms, bound_by = ssd_bound(b, s, h, p, n, ssd_kernel.TILE, "bfloat16")
-        flops = ssd_flops(b, s, h, p, n, ssd_kernel.TILE)
-        print(f"[kernels] ssd_scan_fwd at the serving shape b={b}, form {form.name}: kernel {ms:.3f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP at the tile of {ssd_kernel.TILE}, "
-              f"{bound_ms / ms * 100:.1f} % of the bound's rate), plain {plain_ms:.3f} ms, library none (no "
-              f"PyTorch call computes the SSD scan), bound {bound_ms:.4f} ms by {bound_by}")
-        return form, err, ms, plain_ms, bound_ms, bound_by
-
-    form, err, ms, plain_ms, bound_ms, bound_by = at_serving_shape(BATCH)
-    form1, _, ms1, _, bound1, _ = at_serving_shape(1)
+    form, err, ms, plain_ms, bound_ms, bound_by = ssd_at_shape(gen, BATCH, s, h, p, n, chunk)
+    form1, _, ms1, _, bound1, _ = ssd_at_shape(gen, 1, s, h, p, n, chunk)
 
     # jamba's SSD dims (p=64, n=16, 128 heads, chunk 128) at the same request
     b = BATCH
     jh, jp, jn, jchunk = JAMBA_SSD
-    jx, jdt, jA, jB, jC = inputs(b, s, jh, jp, jn, torch.bfloat16, torch.float32)
+    jx, jdt, jA, jB, jC = ssd_inputs(gen, b, s, jh, jp, jn, torch.bfloat16, torch.float32)
     jy, jst = ssd_scan_fwd(jx, jdt, jA, jB, jC, chunk=jchunk)
     torch.cuda.synchronize()
-    jry, jrst = ref32(jx, jdt, jA, jB, jC, jchunk)
+    jry, jrst = ssd_ref32(jx, jdt, jA, jB, jC, jchunk)
     jerr = (jy.float() - jry).abs().max().item()
     if not (jerr <= 3e-2 * max(1.0, jry.abs().max().item())
             and (jst - jrst).abs().max().item() <= 3e-4 * max(1.0, jrst.abs().max().item())):
@@ -1283,17 +1360,22 @@ def recorded_routing(into: list):
     return _swapped(moe_mod, "router_topk", record)
 
 
-def pinned_routing(idx_list: list):
+def pinned_routing(idx_list: list, own: list = None):
     """Within the block, the MoE layers take, in their order, the expert ids
-    of ``idx_list`` ((T, K) each), with their router's own weights for them."""
+    of ``idx_list`` ((T, K) each), with their router's own weights for them;
+    the ids the router would have chosen, sorted per token, are appended to
+    ``own`` where it is given."""
     import torch
 
     from repro_torch.models.layers import moe as moe_mod
 
     pinned_ids = iter(idx_list)
+    kept = moe_mod.router_topk
 
     def pinned(logits, m):
         idx = next(pinned_ids)
+        if own is not None:
+            own.append(kept(logits, m)[1].sort(dim=-1).values)
         weights = torch.softmax(logits.float(), dim=-1).gather(-1, idx)
         if m.router_norm_topk:
             weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
@@ -1302,12 +1384,41 @@ def pinned_routing(idx_list: list):
     return _swapped(moe_mod, "router_topk", pinned)
 
 
+def routing_differ(a: list, b: list) -> tuple:
+    """(how many (token, layer) routings of two runs differ, of how many)."""
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b)), sum(x.shape[0] for x in a)
+
+
 def routing_gap(a: list, b: list) -> str:
-    """How many (token, layer) routings of two runs differ, of how many."""
     if not a:
         return "no MoE layer"
-    differ = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
-    return f"{differ} of {sum(x.shape[0] for x in a)} token-layer top-k sets differ"
+    differ, total = routing_differ(a, b)
+    return f"{differ} of {total} token-layer top-k sets differ"
+
+
+@contextlib.contextmanager
+def recorded_kernel_shapes(into: dict):
+    """Within the block, the shapes and types the models' layers hand K1 and
+    K2 (through their wrappers, whose launches count as before) are added to
+    ``into[kernel name]``, a set."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.layers import attention as attention_mod
+
+    attend, scan = attention_mod.flash_attention, ssd_ops.ssd_scan
+
+    def described(*tensors):
+        return tuple((tuple(t.shape), str(t.dtype).removeprefix("torch.")) for t in tensors)
+
+    def attention(q, k, v, *, causal=True):
+        into.setdefault("flash_attention_fwd", set()).add(described(q, k, v) + (causal,))
+        return attend(q, k, v, causal=causal)
+
+    def ssd(x, dt, A, B, C, *, chunk, initial_state=None):
+        into.setdefault("ssd_scan_fwd", set()).add(described(x, dt, A, B, C) + (chunk, initial_state is None))
+        return scan(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
+
+    with _swapped(attention_mod, "flash_attention", attention), _swapped(ssd_ops, "ssd_scan", ssd):
+        yield
 
 
 def ample_capacity(model):
@@ -1598,7 +1709,7 @@ def graph_against_eager(model, inputs) -> dict:
 
 
 def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequence=None,
-                        check_layers=None, offload=False) -> tuple:
+                        check_layers=None, offload=False, tokens_into=None) -> tuple:
     """Phase 4 for one model: returns the kernels' launches in its served
     request and its decode graph's numbers (``graph_against_eager``).
 
@@ -1609,7 +1720,8 @@ def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequ
     group from one generator, so its weights are the served model's first
     layers.  The served request decodes through the graph and nothing else
     (``graph_only``).  ``one_sequence``, where given, is then called with the
-    model."""
+    model.  ``tokens_into``, where given, receives the served request's
+    tokens under the model's name (the model phase's model = 1 run)."""
     import torch
 
     from repro_torch.launch.serve import make_inputs, serve
@@ -1658,6 +1770,8 @@ def serve_at_full_width(cfg, counters, plain, max_stray, step_len: int, one_sequ
         raise SystemExit(f"{cfg.name}: serve produced logits that are not finite")
     if not ((result["tokens"] >= 0) & (result["tokens"] < cfg.vocab_size)).all():
         raise SystemExit(f"{cfg.name}: serve produced token ids outside the vocabulary")
+    if tokens_into is not None:
+        tokens_into[cfg.name] = result["tokens"].cpu()
     tokens_in = BATCH * PROMPT_LEN
     print(f"[serve] {cfg.name} prefill {result['prefill_s'] * 1e3:.1f} ms ({tokens_in / result['prefill_s']:.0f} tok/s), "
           f"decode through one CUDA graph (captured in {result['capture_s']:.2f} s) "
@@ -2222,6 +2336,320 @@ def data_axis_through_nccl(card: str, counters, train_step_ms: list, train_launc
             "ckpt_bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s, "phase_s": phase_s, "nccl": nccl}
 
 
+def model_axis_rank(rank: int, world: int, workdir: str) -> None:
+    """One process of the model phase (see the module note): its results, or
+    its traceback, in ``workdir`` as ``rank<r>.json`` / ``rank<r>.err``."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    work = Path(workdir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+        from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+        from repro_torch.launch.mesh import device_mesh
+        from repro_torch.launch.serve import make_inputs, serve
+        from repro_torch.models.lm import init_lm
+        from repro_torch.parallel.dist import init_distributed
+        from repro_torch.parallel.sharding import param_shardings
+        from repro_torch.serve.decode import CausalLM
+        from repro_torch.train.step import abstract_params
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        out = {"rank": rank}
+        # NCCL first, as init_distributed takes it for a card: it refuses a second rank on the device
+        try:
+            init_distributed(dev, rank=rank, world=world, init_method=f"file://{work / 'nccl_rendezvous'}", timeout=60)
+            probe = torch.ones(1, device=dev)
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            out["nccl"] = f"accepted: {probe.item()}"
+        except Exception as err:  # the refusal is the finding: its first and last lines are printed
+            lines = str(err).strip().splitlines()
+            out["nccl"] = f"{type(err).__name__}: {lines[0][:200]} ... {lines[-1][:200]}"
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        init_distributed(dev, rank=rank, world=world, init_method=f"file://{work / 'gloo_rendezvous'}",
+                         timeout=MODEL_TIMEOUT_S, backend="gloo")  # fmt: skip
+        mesh = device_mesh({"data": 1, "model": world}, dev)
+        out["backend"] = dist.get_backend()
+        out["coords"] = list(mesh.get_coordinate())
+
+        def launches():
+            return {"flash_attention_fwd": flash_attention_fwd.launches, "ssd_scan_fwd": ssd_scan_fwd.launches}
+
+        def draw(cfg, dtype):
+            shardings = param_shardings(abstract_params(cfg, dtype), mesh, cfg)
+            params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dtype, shardings=shardings)
+            return CausalLM(cfg, params, shardings)
+
+        quiet = dict(log=lambda *a: None, mesh=mesh)
+        for arch in MODEL_ARCHS:
+            # (a) float32 at a cut depth, the routing pinned to the model = 1 run's and
+            # the router's own choices counted
+            layers, prompt = MODEL_F32[arch]
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+            ref = torch.load(work / f"ref_{arch}.pt")
+            model = draw(cfg, torch.float32)
+            inputs = make_inputs(cfg, MODEL_F32_BATCH, prompt, torch.Generator(device=dev).manual_seed(1))
+            pins, own = [r.to(dev) for r in ref["routing"]], []
+            flash_attention_fwd.launches = ssd_scan_fwd.launches = 0
+            with eager_launchers(), pinned_routing(pins, own):
+                got = serve(model, inputs, MODEL_F32_GEN, **quiet)
+            scale = max(ref["prefill_logits"].abs().max().item(), ref["last_logits"].abs().max().item())
+            gap = max((got["prefill_logits"].cpu() - ref["prefill_logits"]).abs().max().item(),
+                      (got["last_logits"].cpu() - ref["last_logits"]).abs().max().item())  # fmt: skip
+            out[arch] = {"f32": {"layers": layers, "prompt": prompt, "gap": gap, "scale": scale,
+                                 "tokens_equal": bool(torch.equal(got["tokens"].cpu(), ref["tokens"])),
+                                 "launches": launches(), "routing_differ": list(routing_differ(own, pins))}}  # fmt: skip
+            del model, got, inputs
+            torch.cuda.empty_cache()
+
+            # (b) bf16 at full width and depth: the serve phase's request, eager decode
+            cfg = get_config(arch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = draw(cfg, torch.bfloat16)
+            torch.cuda.synchronize()
+            draw_s = time.perf_counter() - t0
+            held = sum(t.numel() for t in model.buffers())
+            inputs = make_inputs(cfg, BATCH, PROMPT_LEN, torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.reset_peak_memory_stats()
+            shapes = {}
+            flash_attention_fwd.launches = ssd_scan_fwd.launches = 0
+            with eager_launchers(), recorded_kernel_shapes(shapes):
+                got = serve(model, inputs, GEN, **quiet)
+            counted = launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            served = torch.load(work / f"bf16_tokens_{arch}.pt")
+            tokens = got["tokens"].cpu()
+            out[arch]["bf16"] = {
+                "draw_s": draw_s, "params_held": held, "prefill_s": got["prefill_s"],
+                "step_ms": got["decode_s"] / GEN * 1e3, "peak_gib": peak, "launches": counted,
+                "agree": float((tokens == served).float().mean()) if tokens.shape == served.shape else 0.0,
+                "first_differ": [next((i for i in range(tokens.shape[1]) if tokens[r, i] != served[r, i]), None)
+                                 for r in range(tokens.shape[0])] if tokens.shape == served.shape else None,
+                "shapes_ok": got["prefill_logits"].shape == (BATCH, cfg.vocab_size) and tokens.shape == (BATCH, GEN + 1),
+                "finite": bool(torch.isfinite(got["prefill_logits"]).all() and torch.isfinite(got["last_logits"]).all()),
+                "in_vocab": bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+                "kernel_shapes": {name: sorted(seen) for name, seen in shapes.items()},
+            }  # fmt: skip
+            del model, got, inputs
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        sys.exit(1)
+
+
+def model_axis_kernels(ranks: list) -> tuple:
+    """K1 and K2 held to their plain versions, and timed, at every shape and
+    type that a rank's bf16 run handed them (``kernel_shapes``), on inputs
+    drawn here; each kernel that a model's prefill launches must have been
+    seen.  Returns ({arch: {kernel: row}}, failures)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(13)
+    rows, failures = {}, []
+    for arch in MODEL_ARCHS:
+        seen = [r[arch]["bf16"]["kernel_shapes"] for r in ranks]
+        for name in sorted(set().union(*seen)):
+            shapes = {json.dumps(shape) for by_rank in seen for shape in by_rank.get(name, [])}
+            if len(shapes) != 1:
+                failures.append(f"{arch}: the ranks handed {name} {len(shapes)} shapes, not one: {sorted(shapes)}")
+                continue
+            shape = json.loads(shapes.pop())
+            launches = [r[arch]["bf16"]["launches"][name] for r in ranks]
+            if name == "flash_attention_fwd":
+                (q, q_t), (k, k_t), (v, v_t), causal = shape
+                if {q_t, k_t, v_t} != {"bfloat16"} or not causal:
+                    failures.append(f"{arch}: K1 given {shape}; the check covers causal bf16 only")
+                    continue
+                b, s, h, d = q
+                row = attention_at_shape(gen, b, s, h, k[2], d, True, v[3], tag="[model]")
+                row["shape"] = {"b": b, "s": s, "h": h, "kvh": k[2], "dqk": d, "dv": v[3]}
+            else:
+                (x, x_t), (dt, dt_t), _, (B, B_t), (C, C_t), chunk, fresh = shape
+                if (x_t, dt_t, B_t, C_t) != ("bfloat16", "float32", "bfloat16", "bfloat16") or not fresh:
+                    failures.append(f"{arch}: K2 given {shape}; the check covers the serving types from a zero state")
+                    continue
+                b, s, h, p = x
+                form, err, ms, plain_ms, bound_ms, bound_by = ssd_at_shape(gen, b, s, h, p, B[3], chunk, tag="[model]")
+                row = {"form": form.name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "shape": {"b": b, "s": s, "h": h, "p": p, "n": B[3], "chunk": chunk}}  # fmt: skip
+            rows.setdefault(arch, {})[name] = {"launches": launches, **row}
+            print(f"[model] {arch}: {name} held to its plain version at the shape each rank gave it "
+                  f"{row['shape']}, launched {launches} times by rank")
+        unseen = [name for name, n in expected_launches(get_config(arch)).items() if n and name not in rows.get(arch, {})]
+        if unseen:
+            failures.append(f"{arch}: no shape recorded for {unseen}")
+    return rows, failures
+
+
+def model_axis_on_one_card(card: str, served_tokens: dict) -> dict:
+    """The model phase (see the module note): the float32 references at
+    model = 1 through the plain versions here, then the two processes, then
+    K1 and K2 at the shapes the ranks gave them; returns each model's
+    numbers by rank and the kernels' rows.  Its work directory is gone at the
+    end, failed or not, and no process it started outlives it."""
+    import multiprocessing
+    import shutil
+    import uuid
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.decode import CausalLM
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    plain = {"phi4-mini-3.8b": plain_attention, "mamba2-1.3b": plain_ssd_scan, "deepseek-v2-lite-16b": plain_attention}
+    work = ROOT / "build" / f"model_phase_{uuid.uuid4().hex[:8]}"
+    work.mkdir(parents=True)
+    procs = []
+    try:
+        for arch in MODEL_ARCHS:
+            layers, prompt = MODEL_F32[arch]
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+            model = CausalLM(cfg, init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.float32))
+            inputs = make_inputs(cfg, MODEL_F32_BATCH, prompt, torch.Generator(device=dev).manual_seed(1))
+            routing = []
+            flash_attention_fwd.launches = ssd_scan_fwd.launches = 0
+            with eager_launchers(), recorded_routing(routing), plain[arch]():
+                got = serve(model, inputs, MODEL_F32_GEN, log=lambda *a: None)
+            if flash_attention_fwd.launches or ssd_scan_fwd.launches:
+                raise SystemExit(f"[model] {arch}'s plain reference launched a kernel")
+            torch.save({"prefill_logits": got["prefill_logits"].cpu(), "last_logits": got["last_logits"].cpu(),
+                        "tokens": got["tokens"].cpu(), "routing": [r.cpu() for r in routing]},
+                       work / f"ref_{arch}.pt")  # fmt: skip
+            torch.save(served_tokens[arch], work / f"bf16_tokens_{arch}.pt")
+            del model, got, inputs, routing
+            torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t_phase
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=model_axis_rank, args=(rank, MODEL_RANKS, str(work))) for rank in range(MODEL_RANKS)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + MODEL_TIMEOUT_S
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [rank for rank, proc in enumerate(procs) if proc.is_alive()]
+        errors = {rank: (work / f"rank{rank}.err").read_text() for rank in range(MODEL_RANKS)
+                  if (work / f"rank{rank}.err").exists()}  # fmt: skip
+        if hung or errors or any(proc.exitcode != 0 for proc in procs):
+            raise SystemExit(f"[model] the two processes failed: exit codes {[proc.exitcode for proc in procs]}, "
+                             f"still running after {MODEL_TIMEOUT_S} s: {hung}; errors: {errors}")
+        ranks = [json.loads((work / f"rank{rank}.json").read_text()) for rank in range(MODEL_RANKS)]
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        shutil.rmtree(work, ignore_errors=True)
+
+    print(f"[model] {card}; {MODEL_RANKS} processes on the one card, {{'data': 1, 'model': {MODEL_RANKS}}}: NCCL "
+          f"refused them ({ranks[0]['nccl']}), so they run in an explicit {ranks[0]['backend']!r} group over CUDA "
+          f"tensors, whose all_reduce is every collective of the path; mesh coordinates "
+          f"{[r['coords'] for r in ranks]}")
+    failures = []
+    for arch in MODEL_ARCHS:
+        cfg = get_config(arch)
+        want = expected_launches(cfg)
+        f32_want = expected_launches(dataclasses.replace(cfg, n_layers=MODEL_F32[arch][0]))
+        a = [r[arch]["f32"] for r in ranks]
+        b = [r[arch]["bf16"] for r in ranks]
+        tol = MODEL_TOL * max(1.0, a[0]["scale"])
+        gaps = ", ".join(f"{x['gap']:.3e}" for x in a)
+        differ = [x["routing_differ"] for x in a]
+        routed = "" if not differ[0][1] else (
+            f"; the router's own top-k sets at model = 2 that differ from model = 1's, by rank "
+            f"{[f'{d} of {t}' for d, t in differ]} (at most {MODEL_ROUTING_DIFFER:.0%})")
+        print(f"[model] {arch} float32 at {a[0]['layers']} layers, {MODEL_F32_BATCH} x {a[0]['prompt']}, "
+              f"{MODEL_F32_GEN} eager steps (routing pinned to the model = 1 run's), model = 2 through the kernels "
+              f"against model = 1 through the plain versions: logits' largest gap [{gaps}] by rank (tol {tol:.3e}, "
+              f"{MODEL_TOL:g} of the largest logit {a[0]['scale']:.2f}), tokens equal "
+              f"{[x['tokens_equal'] for x in a]}, kernel launches by rank {[x['launches'] for x in a]}{routed}")
+        print(f"[model] {arch} whole ({cfg.n_layers} layers) in bf16 at model = 2, {BATCH} x {PROMPT_LEN}, {GEN} "
+              f"eager steps, by rank: params held {[round(x['params_held'] / 1e9, 3) for x in b]} B of "
+              f"{cfg.n_params() / 1e9:.3f} B (drawn leaf by leaf in {[round(x['draw_s'], 1) for x in b]} s), "
+              f"prefill {[round(x['prefill_s'], 2) for x in b]} s, {[round(x['step_ms'], 1) for x in b]} ms a step, "
+              f"peak {[round(x['peak_gib'], 2) for x in b]} GiB, kernel launches {[x['launches'] for x in b]}; "
+              f"tokens agree with the model = 1 graph run of the serve phase at {b[0]['agree']:.3f} of "
+              f"{BATCH} x {GEN + 1} (first differing step by row {b[0]['first_differ']}; bf16 partial sums round "
+              f"otherwise, so this is printed, not checked)")
+        for x in a:
+            counted = {k: x["launches"][k] for k in ("flash_attention_fwd", "ssd_scan_fwd")}
+            d, t = x["routing_differ"]
+            if (not (x["gap"] <= tol and x["tokens_equal"]) or counted != {k: f32_want[k] for k in counted}
+                    or d > MODEL_ROUTING_DIFFER * t):
+                failures.append(f"{arch} float32: gap {x['gap']:.3e} (tol {tol:.3e}), tokens equal "
+                                f"{x['tokens_equal']}, launches {counted} (want {f32_want}), routing differs at "
+                                f"{d} of {t}")
+        for x in b:
+            counted = {k: x["launches"][k] for k in ("flash_attention_fwd", "ssd_scan_fwd")}
+            if counted != {k: want[k] for k in counted} or not (x["shapes_ok"] and x["finite"] and x["in_vocab"]):
+                failures.append(f"{arch} bf16: launches {counted} (want {want}), shapes {x['shapes_ok']}, finite "
+                                f"{x['finite']}, tokens in the vocabulary {x['in_vocab']}")
+    kernels, kernel_failures = model_axis_kernels(ranks)
+    failures += kernel_failures
+    phase_s = time.perf_counter() - t_phase
+    print(f"[model] two processes time-slicing one card measure correctness and memory, not the speed of tensor "
+          f"parallelism; references at model = 1 {ref_s:.1f} s, phase {phase_s:.1f} s")
+    if failures:
+        raise SystemExit("[model] " + "; ".join(failures))
+    return {arch: {"f32": [r[arch]["f32"] for r in ranks], "bf16": [r[arch]["bf16"] for r in ranks]}
+            for arch in MODEL_ARCHS} | {"phase_s": phase_s, "nccl": ranks[0]["nccl"], "kernels": kernels}
+
+
+def model_alone() -> dict:
+    """The model phase by itself, its model = 1 bf16 runs served here eagerly
+    in place of the serve phase's graph runs (the same tokens: the serve
+    phase holds the graph to the eager step token for token):
+    ``python3 -c 'import chip_smoke; chip_smoke.model_alone()'``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.compat import card_name_and_power_limit
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.decode import CausalLM
+
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        for future in [pool.submit(flash_kernel.build), pool.submit(ssd_kernel.build)]:
+            future.result()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    served = {}
+    for arch in MODEL_ARCHS:
+        cfg = get_config(arch)
+        model = CausalLM(cfg, init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16))
+        with eager_launchers():
+            served[arch] = serve(model, make_inputs(cfg, BATCH, PROMPT_LEN, torch.Generator(device=dev).manual_seed(1)),
+                                 GEN, log=lambda *a: None)["tokens"].cpu()  # fmt: skip
+        del model
+        torch.cuda.empty_cache()
+    return model_axis_on_one_card(card_name_and_power_limit(), served)
+
 def dist_alone() -> dict:
     """The dist phase by itself (about 80 s on an H100, K1's two builds
     included), held to the launches a train step must make in place of the
@@ -2376,7 +2804,9 @@ def main() -> int:
                 "scu_self_signal": scu_kernel.scu_self_signal}
     # 513 is no multiple of any attention tile: the ragged edge on the serving path
     by_model, graphs = {}, {}
-    by_model[phi4.name], graphs[phi4.name] = serve_at_full_width(phi4, counters, plain_attention, 5e-2, 512)
+    served_tokens = {}  # the model phase's model = 1 runs
+    by_model[phi4.name], graphs[phi4.name] = serve_at_full_width(phi4, counters, plain_attention, 5e-2, 512,
+                                                                 tokens_into=served_tokens)  # fmt: skip
     # stablelm whole (32 layers of 32 heads of 80): K1's head dim 80 on the serving path
     by_model[stablelm.name], graphs[stablelm.name] = serve_at_full_width(stablelm, counters, plain_attention, 5e-2,
                                                                          512)  # fmt: skip
@@ -2385,14 +2815,15 @@ def main() -> int:
     # largest logit on either path, so only the plain path bounds the kernel's
     # then one prompt alone, where K2 takes a chunk-parallel form
     by_model[mamba2.name], graphs[mamba2.name] = serve_at_full_width(
-        mamba2, counters, plain_ssd_scan, None, 255, lambda model: serve_one_sequence(model, mamba2, counters, k2))
+        mamba2, counters, plain_ssd_scan, None, 255, lambda model: serve_one_sequence(model, mamba2, counters, k2),
+        tokens_into=served_tokens)
     # deepseek (27 layers, 15.7 B) and qwen3-moe (48 layers, 30.5 B) whole; their checks at 4
     # layers (deepseek: the dense prelude and 3 MoE layers).  bf16 routing flips between the
     # two paths move the logits of a random MoE model by more than 5 % of the largest one,
     # so only the plain path bounds the kernel's, as for mamba2.
     for cfg in (deepseek, qwen3):
         by_model[cfg.name], graphs[cfg.name] = serve_at_full_width(cfg, counters, plain_attention, None, 512,
-                                                                   check_layers=4)  # fmt: skip
+                                                                   check_layers=4, tokens_into=served_tokens)  # fmt: skip
     # jamba: one group of 8 of its 32 layers (1 attention, 7 SSD, 4 MoE): 13.3 B parameters
     # (26.5 GB in bf16) of 51.6 B, which would take 103 GB; the group keeps the 1:7 pattern.
     # Its checks take that whole group, with the bf16 model on the host while the float32
@@ -2456,6 +2887,13 @@ def main() -> int:
 
     # ---- 5b. dist ------------------------------------------------------------
     data_axis_through_nccl(card, counters, trained[phi4.name]["step_ms"], trained[phi4.name]["launches_per_step"])
+
+    # ---- 5c. model -----------------------------------------------------------
+    # two processes at model = 2 on the card: each one's K1 and K2 launches in its bf16 request
+    model_phase = model_axis_on_one_card(card, served_tokens)
+    for entry in (k1, k2):
+        entry["model_axis"] = {arch: rows[entry["name"]] for arch, rows in model_phase["kernels"].items()
+                               if entry["name"] in rows}  # fmt: skip
 
     # ---- 6. loop -------------------------------------------------------------
     k2["loop"] = train_through_the_loop(card, counters, trained[mamba2.name]["step_ms"])

@@ -17,11 +17,14 @@ prompt.  On the card the decode step runs as one captured CUDA graph
 and nowhere eagerly; on the CPU it runs eagerly.
 
 Over N processes, one a device (``torchrun``, as ``launch/train.py``), the
-launcher serves data-parallel: ``serve(..., mesh=...)`` splits the batch over
-the data axes of a ``{"data": N, "model": 1}`` ``DeviceMesh``, each process
-prefills and decodes its rows into its block of the cache (placed by
-``serve/decode.py``'s ``cache_specs``), and the tokens are gathered back; only
-rank 0 prints.
+launcher serves on the mesh the JAX launcher takes over N devices:
+``{"data": N // 2, "model": 2}`` from 4 processes up, else ``{"data": N,
+"model": 1}``.  ``serve(..., mesh=...)`` places the model by
+``param_shardings`` (each process keeps its blocks), splits the batch over
+the data axes and each layer over ``model`` (``serve/decode.py``); each
+process prefills and decodes its rows into its block of the cache (placed by
+``cache_specs``), and the tokens are gathered back; only rank 0 prints.
+``serve_stream`` stays one process.
 
 ``serve_stream`` is the loop ``serve/batching.py``'s ``ContinuousBatcher``
 was written for: requests are admitted into a fixed set of slots, each prompt
@@ -43,13 +46,29 @@ from repro_torch.compat import synchronize, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.launch.mesh import device_mesh, make_host_mesh
-from repro_torch.models.lm import init_lm
+from repro_torch.models.layers.basics import greedy, whole_logits
+from repro_torch.models.lm import head_key, init_lm
 from repro_torch.parallel.dist import is_distributed, join_if_launched
-from repro_torch.parallel.sharding import NamedSharding, axis_sizes, batch_spec, check_data_parallel, gather, shard_local
+from repro_torch.parallel.sharding import (
+    NamedSharding,
+    Shards,
+    axis_sizes,
+    batch_spec,
+    check_data_parallel,
+    entry_axes,
+    gather,
+    held,
+    model_block,
+    param_shardings,
+    shard_local,
+    sub,
+    tree_map_with_path,
+)
 from repro_torch.serve.batching import ContinuousBatcher, Request
-from repro_torch.serve.decode import SEQ_AXIS, CausalLM, EagerServeStep, capture_serve_step
+from repro_torch.serve.decode import SEQ_AXIS, CausalLM, EagerServeStep, cache_shards, capture_serve_step
 
 __all__ = [
+    "place_model",
     "stage_prefill_cache",
     "stage_prefill_slot",
     "decode_step_for",
@@ -60,19 +79,47 @@ __all__ = [
 ]
 
 
-def stage_prefill_cache(prefill_cache: Any, cache: Any, prompt_len: int) -> Any:
+def stage_prefill_cache(prefill_cache: Any, cache: Any, prompt_len: int, shards: Optional[Shards] = None) -> Any:
     """Copy a prefill cache into a decode cache, in place: an attention leaf
     (GQA keys and values, MLA latents; sequence axis ``prompt_len``) into the
     first ``prompt_len`` positions of the longer one, an SSD state leaf (no
-    sequence axis) whole."""
+    sequence axis) whole.
+
+    Across processes (``shards``: the decode cache's ``cache_specs`` on the
+    mesh) the prefill cache is whole over ``model`` -- prefill gathers a
+    layer's kv heads (or SSD heads and conv channels) as it makes them -- and
+    each process keeps its block: the positions of its block of the decode
+    cache's sequence that the prompt fills (none for a process whose block
+    starts past the prompt), or its heads of an SSD state.  No collective:
+    the move from heads to sequence blocks was the gather in prefill."""
     for key, value in cache.items():
         if isinstance(value, dict):
-            stage_prefill_cache(prefill_cache[key], value, prompt_len)
-        elif key in SEQ_AXIS:
-            value.narrow(SEQ_AXIS[key], 0, prompt_len).copy_(prefill_cache[key])
-        else:
-            value.copy_(prefill_cache[key])  # (..., b, h, p, n) or (..., b, w, conv_dim)
+            stage_prefill_cache(prefill_cache[key], value, prompt_len, None if shards is None else shards[key])
+            continue
+        src = prefill_cache[key]
+        spec = () if shards is None else shards.spec(key)
+        seq_dim = value.dim() + SEQ_AXIS[key] if key in SEQ_AXIS else None
+        for dim, entry in enumerate(spec):
+            if dim != seq_dim and "model" in entry_axes(entry):
+                part = model_block(spec, dim, src.shape[dim], shards.mesh)
+                src = src.narrow(dim, part.start, part.stop - part.start)
+        if seq_dim is None:
+            value.copy_(src)  # (..., b, h, p, n) or (..., b, w, conv_dim)
+            continue
+        seq, _ = held(shards, key, value, seq_dim)
+        n = max(0, min(seq.stop, prompt_len) - seq.start)
+        if n:
+            value.narrow(seq_dim, 0, n).copy_(src.narrow(seq_dim, seq.start, n))
     return cache
+
+
+def place_model(model: CausalLM, mesh: Any) -> CausalLM:
+    """``model`` (its parameters whole) as this process's blocks on the
+    ``DeviceMesh`` ``mesh``, by ``param_shardings``: a new ``CausalLM`` that
+    holds only them (``model`` is left as it was)."""
+    shardings = param_shardings(model.params, mesh, model.cfg)
+    blocks = tree_map_with_path(lambda path, leaf, sh: shard_local(leaf, sh), model.params, shardings)
+    return CausalLM(model.cfg, blocks, shardings)
 
 
 def stage_prefill_slot(prefill_cache: Any, cache: Any, slot: int, prompt_len: int) -> Any:
@@ -96,13 +143,15 @@ def stage_prefill_slot(prefill_cache: Any, cache: Any, slot: int, prompt_len: in
     return cache
 
 
-def decode_step_for(model: CausalLM, cache: Any, batch: int):
+def decode_step_for(model: CausalLM, cache: Any, batch: int, cshards: Optional[Shards] = None):
     """The step ``serve`` and ``serve_stream`` decode with: on the card the
-    step captured as one CUDA graph (a failed capture raises), on the CPU the
-    eager step.  Both advance their own ``tokens`` and ``position``."""
+    step captured as one CUDA graph (a failed capture raises; a group that is
+    not NCCL's refuses it), on the CPU the eager step.  Both advance their
+    own ``tokens`` and ``position``.  ``cshards``: the cache's placement
+    (``cache_shards``), for a placed model."""
     if model.device.type == "cuda":
-        return capture_serve_step(model.cfg, model.params, cache, batch)
-    return EagerServeStep(model.cfg, model.params, cache, batch)
+        return capture_serve_step(model.cfg, model.params, cache, batch, model.shardings, cshards)
+    return EagerServeStep(model.cfg, model.params, cache, batch, model.shardings, cshards)
 
 
 def make_inputs(
@@ -128,35 +177,42 @@ def serve(
     (the first comes from the prefill), the last step's logits, both times
     and the capture's (0 on the CPU).  With a ``DeviceMesh`` ``mesh`` (one
     process a device, every process calling with the same ``inputs``), the
-    batch is split over the mesh's data axes: each process serves its rows
-    into its block of the cache, every process gets all the tokens (an
-    all-gather over the data axes), and the logits are this process's rows.
-    A mesh with ``model > 1`` raises ``NotImplementedError``.
+    model is placed by ``param_shardings`` unless it already is
+    (``place_model``), the batch is split over the mesh's data axes and each
+    layer over ``model``: each process serves its rows into its block of the
+    cache, every process gets all the tokens (an all-gather over the data
+    axes), and the logits are this process's rows over the whole vocabulary.
     """
     device = model.device
     global_batch, prompt_len = next(iter(inputs.values())).shape[:2]
     max_seq = prompt_len + gen_len
-    rows = None
+    rows = head = None
+    if mesh is None and model.shardings is not None:  # a placed model serves on its own mesh
+        mesh = Shards.of(model.shardings).mesh
     if mesh is not None:
-        check_data_parallel(mesh)
+        check_data_parallel(mesh, "serve")
+        if model.shardings is None:
+            model = place_model(model, mesh)
+        head = sub(Shards.of(model.shardings), head_key(model.cfg))
         rows = NamedSharding(mesh, batch_spec(axis_sizes(mesh), extra_dims=1))
         inputs = {k: shard_local(v, NamedSharding(mesh, batch_spec(axis_sizes(mesh), extra_dims=v.dim() - 1)))
                   for k, v in inputs.items()}  # fmt: skip
     batch = next(iter(inputs.values())).shape[0]
+    cache_sh = cache_shards(model.cfg, Shards.of(model.shardings), batch, max_seq)
 
     synchronize(device)
     t0 = time.perf_counter()
     logits, prefill_cache = model.prefill(inputs)
-    next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    next_tok = greedy(logits, head)
     synchronize(device)
     prefill_s = time.perf_counter() - t0
     log(f"[serve] prefill({batch}x{prompt_len}) {prefill_s:.2f}s")
 
     # decode against a max_seq cache, the prefill cache staged into it
-    cache = stage_prefill_cache(prefill_cache, model.init_cache(global_batch, max_seq, mesh), prompt_len)
+    cache = stage_prefill_cache(prefill_cache, model.init_cache(global_batch, max_seq, mesh), prompt_len, cache_sh)
     del prefill_cache
     t0 = time.perf_counter()
-    step = decode_step_for(model, cache, batch)
+    step = decode_step_for(model, cache, batch, cache_sh)
     synchronize(device)
     capture_s = time.perf_counter() - t0
     if device.type == "cuda":
@@ -169,7 +225,7 @@ def serve(
     for _ in range(gen_len):
         next_tok, step_logits = step.replay()
         out.append(next_tok.clone())  # a graph's outputs: the next replay overwrites them
-    step_logits = step_logits.clone()
+    step_logits = whole_logits(step_logits.clone(), head)
     synchronize(device)
     decode_s = time.perf_counter() - t0
     log(
@@ -177,11 +233,11 @@ def serve(
         f"({gen_len * batch / max(decode_s, 1e-9):.1f} tok/s)" + (" on each data process" if rows is not None else "")
     )
     tokens = torch.stack(out, dim=1)
-    if rows is not None:
+    if rows is not None and cache_sh.dp_size > 1:  # one data process has all the rows
         tokens = gather(tokens, rows)
     log(f"[serve] sample continuation: {[int(t) for t in tokens[0, :10]]}")
     return {
-        "prefill_logits": logits,
+        "prefill_logits": whole_logits(logits, head),
         "tokens": tokens,
         "last_logits": step_logits,
         "prefill_s": prefill_s,
@@ -207,6 +263,8 @@ def serve_stream(
     if model.cfg.frontend is not None:
         raise ValueError(f"{model.cfg.name} takes embeddings from its {model.cfg.frontend} frontend; "
                          "the batcher's prompts are token ids")  # fmt: skip
+    if model.shardings is not None:
+        raise ValueError("serve_stream serves on one process: its model must hold its parameters whole")
     device = model.device
     batcher = ContinuousBatcher(slots, max_seq)
     for req in requests:
@@ -264,8 +322,10 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     device, joined = join_if_launched(args.device)
     mesh = None
-    if is_distributed():
-        mesh = device_mesh(make_host_mesh(data=dist.get_world_size(), model=1, device=device), device)
+    if is_distributed():  # the JAX launcher's mesh: model = 2 from 4 devices up
+        n = dist.get_world_size()
+        model_size = 2 if n >= 4 else 1
+        mesh = device_mesh(make_host_mesh(data=n // model_size, model=model_size, device=device), device)
     log = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
     try:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

@@ -19,9 +19,10 @@ each process joins the group (``env://``; NCCL on cards, ``gloo`` on the
 CPU), and ``--mesh host`` builds ``{"data": N, "model": 1}`` over it: the
 step is data-parallel (``repro_torch.train.step``), each process training
 on its rows of the global ``--batch``.  The JAX launcher takes ``model = 2``
-at 4 devices; the port's step does not split the forward over ``model`` yet
-(ROADMAP Queue 1 item 5), so its host mesh is data-parallel only -- a known,
-deliberate difference.  Only rank 0 prints and writes checkpoints.
+at 4 devices, and so does the port's serving launcher; the port's train
+step does not split the forward and its backward over ``model`` yet (ROADMAP
+Queue 1 item 5b), so this host mesh stays data-parallel only until then -- a
+known, deliberate difference.  Only rank 0 prints and writes checkpoints.
 
 Counterpart of ``repro/launch/train.py``, with the same flags and
 ``--device``.  ``build_run`` turns the arguments into what ``main`` hands

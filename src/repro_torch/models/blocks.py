@@ -9,6 +9,14 @@ attention and MLP both read it).
 Blocks are grouped as in the JAX package: :func:`group_pattern` returns the
 periodic (kind, is_moe) pattern of one group, and the parameters of all
 groups are stacked on a leading axis.
+
+Over ``model`` (``shards``, a ``repro_torch.parallel.sharding.Shards``
+beside the block's parameters) the mixer and the FFN split as their specs
+say and each ends in an ``all_reduce``: the residual stream and the norms
+stay whole on every model process.  The JAX package also constrains the
+residual to be sequence-split over ``model`` between blocks (``lm.py``'s
+``residual_spec``, ``decode.py``'s ``constrain``): a placement that changes
+no value, which the port does not make (a deliberate difference).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import Shards, sub
 from .layers.attention import attention_apply, init_attention, init_mla, mla_apply
 from .layers.basics import apply_norm, init_mlp, init_norm, mlp_apply
 from .layers.moe import init_moe, moe_apply
@@ -74,18 +83,19 @@ def _mixer(
     x: torch.Tensor,
     positions: Optional[torch.Tensor],
     cache_sink: Optional[Dict[str, torch.Tensor]],
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
     if kind == "attn":
         if cfg.mla is not None:
-            return mla_apply(p, cfg, x, positions, cache_sink=cache_sink)
-        return attention_apply(p, cfg, x, positions, kv_sink=cache_sink)
-    return ssm_apply(p, cfg, x, state_sink=cache_sink)
+            return mla_apply(p, cfg, x, positions, cache_sink=cache_sink, shards=shards)
+        return attention_apply(p, cfg, x, positions, kv_sink=cache_sink, shards=shards)
+    return ssm_apply(p, cfg, x, state_sink=cache_sink, shards=shards)
 
 
-def _ffn(p: Params, cfg: ModelConfig, is_moe: bool, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: Params, cfg: ModelConfig, is_moe: bool, x: torch.Tensor, shards: Optional[Shards] = None) -> torch.Tensor:
     if is_moe:
-        return moe_apply(p, cfg, x)
-    return mlp_apply(p, x, cfg.act)
+        return moe_apply(p, cfg, x, shards)
+    return mlp_apply(p, x, cfg.act, shards)
 
 
 def block_apply(
@@ -96,23 +106,27 @@ def block_apply(
     is_moe: bool,
     positions: Optional[torch.Tensor] = None,
     cache_sink: Optional[Dict[str, torch.Tensor]] = None,
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
     """One layer, full-sequence path (prefill).
 
     ``cache_sink``, when given, receives what the layer leaves in the decode
     cache: a GQA layer's ``"k"`` and ``"v"``, an MLA layer's latents
-    ``"c_kv"`` and ``"k_r"``, an SSD layer's ``"ssm"`` and ``"conv"`` state.
+    ``"c_kv"`` and ``"k_r"``, an SSD layer's ``"ssm"`` and ``"conv"`` state
+    (whole over ``model``).  ``shards`` places the layer across processes,
+    its parameters each this process's block split over ``model`` alone.
     """
     has_ffn = "ffn" in p
+    mixer, ffn = sub(shards, "mixer"), sub(shards, "ffn") if has_ffn else None
     if cfg.parallel_block:
         h = apply_norm(p["norm1"], x, cfg.norm)
-        out = x + _mixer(p["mixer"], cfg, kind, h, positions, cache_sink)
+        out = x + _mixer(p["mixer"], cfg, kind, h, positions, cache_sink, mixer)
         if has_ffn:
-            out = out + _ffn(p["ffn"], cfg, is_moe, h)
+            out = out + _ffn(p["ffn"], cfg, is_moe, h, ffn)
         return out
     h = apply_norm(p["norm1"], x, cfg.norm)
-    x = x + _mixer(p["mixer"], cfg, kind, h, positions, cache_sink)
+    x = x + _mixer(p["mixer"], cfg, kind, h, positions, cache_sink, mixer)
     if has_ffn:
         h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + _ffn(p["ffn"], cfg, is_moe, h)
+        x = x + _ffn(p["ffn"], cfg, is_moe, h, ffn)
     return x

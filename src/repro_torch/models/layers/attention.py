@@ -10,6 +10,18 @@ chunked online-softmax core above that.
 and v head dim 128) takes the same route: the kernel on a CUDA tensor, the
 JAX package's two plain cores on a CPU tensor.
 
+Over ``model`` (a ``Shards`` beside the parameters, :mod:`.basics`): a
+process projects the q heads of its ``wq`` block and the kv heads of its
+``wk``/``wv`` blocks -- a block, or all of them where the spec keeps a leaf
+whole (``_spec_for``'s head guards: phi4's, llava's and command-r's smoke
+configs split 4 q heads and keep their one kv head whole) -- attends with
+the kv heads its own q heads read (:func:`kv_heads_for`; the kernel runs on
+the local heads), and hands its heads' rows to the row-split ``wo``, whose
+partial products are summed over ``model``.  MLA's latents (``w_dkv``,
+``w_kr``, ``kv_norm``) are whole on every process; ``w_uk``/``w_uv`` give
+the local heads.  A prefill's cache sink receives every kv head (gathered
+over ``model``): the cache is placed after prefill (``launch/serve.py``).
+
 Decode (single-token) paths are in :mod:`repro_torch.serve.decode`.
 """
 
@@ -21,7 +33,8 @@ import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from .basics import apply_rope, dense, init_dense, init_norm, rmsnorm, rope_frequencies
+from repro_torch.parallel.sharding import Shards, held, sub
+from .basics import apply_rope, dense, dense_rows, init_dense, init_norm, rmsnorm, rope_frequencies, take_cols
 from .flash_core import flash_attention_core
 
 Params = Dict[str, torch.Tensor]
@@ -29,6 +42,8 @@ Params = Dict[str, torch.Tensor]
 __all__ = [
     "init_attention",
     "attention_qkv",
+    "head_block",
+    "kv_heads_for",
     "attention_apply",
     "init_mla",
     "mla_latents",
@@ -116,15 +131,42 @@ def init_attention(
     return p
 
 
+def head_block(p: Params, shards: Optional[Shards], key: str, per_head: int) -> Tuple[slice, int]:
+    """(the heads this process projects, the head count) of the projection
+    ``p[key]`` (``per_head`` output features a head), from its spec."""
+    cols, whole = held(sub(shards, key), "w", p[key]["w"], 1)
+    if cols.start % per_head or cols.stop % per_head:
+        raise ValueError(f"{key}: the block {cols} of {whole} features cuts a head of {per_head}")
+    return slice(cols.start // per_head, cols.stop // per_head), whole // per_head
+
+
+def kv_heads_for(q_heads: slice, kv_heads: slice, group: int, k: torch.Tensor, v: torch.Tensor):
+    """The keys and values ``(b, s, kv, d)`` that the q heads ``q_heads`` read,
+    from the kv heads ``kv_heads`` (global numbers) that ``k`` and ``v`` hold:
+    q head ``i`` reads kv head ``i // group``.  Where the local q heads read
+    their kv heads in equal runs (always, unless a block cuts a group
+    unevenly), the run of kv heads, a view; else one kv head a q head."""
+    need = [(q_heads.start + j) // group - kv_heads.start for j in range(q_heads.stop - q_heads.start)]
+    if need[0] < 0 or need[-1] >= kv_heads.stop - kv_heads.start:
+        raise ValueError(f"q heads {q_heads} read kv heads outside the block {kv_heads} this process holds")
+    n_kv = need[-1] - need[0] + 1
+    run = len(need) // n_kv
+    if len(need) % n_kv == 0 and need == [need[0] + j // run for j in range(len(need))]:
+        return k[:, :, need[0] : need[0] + n_kv], v[:, :, need[0] : need[0] + n_kv]
+    idx = torch.tensor(need, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attention_qkv(
     p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Projections + RoPE; shared by prefill and decode paths."""
+    """Projections + RoPE; shared by prefill and decode paths.  The heads
+    are those of the projections' blocks (all of them on one process)."""
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = dense(p["wq"], x).reshape(b, s, h, hd)
-    k = dense(p["wk"], x).reshape(b, s, kvh, hd)
-    v = dense(p["wv"], x).reshape(b, s, kvh, hd)
+    hd = cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(b, s, -1, hd)
+    k = dense(p["wk"], x).reshape(b, s, -1, hd)
+    v = dense(p["wv"], x).reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["scale"])
         k = rmsnorm(k, p["k_norm"]["scale"])
@@ -143,19 +185,25 @@ def attention_apply(
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
     kv_sink: Optional[Dict[str, torch.Tensor]] = None,
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
     """Full-sequence causal attention (prefill).
 
     ``kv_sink``, when given, receives this layer's ``"k"`` and ``"v"``
     (after RoPE), so that prefill fills its cache from the one projection
-    that also feeds the attention.
+    that also feeds the attention: every kv head, over ``model`` too.
     """
     b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    q_heads, h = head_block(p, shards, "wq", hd)
+    kv_heads, kvh = head_block(p, shards, "wk", hd)
     q, k, v = attention_qkv(p, cfg, x, positions)
-    if kv_sink is not None:
-        kv_sink["k"], kv_sink["v"] = k, v
+    if kv_sink is not None:  # every kv head, gathered over model where this process holds a block
+        kv_sink["k"], kv_sink["v"] = (k, v) if shards is None else shards.gather_all([(k, 2, kv_heads, kvh),
+                                                                                       (v, 2, kv_heads, kvh)])
+    k, v = kv_heads_for(q_heads, kv_heads, h // kvh, k, v)
     # The JAX function expands K/V to full heads here when the kv-head count
     # does not divide a 16-way model axis: a tensor-parallel layout choice,
     # numerically neutral.  The port never expands: the kernel indexes the kv
@@ -166,7 +214,9 @@ def attention_apply(
         o = naive_attention(q, k, v, causal=True)
     else:
         o = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return dense(p["wo"], o.reshape(b, s, -1))
+    rows = slice(q_heads.start * hd, q_heads.stop * hd)
+    return dense_rows(p["wo"], o.reshape(b, s, -1), rows, h * hd, sub(shards, "wo"))
+
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +264,7 @@ def mla_apply(
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
     cache_sink: Optional[Dict[str, torch.Tensor]] = None,
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
     """Full-sequence MLA (prefill): decompress K/V and run the attention core.
 
@@ -225,10 +276,11 @@ def mla_apply(
     """
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q = dense(p["wq"], x).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    heads, h = head_block(p, shards, "wq", m.qk_nope_dim + m.qk_rope_dim)
+    hl = heads.stop - heads.start
+    q = dense(p["wq"], x).reshape(b, s, hl, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
     rot, inv = rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta, x.device)
     q_rope = apply_rope(q_rope, positions, rot, inv)
@@ -236,18 +288,21 @@ def mla_apply(
     c_kv, k_r = mla_latents(p, cfg, x, positions)  # (b, s, r), (b, s, rope)
     if cache_sink is not None:
         cache_sink["c_kv"], cache_sink["k_r"] = c_kv, k_r
-    k_nope = dense(p["w_uk"], c_kv).reshape(b, s, h, m.qk_nope_dim)
-    v = dense(p["w_uv"], c_kv).reshape(b, s, h, m.v_head_dim)
+    w_uk = take_cols(p["w_uk"], sub(shards, "w_uk"), slice(heads.start * m.qk_nope_dim, heads.stop * m.qk_nope_dim))
+    w_uv = take_cols(p["w_uv"], sub(shards, "w_uv"), slice(heads.start * m.v_head_dim, heads.stop * m.v_head_dim))
+    k_nope = dense(w_uk, c_kv).reshape(b, s, hl, m.qk_nope_dim)
+    v = dense(w_uv, c_kv).reshape(b, s, hl, m.v_head_dim)
 
     qq = torch.cat([q_nope, q_rope], dim=-1)
-    kk = torch.cat([k_nope, k_r[:, :, None, :].expand(b, s, h, m.qk_rope_dim)], dim=-1)
+    kk = torch.cat([k_nope, k_r[:, :, None, :].expand(b, s, hl, m.qk_rope_dim)], dim=-1)
     if x.is_cuda:
         o = flash_attention(qq, kk, v, causal=True)
     elif s <= 2048:
         o = _mla_core(qq, kk, v)
     else:
         o = _mla_core_chunked(qq, kk, v, q_chunk, kv_chunk)
-    return dense(p["wo"], o.reshape(b, s, -1))
+    rows = slice(heads.start * m.v_head_dim, heads.stop * m.v_head_dim)
+    return dense_rows(p["wo"], o.reshape(b, s, -1), rows, h * m.v_head_dim, sub(shards, "wo"))
 
 
 def _mla_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,17 @@ Counterpart of ``repro/models/layers/basics.py``.  All layers are plain
 functions over explicit parameter trees (dicts of tensors): ``init_*`` builds
 parameters from a ``torch.Generator``, the ``apply`` semantics are the JAX
 package's.  Norms and rope angles are float32 inside and cast back.
+
+Over ``model`` (a ``repro_torch.parallel.sharding.Shards`` beside the
+parameters; None on one process): a column-split projection gives this
+process's block of output features, a row-split one (:func:`dense_rows`)
+takes that block and sums the partial products over ``model``, then adds
+its bias once; the MLP is the pair; the vocab-split embedding looks up the
+ids of its rows and sums over ``model``; the vocab-split unembedding gives
+this process's block of logits, and :func:`greedy` takes the argmax across
+the blocks.  Which block a process holds is read from each leaf's spec
+(``Shards.held``); a whole leaf (its dimension does not split the axis) is
+sliced to the block the layer needs (:func:`take`).
 """
 
 from __future__ import annotations
@@ -12,6 +23,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import dist as pdist
+from repro_torch.parallel.sharding import Shards, Spec, entry_axes, held, sub
 
 __all__ = [
     "rmsnorm",
@@ -24,6 +38,11 @@ __all__ = [
     "dense",
     "init_mlp",
     "mlp_apply",
+    "take",
+    "take_cols",
+    "dense_rows",
+    "greedy",
+    "whole_logits",
     "init_embedding",
     "embed",
     "unembed",
@@ -141,6 +160,45 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def take(leaf: torch.Tensor, shards: Optional[Shards], key, dim: int, part: slice) -> torch.Tensor:
+    """``leaf`` (at ``key`` under ``shards``) restricted to ``part`` of its
+    dimension ``dim``: the leaf itself where its own block is ``part``, a
+    view of ``part`` where it is whole.  Any other block is refused: the
+    layer and the spec disagree."""
+    got, whole = held(shards, key, leaf, dim)
+    if got == part:
+        return leaf
+    if got == slice(0, whole):
+        return leaf.narrow(dim, part.start, part.stop - part.start)
+    raise ValueError(f"{key}: this process holds {got} of dimension {dim}, the layer needs {part}")
+
+
+def take_cols(p: Params, shards: Optional[Shards], part: slice) -> Params:
+    """A projection ``{"w", "b"?}`` restricted to its output features ``part``."""
+    out = {"w": take(p["w"], shards, "w", 1, part)}
+    if "b" in p:
+        out["b"] = take(p["b"], shards, "b", 0, part)
+    return out
+
+
+def dense_rows(p: Params, x: torch.Tensor, part: slice, whole: int, shards: Optional[Shards],
+               reduce: bool = True) -> torch.Tensor:
+    """``dense(p, x)`` where ``x`` holds the input features ``part`` of
+    ``whole``: a row-split projection (``wo``, ``down``, ``out_proj``).  The
+    partial products of the model processes are summed (``all_reduce``), then
+    the bias is added once.  With ``reduce=False`` the partial sum is
+    returned for the caller to reduce with others (the bias on model process
+    0 alone).  Where ``part`` is the whole, this is ``dense``."""
+    if part == slice(0, whole):
+        return dense(p, x)
+    y = x @ take(p["w"], shards, "w", 0, part).to(x.dtype)
+    if reduce:
+        y = shards.psum(y)
+    if "b" in p and (reduce or shards.model_index == 0):
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
 def init_mlp(
     gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype=torch.float32, device=None
 ) -> Params:
@@ -153,13 +211,17 @@ def init_mlp(
     return p
 
 
-def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, act: str, shards: Optional[Shards] = None,
+              reduce: bool = True) -> torch.Tensor:
+    """The MLP; over ``model`` ``up``/``gate`` give this process's hidden
+    block and ``down`` takes it (``dense_rows``; ``reduce`` as there)."""
+    part, whole = held(sub(shards, "up"), "w", p["up"]["w"], 1)
     if act == "swiglu":
-        h = F.silu(dense(p["gate"], x)) * dense(p["up"], x)
+        h = F.silu(dense(take_cols(p["gate"], sub(shards, "gate"), part), x)) * dense(p["up"], x)
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(dense(p["up"], x), approximate="tanh")
-    return dense(p["down"], h)
+    return dense_rows(p["down"], h, part, whole, sub(shards, "down"), reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +235,7 @@ def init_embedding(
     return {"table": _normal(gen, (vocab, d_model), 0.02, dtype, device)}
 
 
-def embed(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+def embed(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16, shards: Optional[Shards] = None) -> torch.Tensor:
     """Rows of the table.  The JAX function's custom backward
     (``_embed_lookup_bwd``) scatter-adds the rows' gradients into a float32
     table and casts it to the table's type, only so that it can constrain the
@@ -182,10 +244,53 @@ def embed(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor
     (``index_put_`` with ``accumulate``).  In float32 the values are the
     same; in bf16 a token's repeats may be summed in another precision
     before the table's type is reached.
+
+    With the table's vocabulary split over ``model``, each process looks up
+    the ids in its rows, zeros for the rest, and the rows are summed over
+    ``model``: one non-zero term each, exact.
     """
-    return p["table"][tokens].to(dtype)
+    rows, whole = held(shards, "table", p["table"], 0)
+    if rows == slice(0, whole):
+        return p["table"][tokens].to(dtype)
+    local = tokens - rows.start
+    inside = (local >= 0) & (local < rows.stop - rows.start)
+    found = p["table"][local.clamp(0, rows.stop - rows.start - 1)].to(dtype)
+    return shards.psum(torch.where(inside[..., None], found, torch.zeros_like(found)))
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Project to vocabulary logits (used for tied or dedicated lm_head)."""
+    """Project to vocabulary logits (used for tied or dedicated lm_head).
+    With the table split over ``model``: this process's block of the
+    vocabulary, the one its rows of the table give."""
     return x @ p["table"].to(x.dtype).T
+
+
+def _vocab_block(logits: torch.Tensor, shards: Optional[Shards]) -> Optional[slice]:
+    """The block of the vocabulary ``logits`` holds over ``model`` (None: all of it)."""
+    spec = Spec() if shards is None else shards.spec("table")
+    if not spec or "model" not in entry_axes(spec[0]) or shards.model == 1:
+        return None
+    return shards.block("table", 0, logits.shape[-1] * shards.model)
+
+
+def whole_logits(logits: torch.Tensor, shards: Optional[Shards] = None) -> torch.Tensor:
+    """``(b, vocab)`` logits over the whole vocabulary from every model
+    process's block (``logits``, this one's; see :func:`greedy`)."""
+    rows = _vocab_block(logits, shards)
+    return logits if rows is None else shards.gather(logits, logits.dim() - 1, rows, logits.shape[-1] * shards.model)
+
+
+def greedy(logits: torch.Tensor, shards: Optional[Shards] = None) -> torch.Tensor:
+    """The greedy token of each row, ``int32``: ``jnp.argmax`` over the whole
+    vocabulary, the lowest index among ties.  ``logits`` is this process's
+    block of the vocabulary by the head table's spec at ``shards`` (the
+    head's shards, beside ``{"table": ...}``): the block's maximum and its
+    first index, the maximum over ``model``, and the lowest index among the
+    blocks that reach it, by two ``all_reduce``s."""
+    rows = _vocab_block(logits, shards)
+    if rows is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    top, index = torch.max(logits, dim=-1)
+    best = shards.psum(top.clone(), pdist.dist.ReduceOp.MAX)
+    first = torch.where(top == best, index + rows.start, torch.full_like(index, torch.iinfo(index.dtype).max))
+    return shards.psum(first, pdist.dist.ReduceOp.MIN).to(torch.int32)

@@ -11,6 +11,17 @@ once, at the end).
 Hopper kernel for a CUDA tensor, ``ssd_chunked`` (through the kernel's plain
 version) for a CPU tensor.  ``ssd_chunked`` here is that plain version's core
 and the oracle of the tests.
+
+Over ``model`` (a ``Shards`` beside the parameters): ``in_z``, ``in_x``,
+``conv_x``, ``conv_bx`` and ``norm_scale`` are split by channel, a whole
+number of heads a process; ``in_B``, ``in_C``, ``in_dt``, ``A_log``, ``D``
+and ``dt_bias`` are whole, and each process takes its heads of them.  The
+scan runs on the local heads.  The gated RMSNorm normalises over the whole
+``d_inner``, so its mean of squares is summed over ``model`` before the
+scale; ``out_proj`` is row-split, its partial products summed over
+``model``.  The decode cache's SSD state is split by heads and its conv
+window is whole (``cache_specs``): a step reads its channels of the window
+and gathers its new channels into the whole one.
 """
 
 from __future__ import annotations
@@ -21,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from .basics import _normal, dense, init_dense, rmsnorm
+from repro_torch.parallel.sharding import Shards, held, sub
+from .basics import _normal, dense, dense_rows, init_dense, take, take_cols
 
 Params = Dict[str, torch.Tensor]
 
@@ -187,14 +199,48 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return F.silu(out + b.to(x.dtype))
 
 
-def _project(p: Params, cfg: ModelConfig, x: torch.Tensor):
-    """Shared projection path for full-seq and decode."""
-    z = dense(p["in_z"], x)
+def _project(p: Params, cfg: ModelConfig, x: torch.Tensor, local):
+    """Shared projection path for full-seq and decode: this process's
+    channels of ``z`` and ``x`` and its heads of ``dt`` (``local``, from
+    :func:`_local`; all of them on one process)."""
+    channels, heads, shards = local
+    z = dense(take_cols(p["in_z"], sub(shards, "in_z"), channels), x)
     xs = dense(p["in_x"], x)
     B = dense(p["in_B"], x)
     C = dense(p["in_C"], x)
-    dt = dense(p["in_dt"], x)
+    dt = dense(take_cols(p["in_dt"], sub(shards, "in_dt"), heads), x)
     return z, xs, B, C, dt
+
+
+def _local(p: Params, cfg: ModelConfig, shards: Optional[Shards]):
+    """(this process's channels of ``d_inner``, its heads, ``shards``): the
+    block of ``in_x``, a whole number of heads."""
+    channels, d_inner = held(sub(shards, "in_x"), "w", p["in_x"]["w"], 1)
+    hd = cfg.ssm.head_dim
+    if channels.start % hd or channels.stop % hd:
+        raise ValueError(f"in_x: the block {channels} of {d_inner} channels cuts a head of {hd}")
+    return channels, slice(channels.start // hd, channels.stop // hd), shards
+
+
+def _heads_of(p: Params, shards: Optional[Shards], heads: slice):
+    """``A`` (negative), ``D`` and ``dt_bias`` of this process's heads."""
+    A_log, D, dt_bias = (take(p[k], shards, k, 0, heads) for k in ("A_log", "D", "dt_bias"))
+    return -torch.exp(A_log), D, dt_bias
+
+
+def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, channels: slice, d_inner: int,
+                shards: Optional[Shards], eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm over the whole ``d_inner``: ``rmsnorm(y *
+    silu(z))``.  Where ``y`` holds a block of the channels, each block's mean
+    of squares is weighted by its share of ``d_inner`` and summed over
+    ``model``; whole, the weight is 1 and the formula is ``rmsnorm``'s."""
+    scale = take(p["norm_scale"], shards, "norm_scale", 0, channels)
+    dt = y.dtype
+    v = (y * F.silu(z)).float()
+    ms = torch.mean(v * v, dim=-1, keepdim=True) * (v.shape[-1] / d_inner)
+    if channels != slice(0, d_inner):
+        ms = shards.psum(ms)
+    return (v * torch.rsqrt(ms + eps) * scale).to(dt)
 
 
 def ssm_apply(
@@ -202,6 +248,7 @@ def ssm_apply(
     cfg: ModelConfig,
     x: torch.Tensor,
     state_sink: Optional[Dict[str, torch.Tensor]] = None,
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
     """Full-sequence Mamba-2 mixer.  x: (b, s, d_model).
 
@@ -209,6 +256,7 @@ def ssm_apply(
     the scan's final state (b, h, p, n) float32, and ``"conv"``, the last
     ``d_conv - 1`` inputs of the conv (b, d_conv - 1, conv_dim), zeros before
     the first token.  Prefill fills its cache from them, so the scan runs once.
+    Over ``model`` both are whole: every head, every channel.
     """
     # imported here: the kernel's plain version (ops -> ref) imports ssd_chunked from this module
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -217,28 +265,35 @@ def ssm_apply(
     b, s, _ = x.shape
     d_inner, n_heads, conv_dim, g, n = _dims(cfg)
 
-    z, xs, B, C, dt = _project(p, cfg, x)
+    local = _local(p, cfg, shards)
+    channels, heads, _ = local
+    z, xs, B, C, dt = _project(p, cfg, x, local)
     if state_sink is not None:
         w = s_cfg.d_conv - 1
-        state_sink["conv"] = F.pad(torch.cat([xs, B, C], dim=-1), (0, 0, max(0, w - s), 0))[:, -w:]
-    xs = _causal_conv(xs, p["conv_x"].to(xs.dtype), p["conv_bx"])
+        tail = F.pad(torch.cat([xs, B, C], dim=-1), (0, 0, max(0, w - s), 0))[:, -w:]
+        if shards is not None:
+            n_x = channels.stop - channels.start
+            tail = torch.cat([shards.gather(tail[..., :n_x], 2, channels, d_inner), tail[..., n_x:]], dim=-1)
+        state_sink["conv"] = tail
+    xs = _causal_conv(xs, take(p["conv_x"], shards, "conv_x", 1, channels).to(xs.dtype),
+                      take(p["conv_bx"], shards, "conv_bx", 0, channels))  # fmt: skip
     B = _causal_conv(B, p["conv_B"].to(B.dtype), p["conv_bB"])
     C = _causal_conv(C, p["conv_C"].to(C.dtype), p["conv_bC"])
 
-    xs = xs.reshape(b, s, n_heads, s_cfg.head_dim)
+    xs = xs.reshape(b, s, heads.stop - heads.start, s_cfg.head_dim)
     B = B.reshape(b, s, g, n)
     C = C.reshape(b, s, g, n)
-    dtv = F.softplus(dt.float() + p["dt_bias"])  # (b, s, h)
-    A = -torch.exp(p["A_log"])  # (h,) negative
+    A, D, dt_bias = _heads_of(p, shards, heads)
+    dtv = F.softplus(dt.float() + dt_bias)  # (b, s, h)
 
     y, final_state = ssd_scan(xs, dtv, A, B, C, chunk=min(s_cfg.chunk, s))
     if state_sink is not None:
-        state_sink["ssm"] = final_state
-    y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(b, s, d_inner)
+        state_sink["ssm"] = final_state if shards is None else shards.gather(final_state, 1, heads, n_heads)
+    y = y + xs * D.to(y.dtype)[None, None, :, None]
+    y = y.reshape(b, s, -1)
     # gated RMSNorm (mamba2)
-    y = rmsnorm(y * F.silu(z), p["norm_scale"])
-    return dense(p["out_proj"], y)
+    y = _gated_norm(p, y, z, channels, d_inner, shards)
+    return dense_rows(p["out_proj"], y, channels, d_inner, sub(shards, "out_proj"))
 
 
 # ---------------------------------------------------------------------------
@@ -256,36 +311,53 @@ def ssm_state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple[int, ...]]
 
 
 def ssm_decode_step(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, torch.Tensor]
+    p: Params, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, torch.Tensor], shards: Optional[Shards] = None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step.  x: (b, 1, d); state: {'ssm': (b,h,p,n), 'conv': ...}.
 
-    Returns the output and the new state (fresh tensors; ``state`` is not written).
+    Returns the output and the new state (fresh tensors; ``state`` is not
+    written).  Over ``model`` the ``ssm`` state holds this process's heads
+    and ``conv`` is whole (``cache_specs``), as is the new one.
     """
     s_cfg: SSMConfig = cfg.ssm
     b = x.shape[0]
     d_inner, n_heads, conv_dim, g, n = _dims(cfg)
+    local = _local(p, cfg, shards)
+    channels, heads, _ = local
+    n_x = channels.stop - channels.start
+    if state["ssm"].shape[1] != heads.stop - heads.start:
+        raise ValueError(f"the SSD state holds {state['ssm'].shape[1]} heads, this process's projections "
+                         f"{heads.stop - heads.start}: the cache and the parameters are placed differently")
 
-    z, xs, B, C, dt = _project(p, cfg, x)
+    z, xs, B, C, dt = _project(p, cfg, x, local)
     xc = torch.cat([xs, B, C], dim=-1)  # conv channel layout (x|B|C)
-    hist = torch.cat([state["conv"].to(xc.dtype), xc], dim=1)
-    w = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=-1).to(xc.dtype)
-    bias = torch.cat([p["conv_bx"], p["conv_bB"], p["conv_bC"]])
+    window = state["conv"]
+    if n_x != d_inner:  # this process's x channels of the whole window, and B|C
+        window = torch.cat([window[..., channels], window[..., d_inner:]], dim=-1)
+    hist = torch.cat([window.to(xc.dtype), xc], dim=1)
+    conv_x = take(p["conv_x"], shards, "conv_x", 1, channels)
+    conv_bx = take(p["conv_bx"], shards, "conv_bx", 0, channels)
+    w = torch.cat([conv_x, p["conv_B"], p["conv_C"]], dim=-1).to(xc.dtype)
+    bias = torch.cat([conv_bx, p["conv_bB"], p["conv_bC"]])
     conv = torch.einsum("btc,tc->bc", hist, w)[:, None, :] + bias.to(xc.dtype)
     conv = F.silu(conv)
     new_conv_state = hist[:, 1:, :]
+    if n_x != d_inner:
+        new_conv_state = torch.cat([shards.gather(new_conv_state[..., :n_x], 2, channels, d_inner),
+                                    new_conv_state[..., n_x:]], dim=-1)  # fmt: skip
 
-    xs = conv[..., :d_inner]
-    B = conv[..., d_inner : d_inner + g * n]
-    C = conv[..., d_inner + g * n :]
-    xs = xs.reshape(b, 1, n_heads, s_cfg.head_dim)
+    xs = conv[..., :n_x]
+    B = conv[..., n_x : n_x + g * n]
+    C = conv[..., n_x + g * n :]
+    xs = xs.reshape(b, 1, heads.stop - heads.start, s_cfg.head_dim)
     B = B.reshape(b, 1, g, n)
     C = C.reshape(b, 1, g, n)
-    dtv = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    A, D, dt_bias = _heads_of(p, shards, heads)
+    dtv = F.softplus(dt.float() + dt_bias)
 
     y, new_ssm = ssd_recurrent(xs, dtv, A, B, C, initial_state=state["ssm"])
-    y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(b, 1, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm_scale"])
-    return dense(p["out_proj"], y), {"ssm": new_ssm, "conv": new_conv_state}
+    y = y + xs * D.to(y.dtype)[None, None, :, None]
+    y = y.reshape(b, 1, n_x)
+    y = _gated_norm(p, y, z, channels, d_inner, shards)
+    out = dense_rows(p["out_proj"], y, channels, d_inner, sub(shards, "out_proj"))
+    return out, {"ssm": new_ssm, "conv": new_conv_state}

@@ -14,6 +14,13 @@ recomputed group launches its kernels again.  Checkpointing applies only
 where autograd records (``torch.is_grad_enabled()``): a forward without
 gradients has nothing to recompute.
 
+Across processes, ``shards`` (a ``repro_torch.parallel.sharding.Shards``
+beside the parameter tree) is threaded to every block: each group's
+parameters are joined over the data axes first where their specs split them
+there (``Shards.local``), and the layers split over ``model`` as their
+specs say.  A data-parallel train step passes the mesh alone (its parameters
+whole), so that a MoE layer dispatches the global batch.
+
 ``lm_loss`` is the mean next-token cross-entropy, in chunks of 2048 tokens,
 each checkpointed so that the full ``(b, s, vocab)`` float32 logits never
 exist at once.  The ``nn.Module`` that owns a parameter tree for serving is
@@ -30,12 +37,13 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import NamedSharding, Shards, Spec, shard_local, sub
 from .blocks import block_apply, group_pattern, init_block, prelude_layers
 from .layers.basics import apply_norm, embed, init_embedding, init_norm, unembed
 
 Params = Dict[str, Any]
 
-__all__ = ["REMAT_POLICIES", "init_lm", "lm_forward", "lm_logits", "lm_loss", "sinusoidal_positions", "tree_index"]
+__all__ = ["REMAT_POLICIES", "head_key", "init_lm", "local_params", "lm_forward", "lm_logits", "lm_loss", "sinusoidal_positions", "tree_index"]
 
 _aten = torch.ops.aten
 # name -> the ops whose outputs a checkpointed group keeps (None: no checkpoint),
@@ -71,13 +79,29 @@ def tree_index(tree, i: int):
     return tree[i]
 
 
+def _place(tree, shardings, stacked: bool = False):
+    """Every leaf of ``tree`` replaced by this process's block by the
+    ``NamedSharding`` at its path (a stacked leaf's, without its group axis)."""
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k], stacked) for k, v in tree.items()}
+    sharding = shardings
+    if stacked:
+        sharding = NamedSharding(sharding.mesh, Spec(*sharding.spec[1:]))
+    return shard_local(tree, sharding)
+
+
 def init_lm(
-    gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32, device=None
+    gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32, device=None, shardings=None
 ) -> Params:
     """Random parameters, each leaf drawn on ``device`` (the generator's own by default).
 
     Same tree, shapes and scales as the JAX package's ``init_lm``; the numbers
     differ, because the two generators do.
+
+    With ``shardings`` (``param_shardings``' tree over a ``DeviceMesh``),
+    each leaf is drawn whole, in the same order from the same generator, and
+    only this process's block of it is kept: a process never holds more of
+    the model than one layer group beside its blocks.
     """
     pre = prelude_layers(cfg)
     body = cfg.n_layers - pre
@@ -86,15 +110,18 @@ def init_lm(
     n_groups = body // cfg.block_group
     device = gen.device if device is None else torch.device(device)
 
+    def keep(key, tree, stacked=False):
+        return tree if shardings is None else _place(tree, shardings[key], stacked)
+
     params: Params = {
-        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device),
-        "final_norm": init_norm(cfg.norm, cfg.d_model, device=device),
+        "embed": keep("embed", init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device)),
+        "final_norm": keep("final_norm", init_norm(cfg.norm, cfg.d_model, device=device)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device)
+        params["lm_head"] = keep("lm_head", init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device))
 
     for i in range(pre):
-        params[f"prelude_{i}"] = init_block(gen, cfg, i, dtype, device)
+        params[f"prelude_{i}"] = keep(f"prelude_{i}", init_block(gen, cfg, i, dtype, device))
 
     # drawn group by group and copied into the stacked leaves at once, so that
     # the model is never held twice (qwen3-moe in bf16 fills most of a card)
@@ -103,6 +130,7 @@ def init_lm(
         for p_idx in range(cfg.block_group):
             li = pre + g * cfg.block_group + p_idx
             group[f"pos_{p_idx}"] = init_block(gen, cfg, li, dtype, device)
+        group = keep("blocks", group, stacked=True)
         if g == 0:
             params["blocks"] = _stacked_like(group, n_groups)
         _tree_copy_into(tree_index(params["blocks"], g), group)
@@ -128,19 +156,22 @@ def lm_forward(
     remat_policy: str = "dots",
     residual_spec=None,
     embed_grad_spec=None,
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
     """Returns final hidden states (b, s, d_model) in compute dtype.
 
     ``remat_policy`` names a ``REMAT_POLICIES`` entry, applied to each block
     group as the JAX function applies it to its scan body.
     ``residual_spec`` and ``embed_grad_spec`` are the JAX function's sharding
-    hints: accepted and ignored on one device.
+    hints: accepted and ignored (the residual stays whole; see
+    ``blocks.py``).  ``shards`` places the forward across processes (module
+    note).
     """
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat_policy!r}; choose from {sorted(REMAT_POLICIES)}")
     dtype = torch_dtype(cfg.dtype)
     if embeddings is None:
-        x = embed(params["embed"], tokens, dtype)
+        x = embed(local_params(shards, "embed", params), tokens, dtype, sub(shards, "embed"))
     else:
         x = embeddings.to(dtype)
     b, s, _ = x.shape
@@ -153,13 +184,18 @@ def lm_forward(
     pattern = group_pattern(cfg)
     pre = prelude_layers(cfg)
     for i in range(pre):
-        x = block_apply(
-            params[f"prelude_{i}"], cfg, x, cfg.layer_kind(i), cfg.layer_is_moe(i), positions
-        )
+        key = f"prelude_{i}"
+        x = block_apply(local_params(shards, key, params), cfg, x, cfg.layer_kind(i), cfg.layer_is_moe(i), positions,
+                        shards=sub(shards, key))  # fmt: skip
+
+    group_shards = None if shards is None else shards["blocks"].group()
 
     def group_body(x, group_params):
+        if group_shards is not None:
+            group_params = group_shards.local(group_params)
         for p_idx, (kind, is_moe) in enumerate(pattern):
-            x = block_apply(group_params[f"pos_{p_idx}"], cfg, x, kind, is_moe, positions)
+            key = f"pos_{p_idx}"
+            x = block_apply(group_params[key], cfg, x, kind, is_moe, positions, shards=sub(group_shards, key))
         return x
 
     saved = REMAT_POLICIES[remat_policy]
@@ -172,9 +208,21 @@ def lm_forward(
     return apply_norm(params["final_norm"], x, cfg.norm)
 
 
-def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return unembed(head, hidden)
+def local_params(shards: Optional[Shards], key: str, params: Params):
+    """``params[key]`` joined over the data axes where its specs split it there."""
+    return params[key] if shards is None else shards[key].local(params[key])
+
+
+def head_key(cfg: ModelConfig) -> str:
+    """The table the logits are read from: the embedding when tied, else ``lm_head``."""
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
+def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor, shards: Optional[Shards] = None) -> torch.Tensor:
+    """The logits of ``hidden``; with the head's vocabulary split over
+    ``model``, this process's block of them (``basics.greedy`` takes the
+    argmax across the blocks)."""
+    return unembed(local_params(shards, head_key(cfg), params), hidden)
 
 
 def lm_loss(
@@ -185,6 +233,7 @@ def lm_loss(
     residual_spec=None,
     embed_grad_spec=None,
     logits_spec=None,
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy, float32.  ``batch``: tokens/embeddings + labels.
 
@@ -192,7 +241,9 @@ def lm_loss(
     (one where that does not divide it), each chunk's summed CE is
     checkpointed, the gold logit is a masked sum over the vocabulary (not a
     gather), and the total is divided by ``b * s``.  The sharding hints are
-    accepted and ignored on one device.
+    accepted and ignored on one device.  ``shards`` is ``lm_forward``'s: a
+    data-parallel step's mesh, with the parameters whole (training does not
+    split over ``model``).
     """
     hidden = lm_forward(
         params,
@@ -200,6 +251,7 @@ def lm_loss(
         tokens=batch.get("tokens"),
         embeddings=batch.get("embeddings"),
         remat_policy=remat_policy,
+        shards=shards,
     )
     labels = batch["labels"]
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]

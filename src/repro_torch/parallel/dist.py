@@ -10,12 +10,21 @@ axes that the sharding, the sync policies and the train step share:
   * ``init_distributed``: the backend follows the device -- NCCL for a card
     (and a run that cannot get NCCL raises: there is no quiet ``gloo`` on a
     card), ``gloo`` for the CPU -- always with a finite timeout.  An ``env://``
-    run (``torchrun``) and a ``file://`` run (the tests) both work;
+    run (``torchrun``) and a ``file://`` run (the tests) both work.  Only a
+    caller that names ``backend=`` gets another: ``chip_smoke.py`` runs two
+    processes on one card in a ``gloo`` group, because NCCL refuses two ranks
+    on one device;
   * ``all_reduce``, ``all_gather``, ``reduce_scatter`` over a tuple of mesh
     axes: a tuple such as ``("pod", "data")`` counts major to minor, as a
     ``PartitionSpec`` entry does, so a collective over it is the collectives
     over each axis in turn.  A collective over an axis of one process still
-    runs (a copy), so that a one-card run goes through the same calls.
+    runs (a copy), so that a one-card run goes through the same calls;
+  * the forward over ``model`` uses ``all_reduce`` and nothing else: it
+    gathers blocks by an ``all_reduce`` into a zeroed buffer in which each
+    process has written its own block (``sharding.Shards.gather``).
+    ``all_reduce`` and ``broadcast`` are the only collectives ``gloo`` runs
+    on CUDA tensors, so the same path runs under NCCL on cards and under
+    ``gloo`` on one card.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ def init_distributed(
     world: Optional[int] = None,
     init_method: Optional[str] = None,
     timeout: float = DEFAULT_TIMEOUT_S,
+    backend: Optional[str] = None,
 ) -> torch.device:
     """Join the process group and return this process's device.
 
@@ -65,6 +75,11 @@ def init_distributed(
     (``device_id``; ``cuda`` without an index is ``cuda:$LOCAL_RANK``), and
     the CPU takes ``gloo``.  ``timeout`` (seconds) must be finite: a peer that
     died leaves the others waiting that long and no longer.
+
+    ``backend`` overrides that choice, and nothing here ever picks it: it is
+    for a caller that knows why, such as two processes sharing one card in a
+    ``gloo`` group over CUDA tensors (NCCL refuses two ranks on one device),
+    where only ``all_reduce`` and ``broadcast`` run.
     """
     if not (0 < timeout < math.inf):
         raise ValueError(f"the process group needs a finite timeout, got {timeout!r} s")
@@ -73,13 +88,13 @@ def init_distributed(
         if dev.index is None:
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         dev = resolve_device(dev)
-        if not dist.is_nccl_available():
+        if backend is None and not dist.is_nccl_available():
             raise RuntimeError("this torch has no NCCL: a process group on a card runs on NCCL, and the port "
                                "takes no gloo in its place")  # fmt: skip
         torch.cuda.set_device(dev)
-        backend = "nccl"
+        backend = backend or "nccl"
     elif dev.type == "cpu":
-        backend = "gloo"
+        backend = backend or "gloo"
     else:
         raise ValueError(f"no process-group backend for a {dev.type} device")
     kwargs = dict(backend=backend, init_method=init_method or "env://", timeout=datetime.timedelta(seconds=timeout))
@@ -175,3 +190,4 @@ def reduce_scatter(x: torch.Tensor, dim: int, mesh, axes, async_op: bool = False
         out = block
     pending = Pending([w for w in works if w is not None], lambda: out.movedim(0, dim).contiguous())
     return pending if async_op else pending.wait()
+

@@ -31,6 +31,13 @@ which a tensor subclass's dispatch reaches neither of.  ``shard_local`` takes
 this process's block of a whole array at its mesh coordinates, ``gather``
 joins the blocks again, and ``param_shardings`` / ``tree_size_bytes`` are
 the reference's.
+
+Using the specs: :class:`Shards` walks a spec tree beside the parameter (or
+cache) tree, so that a layer reads which head, channel, expert or vocabulary
+block this process holds from the leaf's own spec (:func:`model_block`) and
+can never split otherwise than ``_spec_for`` placed it.
+``check_data_parallel`` says which steps run across processes: serving on
+any ``{"data", "model"}`` mesh, training with ``model = 1``.
 """
 
 from __future__ import annotations
@@ -45,18 +52,22 @@ from repro_torch.parallel import dist as pdist
 
 __all__ = [
     "NamedSharding",
+    "Shards",
     "Spec",
     "axis_sizes",
     "batch_spec",
     "check_data_parallel",
     "dp_axes",
     "gather",
+    "held",
     "is_spec",
     "mesh_coords",
     "model_axis_size",
+    "model_block",
     "param_shardings",
     "param_specs",
     "shard_local",
+    "sub",
     "tree_map_with_path",
     "tree_size_bytes",
     "zero_spec",
@@ -363,13 +374,182 @@ def gather(local: torch.Tensor, sharding: NamedSharding, axes: Optional[Sequence
     return out
 
 
-def check_data_parallel(mesh: Any) -> None:
-    """Raise unless ``mesh`` is data-parallel only: a train or serve step
-    across processes splits the batch over the data axes, and its forward
-    does not split a layer over ``model``."""
-    if model_axis_size(mesh) > 1:
+def check_data_parallel(mesh: Any, step: str = "train") -> None:
+    """Raise unless a ``step`` ("train" or "serve") across processes runs on
+    ``mesh``: a serve step splits the batch over the data axes and its layers
+    over ``model`` (:class:`Shards`); a train step splits only the batch, and
+    raises for ``model > 1``."""
+    if step not in ("train", "serve"):
+        raise ValueError(f"step is 'train' or 'serve', got {step!r}")
+    if step == "train" and model_axis_size(mesh) > 1:
         raise NotImplementedError(
-            f"mesh {axis_sizes(mesh)}: tensor and expert parallelism of the forward over 'model' is not "
-            "in the port yet (ROADMAP Queue 1 item 5); a train or serve step across processes takes "
-            "model = 1, and nothing is replicated in its place"
+            f"mesh {axis_sizes(mesh)}: training over 'model' (tensor and expert parallelism of the forward and "
+            "its backward) is not in the port yet (ROADMAP Queue 1 item 5b); a train step across processes "
+            "takes model = 1, and nothing is replicated in its place"
         )
+
+
+def model_block(spec: Spec, dim: int, whole: int, mesh: Any) -> slice:
+    """The range of dimension ``dim`` (``whole`` long) of an array placed by
+    ``spec`` that this process holds over ``model``: its head, channel,
+    expert or vocabulary block where the entry names ``model``, the whole
+    dimension where it does not.  Data axes in other entries are ignored (a
+    layer joins them first, :meth:`Shards.local`); an entry that names
+    ``model`` beside another axis is refused (the rules make none)."""
+    entries = list(spec) + [None] * (dim + 1 - len(spec))
+    names = entry_axes(entries[dim])
+    if "model" not in names:
+        return slice(0, whole)
+    if names != ("model",):
+        raise ValueError(f"{spec}: dimension {dim} is split over {names}, not over 'model' alone")
+    n = model_axis_size(mesh)
+    if whole % n:
+        raise ValueError(f"{spec}: dimension {dim} of {whole} does not split over {n} model processes")
+    i = _model_index(mesh)
+    return slice(i * (whole // n), (i + 1) * (whole // n))
+
+
+def _model_index(mesh: Any) -> int:
+    if "model" not in axis_sizes(mesh):
+        return 0
+    return mesh.get_coordinate()[list(mesh.mesh_dim_names).index("model")]
+
+
+def held(shards: Optional["Shards"], path: Sequence[str], leaf: torch.Tensor, dim: int) -> Tuple[slice, int]:
+    """:meth:`Shards.held`, and the whole dimension where ``shards`` is None (one process)."""
+    if shards is None:
+        return slice(0, leaf.shape[dim]), leaf.shape[dim]
+    return shards.held(path, leaf, dim)
+
+
+def sub(shards: Optional["Shards"], key: str) -> Optional["Shards"]:
+    """``shards[key]``, None where ``shards`` is None."""
+    return None if shards is None else shards[key]
+
+
+class Shards:
+    """A parameter (or cache) subtree's placement on a ``DeviceMesh``, walked
+    beside the subtree: ``shards["mixer"]["wq"]`` belongs to
+    ``params["mixer"]["wq"]``.  ``specs`` is the subtree's :class:`Spec` tree
+    (``param_specs`` / ``cache_specs``), or None where every leaf is whole
+    (a data-parallel step that holds its parameters whole).
+
+    A layer asks it which block of a leaf this process holds over ``model``
+    (:meth:`block`, from the leaf's own spec: the port can never split a
+    layer otherwise than ``_spec_for`` placed it), joins the data-axis
+    (FSDP) blocks of its parameters before use (:meth:`local`), and reduces
+    or gathers over ``model`` (:meth:`psum`, :meth:`gather`: ``all_reduce``
+    alone, see ``parallel/dist.py``).  Over a model axis of one process the
+    collectives are skipped: nothing is split.
+    """
+
+    def __init__(self, mesh: Any, specs: Any = None):
+        if isinstance(mesh, Mapping):
+            raise TypeError("Shards places a subtree on a DeviceMesh, not on an {axis: size} mapping")
+        self.mesh, self.specs = mesh, specs
+        sizes = axis_sizes(mesh)
+        self.model = sizes.get("model", 1)
+        self.model_index = _model_index(mesh)
+        self.dp = dp_axes(sizes)
+        self.dp_size = math.prod(sizes[a] for a in self.dp)
+
+    @classmethod
+    def of(cls, shardings: Any) -> Optional["Shards"]:
+        """The shards of a :class:`NamedSharding` tree (``param_shardings``),
+        None for None."""
+        if shardings is None:
+            return None
+        found = []
+        specs = tree_map_with_path(lambda path, s: found.append(s.mesh) or s.spec, shardings,
+                                   is_leaf=lambda x: isinstance(x, NamedSharding))  # fmt: skip
+        return cls(found[0], specs)
+
+    def _with(self, specs: Any) -> "Shards":
+        out = object.__new__(Shards)
+        out.__dict__.update(self.__dict__, specs=specs)
+        return out
+
+    def __getitem__(self, key: str) -> "Shards":
+        return self._with(None if self.specs is None else self.specs[key])
+
+    def group(self) -> "Shards":
+        """The shards of one entry of a stacked subtree (its leading group axis dropped)."""
+        if self.specs is None:
+            return self
+        return self._with(tree_map_with_path(lambda path, s: Spec(*s[1:]), self.specs, is_leaf=is_spec))
+
+    def spec(self, *path: str) -> Spec:
+        node = self.specs
+        for key in path:
+            if node is None:
+                break
+            node = node[key]
+        return Spec() if node is None else node
+
+    def block(self, path: Sequence[str], dim: int, whole: int) -> slice:
+        """This process's range of dimension ``dim`` (``whole`` long) of the
+        leaf at ``path`` (a key or a tuple of keys), by its spec."""
+        path = (path,) if isinstance(path, str) else tuple(path)
+        return model_block(self.spec(*path), dim, whole, self.mesh)
+
+    def held(self, path: Sequence[str], leaf: torch.Tensor, dim: int) -> Tuple[slice, int]:
+        """(this process's range of dimension ``dim``, the whole length) of
+        ``leaf``, the block at ``path`` (its data-axis blocks joined)."""
+        path = (path,) if isinstance(path, str) else tuple(path)
+        spec = self.spec(*path)
+        entry = spec[dim] if dim < len(spec) else None
+        whole = leaf.shape[dim] * (self.model if "model" in entry_axes(entry) else 1)
+        return model_block(spec, dim, whole, self.mesh), whole
+
+    def local(self, tree: Any) -> Any:
+        """``tree`` (this subtree's parameters, each leaf this process's block)
+        with every dimension split over the data axes joined: each leaf split
+        over ``model`` alone, as the layers take it (the reference's FSDP
+        rule gathers a weight in the forward the same way)."""
+        if self.specs is None or self.dp_size == 1:
+            return tree
+        dp = set(self.dp)
+
+        def one(path, leaf, spec):
+            if not any(set(entry_axes(e)) & dp for e in spec):
+                return leaf
+            return gather(leaf, NamedSharding(self.mesh, spec), self.dp)
+
+        return tree_map_with_path(one, tree, self.specs)
+
+    def psum(self, x: torch.Tensor, op=None) -> torch.Tensor:
+        """``x`` reduced over ``model`` in place (sum by default), returned."""
+        if self.model == 1:
+            return x
+        return pdist.all_reduce(x, self.mesh, "model", op=op if op is not None else pdist.dist.ReduceOp.SUM)
+
+    def gather(self, x: torch.Tensor, dim: int, part: slice, whole: int) -> torch.Tensor:
+        """The whole of dimension ``dim`` (``whole`` long) from every model
+        process's ``part`` of it (``x``, this process's), a new tensor; ``x``
+        itself where ``part`` is already the whole."""
+        return self.gather_all([(x, dim, part, whole)])[0]
+
+    def gather_all(self, items: Sequence[Tuple[torch.Tensor, int, slice, int]]) -> list:
+        """:meth:`gather` of each ``(x, dim, part, whole)`` (tensors of one
+        type), by one ``all_reduce`` of one zeroed buffer that holds them all:
+        a decode step's collectives are few and small, so their count is
+        their cost."""
+        shapes = [tuple(x.shape[:d]) + (whole,) + tuple(x.shape[d + 1 :]) for x, d, _, whole in items]
+        todo = [i for i, (x, _, part, whole) in enumerate(items) if part != slice(0, whole)]
+        if not todo:
+            return [x for x, *_ in items]
+        sizes = [math.prod(shapes[i]) for i in todo]
+        flat = items[todo[0]][0].new_zeros(sum(sizes))
+        out = [x for x, *_ in items]
+        for i, view in zip(todo, flat.split(sizes)):
+            x, d, part, _ = items[i]
+            out[i] = view.view(shapes[i])
+            out[i].narrow(d, part.start, part.stop - part.start).copy_(x)
+        self.psum(flat)
+        return out
+
+    def psum_all(self, tensors: Sequence[torch.Tensor]) -> list:
+        """Each of ``tensors`` (of one type) summed over ``model``, by one
+        ``all_reduce`` of their concatenation: new tensors."""
+        flat = self.psum(torch.cat([t.reshape(-1) for t in tensors]))
+        return [part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]

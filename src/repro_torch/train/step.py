@@ -14,8 +14,10 @@ for a (model config, train config, mesh) triple.  The mesh is either
     (``scu``: a reduce-scatter onto the ZeRO blocks of the optimizer state);
     AdamW updates this process's blocks; the new parameters are gathered
     back whole over the data axes; the loss is the mean over the global
-    batch.  A mesh with ``model > 1`` raises ``NotImplementedError``: the
-    forward is not split over ``model`` yet.
+    batch.  The forward gets the mesh (``lm_loss(..., shards=...)``), so that
+    a MoE layer dispatches the global batch as the reference's one program
+    does.  A mesh with ``model > 1`` raises ``NotImplementedError``: training
+    over ``model`` is ROADMAP Queue 1 item 5b.
 
 One known difference from the reference over a ``DeviceMesh``: the
 parameters are held whole over the data axes (``param_specs(...,
@@ -41,6 +43,7 @@ from repro_torch.parallel.sharding import (
     Spec,
     axis_sizes,
     batch_spec,
+    Shards,
     check_data_parallel,
     dp_axes,
     gather,
@@ -159,8 +162,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
         out = {k: batch_spec(sizes, extra_dims=2 if v.dim() == 3 else 1) for k, v in batch.items()}
         return {k: NamedSharding(mesh, s) for k, s in out.items()} if placed else out
 
+    shards = Shards(mesh) if placed else None  # the parameters are whole: the mesh alone
+
     def loss_fn(p, b):
-        return lm_loss(p, cfg, b, remat_policy=tcfg.remat_policy)
+        return lm_loss(p, cfg, b, remat_policy=tcfg.remat_policy, shards=shards)
 
     def step_fn(params, opt_state, step, batch):
         if accum == 1:

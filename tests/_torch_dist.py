@@ -172,9 +172,10 @@ def placements(rank: int, world: int, workdir: Path, archs: tuple) -> dict:
     the mesh, each expected to refuse ``model = 2``."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch.mesh import device_mesh
-    from repro_torch.launch.serve import make_inputs, serve
-    from repro_torch.parallel.sharding import gather, param_shardings, shard_local, tree_map_with_path, tree_size_bytes
-    from repro_torch.serve.decode import CausalLM
+    from repro_torch.launch.serve import make_inputs, place_model, serve
+    from repro_torch.parallel.sharding import (Shards, gather, param_shardings, shard_local, tree_map_with_path,
+                                               tree_size_bytes)
+    from repro_torch.serve.decode import CausalLM, cache_shards, capture_serve_step, init_cache
     from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.train.step import TrainConfig, abstract_params, make_train_step
 
@@ -204,11 +205,14 @@ def placements(rank: int, world: int, workdir: Path, archs: tuple) -> dict:
         make_train_step(cfg, TrainConfig(), mesh)
     except NotImplementedError as err:
         out["train_refusal"] = str(err)
-    model = CausalLM(cfg, params)
+    model = place_model(CausalLM(cfg, params), mesh)
     try:
-        serve(model, make_inputs(cfg, 4, 8, torch.Generator().manual_seed(1)), 2, log=lambda *a: None, mesh=mesh)
-    except NotImplementedError as err:
+        capture_serve_step(cfg, model.params, init_cache(cfg, 4, 12, "cpu", mesh), 2, model.shardings,
+                           cache_shards(cfg, Shards.of(model.shardings), 2, 12))  # fmt: skip
+    except ValueError as err:
         out["serve_refusal"] = str(err)
+    out["served"] = serve(model, make_inputs(cfg, 4, 8, torch.Generator().manual_seed(1)), 2, log=lambda *a: None,
+                          mesh=mesh)["tokens"].numpy()  # fmt: skip
     return out
 
 
@@ -298,4 +302,97 @@ def serving(rank: int, world: int, workdir: Path, archs: tuple) -> dict:
     return out
 
 
-JOBS = {"collectives": collectives, "placements": placements, "data_parallel": data_parallel, "serving": serving}
+def model_axis(rank: int, world: int, workdir: Path, archs: tuple, batch: int, prompt: int, gen: int,
+               odd_vocab: int) -> dict:
+    """On ``{"data": 2, "model": 2}``: each arch's float32 smoke params
+    restored at their ``param_shardings`` placements from the checkpoint
+    ``params_<arch>`` and served (``tokens_<arch>.npy`` the prompts): the
+    prefill logits of this rank's rows, the gathered tokens, the last step's
+    logits, and the shapes of this rank's parameter and cache blocks.  Then
+    the refusals of ``make_train_step`` at ``model = 2`` and of a decode step
+    of the last arch's placed model without its cache's placement, and
+    phi4's smoke config at a vocabulary of ``odd_vocab`` rows (no split over
+    ``model``) served from the port's own seed-0 params."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.parallel.sharding import param_shardings
+    from repro_torch.serve.decode import CausalLM, EagerServeStep, init_cache
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.train.step import TrainConfig, abstract_params, make_train_step
+
+    mesh = device_mesh({"data": 2, "model": 2}, "cpu")
+    out = {"coords": tuple(mesh.get_coordinate())}
+    quiet = dict(log=lambda *a: None, mesh=mesh)
+    for arch in archs:
+        cfg = float32_smoke(arch)
+        shardings = param_shardings(abstract_params(cfg, torch.float32), mesh, cfg)
+        params = restore_checkpoint(str(workdir / f"params_{arch}"), 0, {"params": abstract_params(cfg, torch.float32)},
+                                    {"params": shardings}, device="cpu")["params"]  # fmt: skip
+        tokens = torch.from_numpy(np.load(workdir / f"tokens_{arch}.npy"))
+        got = serve(CausalLM(cfg, params, shardings), {"tokens": tokens}, gen, **quiet)
+        out[arch] = {"prefill_logits": got["prefill_logits"].numpy(), "tokens": got["tokens"].numpy(),
+                     "last_logits": got["last_logits"].numpy(),
+                     "params": {path: tuple(t.shape) for path, t in leaves_with_path(params)},
+                     "cache": {path: tuple(t.shape)
+                               for path, t in leaves_with_path(init_cache(cfg, batch, prompt + gen, "cpu", mesh))}}
+    try:
+        make_train_step(cfg, TrainConfig(), mesh)
+    except NotImplementedError as err:
+        out["train_refusal"] = str(err)
+    model, cache = CausalLM(cfg, params, shardings), init_cache(cfg, batch, prompt + gen, "cpu", mesh)
+    out["step_refusals"] = []
+    for step in (lambda: model.decode_step(cache, tokens[: batch // 2, :1], torch.zeros(batch // 2, dtype=torch.int32)),
+                 lambda: EagerServeStep(cfg, params, cache, batch // 2, shardings)):  # fmt: skip
+        try:
+            step()
+        except ValueError as err:
+            out["step_refusals"].append(str(err))
+    cfg = dataclasses.replace(float32_smoke("phi4-mini-3.8b"), vocab_size=odd_vocab)
+    model = CausalLM(cfg, init_lm(torch.Generator().manual_seed(0), cfg, torch.float32))
+    got = serve(model, make_inputs(cfg, batch, prompt, torch.Generator().manual_seed(1)), gen, **quiet)
+    out["odd_vocab"] = {"tokens": got["tokens"].numpy(), "prefill_logits": got["prefill_logits"].numpy(),
+                        "table": tuple(param_shardings(model.params, mesh, cfg)["embed"]["table"].spec)}
+    return out
+
+
+def moe_data(rank: int, world: int, workdir: Path, arch: str, batch: int, prompt: int, gen: int, seq: int,
+             steps: int, lr: float) -> dict:
+    """On ``{"data": world, "model": 1}``: ``arch``'s float32 smoke model (seed 0) at its
+    own capacity factor served on 4 prompts (seed 1), this rank's rows of
+    the prefill and last logits and the gathered tokens; then ``steps``
+    train steps (scu) on this rank's rows of one global batch (seed 2),
+    their losses and gradient norms."""
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.decode import CausalLM
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    mesh = device_mesh({"data": world, "model": 1}, "cpu")
+    cfg = float32_smoke(arch)
+    got = serve(CausalLM(cfg, init_lm(torch.Generator().manual_seed(0), cfg, torch.float32)),
+                make_inputs(cfg, batch, prompt, torch.Generator().manual_seed(1)), gen, log=lambda *a: None,
+                mesh=mesh)  # fmt: skip
+    out = {"tokens": got["tokens"].numpy(), "prefill_logits": got["prefill_logits"].numpy(),
+           "last_logits": got["last_logits"].numpy()}
+    params = init_lm(torch.Generator().manual_seed(0), cfg, torch.float32)
+    step_fn, (in_sh, _), _, _ = make_train_step(cfg, train_config("scu", lr, 1), mesh)
+    opt_state = init_opt_state(params, in_sh[1])
+    rows = slice(rank * batch // world, (rank + 1) * batch // world)
+    whole = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=torch.Generator().manual_seed(2))
+    data = {"tokens": whole[rows, :-1], "labels": whole[rows, 1:]}
+    step = torch.zeros((), dtype=torch.int32)
+    out["loss"], out["grad_norm"] = [], []
+    for _ in range(steps):
+        params, opt_state, step, metrics = step_fn(params, opt_state, step, data)
+        out["loss"].append(metrics["loss"].item())
+        out["grad_norm"].append(metrics["grad_norm"].item())
+    return out
+
+
+JOBS = {"collectives": collectives, "placements": placements, "data_parallel": data_parallel, "serving": serving,
+        "model_axis": model_axis, "moe_data": moe_data}
