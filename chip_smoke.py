@@ -156,6 +156,44 @@ non-zero exit if it fails:
             the shapes and types the ranks handed them in (b): phi4's 12 /
             4 heads, deepseek's 8 MLA heads at (192, 128), mamba2's 32 SSD
             heads, at 4 x 4096.
+5d. mtrain: training over the ``model`` axis, the model phase's two
+            processes, NCCL refusal and ``gloo`` group, and models (phi4's 12
+            / 4 heads a rank, mamba2's 32 SSD heads, deepseek's 8 MLA heads
+            and 32 experts), through ``make_train_step`` over the
+            ``DeviceMesh`` (scu, remat full, lr 3e-4): each rank draws its
+            parameter blocks leaf by leaf and its optimizer state's.  (a)
+            float32 at a cut depth (phi4 2 layers, mamba2 and deepseek 4; 2 x
+            512, 3 steps) through the kernels, against the same params
+            trained at model = 1 here through the plain versions, the
+            routing pinned to that run's: losses and grad norms within 1e-4
+            relative; each rank's step-0 gradient of every leaf within 1e-4
+            of the largest entry of its block of model = 1's (a missed
+            partial sum is off by about half of it); in every parameter
+            block every entry within 1e-4 of the block's largest entry plus
+            2e-2 of its largest update, but for an entry whose gradient at
+            some step is below 1e-3 of its leaf's RMS at model = 1 and at
+            model = 2 alike (AdamW lifts float32 noise there, by up to 2 lr
+            a step; the yardstick and the ranks record each entry's smallest
+            gradient over the steps), and every entry within twice the
+            summed learning rates; the leaves whole over ``model`` the same
+            bits on both ranks; at most 1 % of the router's own top-k sets
+            otherwise than model = 1's.  (b) bf16 at full
+            width, the train phase's batch and optimizer: phi4 and mamba2
+            whole at 1 x 4096, deepseek at 4 of its 27 layers (its whole
+            training state does not fit the card); each rank's memory
+            reckoned before the call and printed beside its peak.  Checks,
+            by rank, that every leaf of its blocks has a finite, non-zero
+            gradient at step 0, that every loss is finite and the last below
+            the first, that after the last step the leaves whole over
+            ``model`` (each rank updates its own copy) hold the same bits on
+            both ranks, and that K1's forward launched twice and its backward
+            once per attention layer and K2 twice per SSD layer, a step
+            (counts set to 0 just before a step, read just after); prints ms
+            a step, peak GiB, params and optimizer state held, and the gap to
+            the train phase's model = 1 losses where the batch is the same.
+            (c) Back in this process, K1's backward and K2's forward held to
+            their plain versions and timed (beside SDPA's backward and the
+            bound) at the shapes the ranks handed them in (b).
 6. loop:    the training loop, the checkpoint and the data pipeline
             (``repro_torch.launch.train``'s objects, ``train/loop.py``,
             ``train/checkpoint.py``, ``train/data.py``): mamba2-1.3b whole
@@ -202,8 +240,11 @@ non-zero exit if it fails:
             read just after).
 9. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5; K1
             and K2 with, under ``model_axis``, each model's launches by rank
-            at model = 2 and the check and times at a rank's shape), the card line,
-            and the last line ``{"ok": true, "device": {...}}``.
+            at model = 2 and the check and times at a rank's shape; K1, K1's
+            backward and K2 with, under ``model_axis_training``, each model's
+            launches a training step by rank at model = 2, and K1's backward
+            and K2 their check and times at a rank's training shape), the
+            card line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -212,6 +253,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -346,6 +388,27 @@ MODEL_TOL = 1e-4
 # otherwise than model = 1's (near-ties; a fault in routing across the split shows as many)
 MODEL_ROUTING_DIFFER = 0.01
 MODEL_RANKS, MODEL_TIMEOUT_S = 2, 400
+# the mtrain phase: training over the model axis, the model phase's two processes and
+# models.  (a) float32 at a cut depth (layers), MTRAIN_F32_BATCH x MTRAIN_F32_LEN tokens,
+# MTRAIN_STEPS steps through the kernels, against the same params trained at model = 1
+# through the plain versions, the routing pinned to that run's: losses and grad norms
+# within MTRAIN_TOL relative; each rank's step-0 gradient of every leaf within MTRAIN_TOL
+# of the largest entry of its block of model = 1's; in every parameter block every entry
+# within MTRAIN_TOL of the block's largest entry plus MTRAIN_UPDATE_TOL of its largest
+# update over the steps, but for an entry whose gradient at some step, at model = 1 and at
+# model = 2 alike, is below MTRAIN_QUIET of its leaf's RMS at model = 1 at that step, and
+# every entry within 2 x the summed learning rates (AdamW divides a gradient entry by its
+# own running RMS, so where a gradient is near zero, float32 sums in another order move its
+# update by up to 2 lr a step: the float32 step of the train phase meets the same, one step
+# at a time).  (b) bf16 at
+# full width on the train phase's batch and optimizer: (arch, layers or None for the
+# whole model, batch, sequence); deepseek cut to 4 of its 27 layers, whose whole
+# training state does not fit the card
+MTRAIN_F32 = {"phi4-mini-3.8b": 2, "mamba2-1.3b": 4, "deepseek-v2-lite-16b": 4}
+MTRAIN_F32_BATCH, MTRAIN_F32_LEN, MTRAIN_STEPS = 2, 512, 3
+MTRAIN_TOL, MTRAIN_UPDATE_TOL, MTRAIN_QUIET = 1e-4, 2e-2, 1e-3
+MTRAIN_BF16 = (("phi4-mini-3.8b", None, 1, 4096), ("mamba2-1.3b", None, 1, 4096), ("deepseek-v2-lite-16b", 4, 1, 4096))
+MTRAIN_TIMEOUT_S = 420
 LOOP_BATCH, LOOP_SEQ = 4, 4096
 LOOP_ARGS = ["--arch", "mamba2-1.3b", "--batch", str(LOOP_BATCH), "--seq", str(LOOP_SEQ), "--sync", "scu",
              "--remat", "full"]  # fmt: skip
@@ -715,6 +778,84 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
     }
 
 
+def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
+    """K1's backward kernel at one bf16 causal shape: against its plain
+    version (``ops.attention_bwd``) on the same inputs, each gradient within
+    ``BWD_TOL`` of its largest entry, then timed in turns with SDPA's
+    backward (a yardstick only) and the PyTorch FA-2 backward (the plain
+    version, the route it replaced); its row for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd, kernel_bwd_path
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+
+    dev = torch.device("cuda")
+    tol = BWD_TOL
+    q, k, v, dout = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+                     for sh in ((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv), (b, s, h, dv)))  # fmt: skip
+    qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+    out, lse = flash_attention_fwd(qt, kt, vt, causal=True)
+    o = out.transpose(1, 2)
+
+    def kernel():
+        return flash_attention_bwd(qt, kt, vt, out, lse, dt, causal=True)
+
+    def fa2():
+        return attention_bwd(q, k, v, o, lse, dout, causal=True)
+
+    got, want = kernel(), fa2()
+    torch.cuda.synchronize()
+    errs = {}
+    for which, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[which] = (g.transpose(1, 2).float() - w.float()).abs().max().item()
+        if not (torch.isfinite(g).all() and errs[which] <= tol * max(1.0, w.float().abs().max().item())):
+            raise SystemExit(f"{tag} K1's backward kernel: {which} at b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} "
+                             f"strays from its plain version by {errs[which]} (tol {tol:g} of the largest entry)")
+    del got, want
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
+    ref_out = None
+    try:
+        ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+        def sdpa():
+            return torch.autograd.grad(ref_out, (qs, ks, vs), dt, retain_graph=True)
+
+        sdpa()
+    except RuntimeError as refused:
+        print(f"{tag} SDPA refuses dqk={dqk} dv={dv} with a backward: {str(refused).splitlines()[0]}")
+        sdpa = None
+    # in turns: kernel, SDPA, FA-2, then the reverse
+    runs = [("kernel", kernel, BWD_ITERS), ("sdpa", sdpa, BWD_ITERS), ("fa2", fa2, FA2_ITERS)]
+    times = {key: [] for key, _, _ in runs}
+    for r in range(BWD_ROUNDS):
+        for key, fn, iters in (runs if r % 2 == 0 else runs[::-1]):
+            if fn is not None:
+                times[key].append(time_ms(fn, iters=iters, warmup=1))
+    bound_ms, bound_by = attention_bwd_bound(b, h, kvh, s, dqk, dv, "bfloat16")
+    flops = 2.5 * attention_flops(b, h, s, s, dqk, dv, True)
+    ms = min(times["kernel"])
+    row = {"b": b, "s": s, "h": h, "kvh": kvh, "head_dims": [dqk, dv],
+           "path": kernel_bwd_path(torch.bfloat16, dqk, dv), "max_abs_err": max(errs.values()),
+           "max_abs_err_by_grad": errs, "ms": ms, "ms_turns": times["kernel"],
+           "plain_ms": min(times["fa2"]), "plain_ms_turns": times["fa2"],
+           "library_ms": min(times["sdpa"]) if times["sdpa"] else None, "library_ms_turns": times["sdpa"],
+           "bound_ms": bound_ms, "bound_by": bound_by}  # fmt: skip
+    sdpa_text = ("refused" if not times["sdpa"] else
+                 f"{', '.join(f'{x:.3f}' for x in times['sdpa'])} ms (kernel {ms / row['library_ms']:.2f}x)")
+    print(f"{tag} flash_attention_bwd b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} bf16 causal, {row['path']} "
+          f"kernels: against its plain version max_abs_err "
+          + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+          + f" (tol {tol:g} of the largest entry); kernel {', '.join(f'{x:.3f}' for x in times['kernel'])} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s counting 2.5x the forward's products, {bound_ms / ms * 100:.0f} % of "
+          f"the bound's rate), PyTorch FA-2 backward {', '.join(f'{x:.3f}' for x in times['fa2'])} ms "
+          f"(kernel {row['plain_ms'] / ms:.1f}x faster), SDPA's backward {sdpa_text}, bound {bound_ms:.3f} ms "
+          f"by {bound_by} (in turns)")
+    del q, k, v, dout, qt, kt, vt, dt, out, lse, o, qs, ks, vs, ref_out
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
     """Phase 3 for K1's backward kernel (``flash_attention_bwd``) and the
     autograd Function around K1.  The Function's gradients against PyTorch's
@@ -726,12 +867,12 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
     the kernel against its plain version (``ops.attention_bwd``) on the same
     inputs, and timed in turns with SDPA's backward (a yardstick only) and
     the PyTorch FA-2 backward (``ops.attention_bwd``, the route it
-    replaced).  Returns the kernel's entry for the kernels line."""
+    replaced; :func:`attention_bwd_at_shape`).  Returns the kernel's entry
+    for the kernels line."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd, kernel_bwd_path
-    from repro_torch.kernels.flash_attention.ops import attention_bwd, flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, kernel_bwd_path
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     dev = torch.device("cuda")
@@ -790,72 +931,9 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
         entry["checks"].append(row)
         del q, k, v, dout, got, plain_same, ref
 
-    tol = BWD_TOL
     for name in dims:
         h, kvh, dqk, dv = dims[name]
-        s = PROMPT_LEN
-        q, k, v, dout = draw(1, s, h, kvh, dqk, dv, torch.bfloat16)
-        qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
-        out, lse = flash_attention_fwd(qt, kt, vt, causal=True)
-        o = out.transpose(1, 2)
-
-        def kernel():
-            return flash_attention_bwd(qt, kt, vt, out, lse, dt, causal=True)
-
-        def fa2():
-            return attention_bwd(q, k, v, o, lse, dout, causal=True)
-
-        got, want = kernel(), fa2()
-        torch.cuda.synchronize()
-        errs = {}
-        for which, g, w in zip(("dq", "dk", "dv"), got, want):
-            errs[which] = (g.transpose(1, 2).float() - w.float()).abs().max().item()
-            if not (torch.isfinite(g).all() and errs[which] <= tol * max(1.0, w.float().abs().max().item())):
-                raise SystemExit(f"K1's backward kernel: {which} at {name} b=1 s={s} strays from its plain version "
-                                 f"by {errs[which]} (tol {tol:g} of the largest entry)")
-        del got, want
-        qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
-        try:
-            ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-
-            def sdpa():
-                return torch.autograd.grad(ref_out, (qs, ks, vs), dt, retain_graph=True)
-
-            sdpa()
-        except RuntimeError as refused:
-            print(f"[kernels] SDPA refuses dqk={dqk} dv={dv} with a backward: {str(refused).splitlines()[0]}")
-            sdpa = None
-        # in turns: kernel, SDPA, FA-2, then the reverse
-        runs = [("kernel", kernel, BWD_ITERS), ("sdpa", sdpa, BWD_ITERS), ("fa2", fa2, FA2_ITERS)]
-        times = {key: [] for key, _, _ in runs}
-        for r in range(BWD_ROUNDS):
-            for key, fn, iters in (runs if r % 2 == 0 else runs[::-1]):
-                if fn is not None:
-                    times[key].append(time_ms(fn, iters=iters, warmup=1))
-        bound_ms, bound_by = attention_bwd_bound(1, h, kvh, s, dqk, dv, "bfloat16")
-        flops = 2.5 * attention_flops(1, h, s, s, dqk, dv, True)
-        ms = min(times["kernel"])
-        row = {"dims": name, "b": 1, "s": s, "h": h, "kvh": kvh, "head_dims": [dqk, dv],
-               "path": kernel_bwd_path(torch.bfloat16, dqk, dv), "max_abs_err": max(errs.values()),
-               "max_abs_err_by_grad": errs, "ms": ms, "ms_turns": times["kernel"],
-               "plain_ms": min(times["fa2"]), "plain_ms_turns": times["fa2"],
-               "library_ms": min(times["sdpa"]) if times["sdpa"] else None, "library_ms_turns": times["sdpa"],
-               "bound_ms": bound_ms, "bound_by": bound_by}  # fmt: skip
-        entry["timed"].append(row)
-        sdpa_text = ("refused" if not times["sdpa"] else
-                     f"{', '.join(f'{x:.3f}' for x in times['sdpa'])} ms (kernel {ms / row['library_ms']:.2f}x)")
-        print(f"[kernels] flash_attention_bwd b=1 s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} bf16 causal, {row['path']} "
-              f"kernels: against its plain version max_abs_err "
-              + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
-              + f" (tol {tol:g} of the largest entry); kernel {', '.join(f'{x:.3f}' for x in times['kernel'])} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s counting 2.5x the forward's products, {bound_ms / ms * 100:.0f} % of "
-              f"the bound's rate), PyTorch FA-2 backward {', '.join(f'{x:.3f}' for x in times['fa2'])} ms "
-              f"(kernel {row['plain_ms'] / ms:.1f}x faster), SDPA's backward {sdpa_text}, bound {bound_ms:.3f} ms "
-              f"by {bound_by} (in turns)")
-        del q, k, v, dout, qt, kt, vt, dt, out, lse, o, qs, ks, vs
-        if sdpa is not None:
-            del ref_out
-        torch.cuda.empty_cache()
+        entry["timed"].append({"dims": name, **attention_bwd_at_shape(gen, 1, PROMPT_LEN, h, kvh, dqk, dv)})
     # the entry's own figures are the main path's shape: phi4's
     phi4 = entry["timed"][0]
     for key in ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
@@ -1014,16 +1092,21 @@ def check_scu_kernels() -> list:
     k3_ms = time_ms(lambda: scu.scu_barrier(arrive), iters=2000, warmup=20)
     k3_plain = time_ms(lambda: barrier_ref(arrive), iters=2000, warmup=20)
     k3_library = time_ms(lambda: arrive.sum(0, keepdim=True).expand_as(arrive), iters=2000, warmup=20)
-    # bytes: the n arrival words read once, the n counts written once; operations: n adds a party
-    k3_bound, k3_by = bound(8 * n, n * n, "float32")
+    # bytes: the n arrival words read once, the n counts written once; operations: the n - 1 adds
+    # of the one sum that every party gets
+    k3_bound, k3_by = bound(8 * n, n - 1, "float32")
     floor = scu.cluster_floor_ms(n, 2)
     print(f"[kernels] scu_barrier at n={n} (one word a party), {k3_form} form: kernel {k3_ms * 1e3:.2f} us a call, "
           f"library (sum + expand) {k3_library * 1e3:.2f} us ({k3_ms / k3_library:.2f}x), plain "
           f"{k3_plain * 1e3:.2f} us, bound {k3_bound * 1e3:.2e} us by {k3_by}; latency floor one launch of a "
           f"cluster of {n} CTAs with two cluster.sync() {floor * 1e3:.2f} us")
     wide = torch.ones(most, device=dev)
-    print(f"[kernels] scu_barrier at n={most} (dissemination form): kernel "
-          f"{time_ms(lambda: scu.scu_barrier(wide), iters=200, warmup=5) * 1e3:.2f} us a call")
+    wide_ms = time_ms(lambda: scu.scu_barrier(wide), iters=200, warmup=5)
+    wide_library = time_ms(lambda: wide.sum(0, keepdim=True).expand_as(wide), iters=200, warmup=5)
+    wide_bound, wide_by = bound(8 * most, most - 1, "float32")
+    print(f"[kernels] scu_barrier at n={most} (dissemination form): kernel {wide_ms * 1e3:.2f} us a call, library "
+          f"(sum + expand) {wide_library * 1e3:.2f} us ({wide_ms / wide_library:.2f}x), bound {wide_bound * 1e3:.2e} us "
+          f"by {wide_by}")
 
     # K4 --------------------------------------------------------------------
     for m in (1, 130):
@@ -1068,7 +1151,9 @@ def check_scu_kernels() -> list:
     return [
         {"name": "scu_barrier", "route": "cuda", "source": source, "replaces": f"{replaces}:79",
          "launches": 0, "max_abs_err": err3, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_library, "form": k3_form},
+         "bound_by": k3_by, "library_ms": k3_library, "form": k3_form,
+         "largest_group": {"n": most, "form": "dissemination", "ms": wide_ms, "bound_ms": wide_bound,
+                           "bound_by": wide_by, "library_ms": wide_library}},
         {"name": "scu_notifier", "route": "cuda", "source": source, "replaces": f"{replaces}:112",
          "launches": 0, "max_abs_err": err4, "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},
@@ -1943,10 +2028,19 @@ def handed_gradients(into: list):
 
 def train_expected_launches(cfg) -> dict:
     """K1 and K2 twice a step for each layer of their kind under full remat
-    (the forward, then the group's forward again in the backward), and K1's
-    backward once for each attention layer."""
+    (the forward, then the group's forward again in the backward), once for
+    a prelude layer (deepseek's dense first layer, which no group holds and
+    remat does not recompute), and K1's backward once for each attention
+    layer."""
+    from repro_torch.models.blocks import prelude_layers
+
     forward = expected_launches(cfg)
-    return {"flash_attention_fwd": 2 * forward["flash_attention_fwd"], "ssd_scan_fwd": 2 * forward["ssd_scan_fwd"],
+    pre = prelude_layers(cfg)
+    again = expected_launches(dataclasses.replace(cfg, n_layers=cfg.n_layers - pre)) if pre else forward
+    if pre and any(cfg.layer_kind(i) != cfg.layer_kind(i + pre) for i in range(cfg.n_layers - pre)):
+        raise ValueError(f"{cfg.name}: the layer kinds after the prelude are not the model's own, shifted")
+    return {"flash_attention_fwd": forward["flash_attention_fwd"] + again["flash_attention_fwd"],
+            "ssd_scan_fwd": forward["ssd_scan_fwd"] + again["ssd_scan_fwd"],
             "flash_attention_bwd": forward["flash_attention_fwd"]}  # fmt: skip
 
 
@@ -1981,6 +2075,22 @@ def kernel_group(name: str) -> str:
     if "elementwise" in name or "reduce" in name or "copy" in name:
         return "elementwise, reductions, copies"
     return "other"
+
+
+def zero_gradients(handed) -> list:
+    """The leaves of a gradient tree, and the groups of a stacked block leaf,
+    that are not finite or are zero throughout: ``(key, index, shape)`` each."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+
+    bad = []
+    for key in sorted(handed):
+        for k, g in enumerate(tree_leaves(handed[key])):
+            rows = g.flatten(1) if key == "blocks" else g.reshape(1, -1)
+            if not (torch.isfinite(g).all() and (rows.abs().amax(1) > 0).all()):
+                bad.append((key, k, tuple(g.shape)))
+    return bad
 
 
 def train_at_full_width(cfg, counters, batch: int, seq: int) -> dict:
@@ -2031,13 +2141,7 @@ def train_at_full_width(cfg, counters, batch: int, seq: int) -> dict:
         if i == 0:
             # step 0's gradients, leaf by leaf and, in the stacked block leaves,
             # group by group: Queue 3 fault 1's gate on the card
-            bad, n_leaves = [], 0
-            for key in sorted(handed[0]):
-                for k, g in enumerate(tree_leaves(handed[0][key])):
-                    rows = g.flatten(1) if key == "blocks" else g.reshape(1, -1)
-                    n_leaves += 1
-                    if not (torch.isfinite(g).all() and (rows.abs().amax(1) > 0).all()):
-                        bad.append((key, k, tuple(g.shape)))
+            bad, n_leaves = zero_gradients(handed[0]), len(tree_leaves(handed[0]))
             if bad:
                 raise SystemExit(f"[train] {cfg.name}: leaves with a zero or non-finite gradient at step 0: {bad}")
             print(f"[train] {cfg.name} step 0: every one of the {n_leaves} parameter leaves (every group of the "
@@ -2249,7 +2353,7 @@ def data_axis_through_nccl(card: str, counters, train_step_ms: list, train_launc
             shardings, losses, ms a step, launches a step)."""
             params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
             step_fn, (in_sh, _), _, _ = make_train_step(cfg, tcfg, step_mesh)
-            opt_state = init_opt_state(params, None if isinstance(step_mesh, dict) else in_sh[1])
+            opt_state = init_opt_state(params, None if isinstance(step_mesh, dict) else in_sh)
             step = torch.zeros((), dtype=torch.int32, device=dev)
             losses, step_ms, launches = [], [], []
             for _ in range(DIST_STEPS):
@@ -2336,6 +2440,73 @@ def data_axis_through_nccl(card: str, counters, train_step_ms: list, train_launc
             "ckpt_bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s, "phase_s": phase_s, "nccl": nccl}
 
 
+def join_two_on_one_card(rank: int, world: int, work: Path, out: dict):
+    """Join a rank of the two that share the card: NCCL first, as
+    ``init_distributed`` takes it for a card (it refuses a second rank on the
+    device, and the refusal goes into ``out["nccl"]``), then an explicit
+    ``gloo`` group over CUDA tensors.  Returns the ``{"data": 1, "model":
+    world}`` ``DeviceMesh``; TF32 matmuls off, as in the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.parallel.dist import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    try:
+        init_distributed(dev, rank=rank, world=world, init_method=f"file://{work / 'nccl_rendezvous'}", timeout=60)
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        out["nccl"] = f"accepted: {probe.item()}"
+    except Exception as err:  # the refusal is the finding: its first and last lines are printed
+        lines = str(err).strip().splitlines()
+        out["nccl"] = f"{type(err).__name__}: {lines[0][:200]} ... {lines[-1][:200]}"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    init_distributed(dev, rank=rank, world=world, init_method=f"file://{work / 'gloo_rendezvous'}",
+                     timeout=MODEL_TIMEOUT_S, backend="gloo")  # fmt: skip
+    mesh = device_mesh({"data": 1, "model": world}, dev)
+    out["backend"] = dist.get_backend()
+    out["coords"] = list(mesh.get_coordinate())
+    return mesh
+
+
+def two_ranks_on_one_card(target, work: Path, timeout: float, tag: str) -> list:
+    """``target(rank, MODEL_RANKS, str(work))`` in each of ``MODEL_RANKS``
+    spawned processes; each rank's results from ``work/rank<r>.json``.  A
+    rank that fails (``rank<r>.err``), a non-zero exit or a rank still
+    running after ``timeout`` fails the phase, and no process outlives this
+    call."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, MODEL_RANKS, str(work))) for rank in range(MODEL_RANKS)]
+    try:
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + timeout
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [rank for rank, proc in enumerate(procs) if proc.is_alive()]
+        errors = {rank: (work / f"rank{rank}.err").read_text() for rank in range(MODEL_RANKS)
+                  if (work / f"rank{rank}.err").exists()}  # fmt: skip
+        if hung or errors or any(proc.exitcode != 0 for proc in procs):
+            raise SystemExit(f"{tag} the two processes failed: exit codes {[proc.exitcode for proc in procs]}, "
+                             f"still running after {timeout} s: {hung}; errors: {errors}")
+        return [json.loads((work / f"rank{rank}.json").read_text()) for rank in range(MODEL_RANKS)]
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+
+
 def model_axis_rank(rank: int, world: int, workdir: str) -> None:
     """One process of the model phase (see the module note): its results, or
     its traceback, in ``workdir`` as ``rank<r>.json`` / ``rank<r>.err``."""
@@ -2350,35 +2521,15 @@ def model_axis_rank(rank: int, world: int, workdir: str) -> None:
         from repro_torch.configs.registry import get_config
         from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
         from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
-        from repro_torch.launch.mesh import device_mesh
         from repro_torch.launch.serve import make_inputs, serve
         from repro_torch.models.lm import init_lm
-        from repro_torch.parallel.dist import init_distributed
         from repro_torch.parallel.sharding import param_shardings
         from repro_torch.serve.decode import CausalLM
         from repro_torch.train.step import abstract_params
 
-        torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device("cuda", 0)
         out = {"rank": rank}
-        # NCCL first, as init_distributed takes it for a card: it refuses a second rank on the device
-        try:
-            init_distributed(dev, rank=rank, world=world, init_method=f"file://{work / 'nccl_rendezvous'}", timeout=60)
-            probe = torch.ones(1, device=dev)
-            dist.all_reduce(probe)
-            torch.cuda.synchronize()
-            out["nccl"] = f"accepted: {probe.item()}"
-        except Exception as err:  # the refusal is the finding: its first and last lines are printed
-            lines = str(err).strip().splitlines()
-            out["nccl"] = f"{type(err).__name__}: {lines[0][:200]} ... {lines[-1][:200]}"
-        finally:
-            if dist.is_initialized():
-                dist.destroy_process_group()
-        init_distributed(dev, rank=rank, world=world, init_method=f"file://{work / 'gloo_rendezvous'}",
-                         timeout=MODEL_TIMEOUT_S, backend="gloo")  # fmt: skip
-        mesh = device_mesh({"data": 1, "model": world}, dev)
-        out["backend"] = dist.get_backend()
-        out["coords"] = list(mesh.get_coordinate())
+        mesh = join_two_on_one_card(rank, world, work, out)
 
         def launches():
             return {"flash_attention_fwd": flash_attention_fwd.launches, "ssd_scan_fwd": ssd_scan_fwd.launches}
@@ -2502,7 +2653,6 @@ def model_axis_on_one_card(card: str, served_tokens: dict) -> dict:
     K1 and K2 at the shapes the ranks gave them; returns each model's
     numbers by rank and the kernels' rows.  Its work directory is gone at the
     end, failed or not, and no process it started outlives it."""
-    import multiprocessing
     import shutil
     import uuid
 
@@ -2520,7 +2670,6 @@ def model_axis_on_one_card(card: str, served_tokens: dict) -> dict:
     plain = {"phi4-mini-3.8b": plain_attention, "mamba2-1.3b": plain_ssd_scan, "deepseek-v2-lite-16b": plain_attention}
     work = ROOT / "build" / f"model_phase_{uuid.uuid4().hex[:8]}"
     work.mkdir(parents=True)
-    procs = []
     try:
         for arch in MODEL_ARCHS:
             layers, prompt = MODEL_F32[arch]
@@ -2540,28 +2689,8 @@ def model_axis_on_one_card(card: str, served_tokens: dict) -> dict:
             del model, got, inputs, routing
             torch.cuda.empty_cache()
         ref_s = time.perf_counter() - t_phase
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=model_axis_rank, args=(rank, MODEL_RANKS, str(work))) for rank in range(MODEL_RANKS)]
-        for proc in procs:
-            proc.start()
-        deadline = time.monotonic() + MODEL_TIMEOUT_S
-        for proc in procs:
-            proc.join(max(0.0, deadline - time.monotonic()))
-        hung = [rank for rank, proc in enumerate(procs) if proc.is_alive()]
-        errors = {rank: (work / f"rank{rank}.err").read_text() for rank in range(MODEL_RANKS)
-                  if (work / f"rank{rank}.err").exists()}  # fmt: skip
-        if hung or errors or any(proc.exitcode != 0 for proc in procs):
-            raise SystemExit(f"[model] the two processes failed: exit codes {[proc.exitcode for proc in procs]}, "
-                             f"still running after {MODEL_TIMEOUT_S} s: {hung}; errors: {errors}")
-        ranks = [json.loads((work / f"rank{rank}.json").read_text()) for rank in range(MODEL_RANKS)]
+        ranks = two_ranks_on_one_card(model_axis_rank, work, MODEL_TIMEOUT_S, "[model]")
     finally:
-        for proc in procs:
-            if proc.is_alive():
-                proc.terminate()
-                proc.join(10)
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join(10)
         shutil.rmtree(work, ignore_errors=True)
 
     print(f"[model] {card}; {MODEL_RANKS} processes on the one card, {{'data': 1, 'model': {MODEL_RANKS}}}: NCCL "
@@ -2649,6 +2778,455 @@ def model_alone() -> dict:
         del model
         torch.cuda.empty_cache()
     return model_axis_on_one_card(card_name_and_power_limit(), served)
+
+
+# ---------------------------------------------------------------------------
+# The mtrain phase: training over the model axis
+# ---------------------------------------------------------------------------
+
+
+def _flat(tree) -> dict:
+    """``{path: leaf}`` of a nested dict (paths as tuples of keys; a spec is a leaf)."""
+    from repro_torch.parallel.sharding import is_spec, tree_map_with_path
+
+    out = {}
+    tree_map_with_path(lambda path, leaf: out.__setitem__(path, leaf), tree, is_leaf=is_spec)
+    return out
+
+
+def mtrain_config(arch: str, dtype=None, layers=None):
+    """``arch``'s published config at ``layers`` in ``dtype`` (its own depth and type for None)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, dtype=dtype or cfg.dtype)
+
+
+def mtrain_step(cfg, dtype: str, mesh):
+    """``make_train_step`` under the train phase's optimizer: scu, remat full, lr ``TRAIN_LR``."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    tcfg = TrainConfig(sync_strategy="scu", remat_policy="full", param_dtype=dtype,
+                       opt=OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))  # fmt: skip
+    return make_train_step(cfg, tcfg, mesh)
+
+
+def mtrain_batch(cfg, batch: int, seq: int) -> dict:
+    """The train phase's batch: ``(batch, seq + 1)`` token ids from seed 1 on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)  # fmt: skip
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def quieter(quiet: dict, grads, rms: dict) -> None:
+    """Each entry's smallest |gradient| / ``rms[path]`` of its leaf so far, in
+    ``quiet`` ({path: float16 tensor}); ``grads`` a gradient tree."""
+    import torch
+
+    for path, g in _flat(grads).items():
+        ratio = g.detach().abs().float().div_(max(rms[path], 1e-30)).to(torch.float16)
+        quiet[path] = ratio if path not in quiet else torch.minimum(quiet[path], ratio)
+
+
+def gradient_gap(grads, whole: dict, shardings: dict, coords: dict) -> tuple:
+    """(the largest err / the block's largest entry, its leaf): each leaf of
+    this rank's gradient tree against its block of ``whole`` ({path: the
+    model = 1 gradient})."""
+    worst = (0.0, None)
+    for path, g in _flat(grads).items():
+        want = whole[path][shardings[path].index(tuple(whole[path].shape), coords)].to(g.device)
+        gap = ((g - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, (gap, "/".join(path)), key=lambda w: w[0])
+    return worst
+
+
+def whole_over_model_digests(params, shardings: dict) -> dict:
+    """sha256 of the bits of every leaf that ``shardings`` leaves whole over ``model``."""
+    import hashlib
+
+    import torch
+
+    return {"/".join(path): hashlib.sha256(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            for path, t in _flat(params).items() if "model" not in shardings[path].sharded_axes()}  # fmt: skip
+
+
+def model_axis_training_rank(rank: int, world: int, workdir: str) -> None:
+    """One process of the mtrain phase (see the module note): its results, or
+    its traceback, in ``workdir`` as ``rank<r>.json`` / ``rank<r>.err``."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    work = Path(workdir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
+        from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+        from repro_torch.models.lm import init_lm
+        from repro_torch.train.optimizer import init_opt_state, tree_leaves
+
+        dev = torch.device("cuda", 0)
+        out = {"rank": rank}
+        mesh = join_two_on_one_card(rank, world, work, out)
+        coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        counters = {"flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
+                    "ssd_scan_fwd": ssd_scan_fwd}  # fmt: skip
+
+        def counted():
+            return {name: c.launches for name, c in counters.items()}
+
+        def draw(cfg, dtype):
+            step_fn, (in_sh, _), _, _ = mtrain_step(cfg, str(dtype).removeprefix("torch."), mesh)
+            params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dtype, shardings=in_sh[0])
+            return step_fn, in_sh, params, init_opt_state(params, in_sh)
+
+        for arch in MODEL_ARCHS:
+            # (a) float32 at a cut depth against model = 1 through the plain versions, routing pinned
+            cfg = mtrain_config(arch, "float32", MTRAIN_F32[arch])
+            ref = torch.load(work / f"ref_{arch}.pt", mmap=True)
+            step_fn, in_sh, params, opt = draw(cfg, torch.float32)
+            start = {path: t.clone() for path, t in _flat(params).items()}
+            data = mtrain_batch(cfg, MTRAIN_F32_BATCH, MTRAIN_F32_LEN)
+            pins, own, handed, quiet = [r.to(dev) for r in ref["routing"]], [], [], {}
+            shardings = _flat(in_sh[0])
+            step = torch.zeros((), dtype=torch.int32, device=dev)
+            losses, norms, launches, lrs = [], [], [], []
+            with pinned_routing(pins, own), handed_gradients(handed):
+                for t in range(MTRAIN_STEPS):
+                    for c in counters.values():
+                        c.launches = 0
+                    params, opt, step, metrics = step_fn(params, opt, step, data)
+                    launches.append(counted())
+                    losses.append(metrics["loss"].item())
+                    norms.append(metrics["grad_norm"].item())
+                    lrs.append(metrics["lr"].item())
+                    grads = handed.pop()
+                    if t == 0:
+                        grad_gap = gradient_gap(grads, ref["grad0"], shardings, coords)
+                    quieter(quiet, grads, {path: r[t] for path, r in ref["rms"].items()})
+                    del grads
+            most = 2 * sum(lrs)  # AdamW moves an entry by at most 2 lr a step, whatever its gradient
+            worst = (0.0, None, 0.0, 0.0)  # (err / allowed, leaf, err, allowed)
+            beyond = near = both_quiet = entries = 0  # beyond the allowance, of them quiet; quiet; in all
+            loudest = 0.0  # the largest quiet ratio of an entry beyond the allowance, the larger of its two
+            farthest = 0.0  # the largest err / (2 x the summed learning rates)
+            for path, got in _flat(params).items():
+                whole = ref["params"][path]
+                index = shardings[path].index(tuple(whole.shape), coords)
+                want = whole[index].to(dev)
+                allowed = (MTRAIN_TOL * want.abs().max() + MTRAIN_UPDATE_TOL * (want - start[path]).abs().max()).item()
+                diff = (got - want).abs()
+                ratio = torch.maximum(ref["quiet"][path][index].to(dev), quiet[path]).float()
+                outside = diff > allowed
+                err = diff.max().item()
+                beyond += int(outside.sum())
+                near += int((outside & (ratio < MTRAIN_QUIET)).sum())
+                both_quiet += int((ratio < MTRAIN_QUIET).sum())
+                entries += diff.numel()
+                if outside.any():
+                    loudest = max(loudest, ratio[outside].max().item())
+                if err / max(allowed, 1e-30) >= worst[0]:
+                    worst = (err / max(allowed, 1e-30), "/".join(path), err, allowed)
+                farthest = max(farthest, err / most)
+            out[arch] = {"f32": {"layers": cfg.n_layers, "losses": losses, "grad_norms": norms, "launches": launches,
+                                 "grad_gap": list(grad_gap), "params_worst": list(worst),
+                                 "params_beyond": [beyond, near, both_quiet, entries],
+                                 "params_loudest": loudest, "params_farthest": farthest,
+                                 "whole_digests": whole_over_model_digests(params, shardings),
+                                 "routing_differ": list(routing_differ(own, pins))}}
+            del ref, params, opt, start, data, pins, step_fn, quiet
+            torch.cuda.empty_cache()
+
+        for arch, layers, batch, seq in MTRAIN_BF16:
+            # (b) bf16 at full width: the train phase's batch and optimizer
+            cfg = mtrain_config(arch, None, layers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn, in_sh, params, opt = draw(cfg, torch.bfloat16)
+            torch.cuda.synchronize()
+            draw_s = time.perf_counter() - t0
+            held = sum(t.numel() for t in tree_leaves(params))
+            state = sum(t.numel() for tree in opt.values() for t in tree_leaves(tree))
+            data = mtrain_batch(cfg, batch, seq)
+            step = torch.zeros((), dtype=torch.int32, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            losses, step_ms, launches, handed, shapes = [], [], [], [], {}
+            bad = None
+            for i in range(MTRAIN_STEPS):
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (handed_gradients(handed) if i == 0 else contextlib.nullcontext()), \
+                        (recorded_kernel_shapes(shapes) if i == 0 else contextlib.nullcontext()):
+                    params, opt, step, metrics = step_fn(params, opt, step, data)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(counted())
+                losses.append(metrics["loss"].item())
+                if i == 0:
+                    bad = zero_gradients(handed[0])
+                    handed.clear()
+            out[arch]["bf16"] = {
+                "layers": cfg.n_layers, "batch": batch, "seq": seq, "draw_s": draw_s, "params_held": held,
+                "opt_state_held": state, "losses": losses, "step_ms": step_ms, "launches": launches,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "zero_or_nonfinite_grads": bad,
+                "n_leaves": len(tree_leaves(params)), "kernel_shapes": {k: sorted(v) for k, v in shapes.items()},
+                "whole_digests": whole_over_model_digests(params, _flat(in_sh[0])),
+            }  # fmt: skip
+            del params, opt, data, step_fn
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        sys.exit(1)
+
+
+def reckon_rank_gib(cfg) -> tuple:
+    """(parameters a rank holds at model = 2, GiB of its training state):
+    bf16 params and gradients, a float32 master and two moments, by the
+    parameter specs over ``{"data": 1, "model": 2}``."""
+    import math
+
+    import torch
+
+    from repro_torch.parallel.sharding import NamedSharding, param_specs
+    from repro_torch.train.step import abstract_params
+
+    grid = {"data": 1, "model": MODEL_RANKS}
+    sds = abstract_params(cfg, torch.bfloat16)
+    specs = _flat(param_specs(sds, grid, fsdp=False, cfg=cfg))
+    held = sum(math.prod(NamedSharding(grid, specs[path]).shard_shape(tuple(t.shape))) for path, t in _flat(sds).items())
+    return held, held * (2 + 2 + 3 * 4) / 2**30
+
+
+def mtrain_kernels(ranks: list) -> tuple:
+    """(c): K1's backward and K2's forward held to their plain versions, and
+    timed, at the shapes the ranks handed K1 and K2 in (b) (K1's backward
+    takes the forward's q, k, v); each shape one on both ranks.  Returns
+    ({arch: {kernel: row}}, failures)."""
+    import torch
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(19)
+    rows, failures = {}, []
+    for arch, _, _, _ in MTRAIN_BF16:
+        seen = [r[arch]["bf16"]["kernel_shapes"] for r in ranks]
+        for name in sorted(set().union(*seen)):
+            shapes = {json.dumps(shape) for by_rank in seen for shape in by_rank.get(name, [])}
+            if len(shapes) != 1:
+                failures.append(f"{arch}: the ranks handed {name} {len(shapes)} shapes, not one: {sorted(shapes)}")
+                continue
+            shape = json.loads(shapes.pop())
+            if name == "flash_attention_fwd":
+                (q, q_t), (k, k_t), (v, v_t), causal = shape
+                if {q_t, k_t, v_t} != {"bfloat16"} or not causal:
+                    failures.append(f"{arch}: K1 given {shape} in training; the check covers causal bf16 only")
+                    continue
+                b, s, h, d = q
+                row = attention_bwd_at_shape(gen, b, s, h, k[2], d, v[3], tag="[mtrain]")
+                rows.setdefault(arch, {})["flash_attention_bwd"] = row
+            else:
+                (x, x_t), (dt, dt_t), _, (B, B_t), (C, C_t), chunk, fresh = shape
+                if (x_t, dt_t, B_t, C_t) != ("bfloat16", "float32", "bfloat16", "bfloat16") or not fresh:
+                    failures.append(f"{arch}: K2 given {shape} in training; the check covers bf16 from a zero state")
+                    continue
+                b, s, h, p = x
+                form, err, ms, plain_ms, bound_ms, bound_by = ssd_at_shape(gen, b, s, h, p, B[3], chunk, tag="[mtrain]")
+                rows.setdefault(arch, {})["ssd_scan_fwd"] = {
+                    "form": form.name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "shape": {"b": b, "s": s, "h": h, "p": p, "n": B[3], "chunk": chunk}}  # fmt: skip
+    return rows, failures
+
+
+def same_bits(by_rank: list) -> tuple:
+    """(leaves whole over ``model`` compared, those whose bits differ between
+    the ranks) from each rank's ``whole_digests``."""
+    digests = [r["whole_digests"] for r in by_rank]
+    paths = sorted(set().union(*digests))
+    return len(paths), [p for p in paths if len({d.get(p) for d in digests}) != 1]
+
+
+def model_axis_training(card: str, trained: dict) -> dict:
+    """The mtrain phase (see the module note): the float32 yardsticks at
+    model = 1 through the plain versions here, the memory reckoned, then the
+    two processes, then (c) back here; returns each model's numbers by rank
+    and the kernels' rows.  Its work directory is gone at the end, failed or
+    not, and no process it started outlives it."""
+    import shutil
+    import uuid
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optimizer import init_opt_state
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    plain = {"phi4-mini-3.8b": plain_attention, "mamba2-1.3b": plain_ssd_scan, "deepseek-v2-lite-16b": plain_attention}
+    counters = (flash_attention_fwd, flash_attention_bwd, ssd_scan_fwd)
+    work = ROOT / "build" / f"mtrain_phase_{uuid.uuid4().hex[:8]}"
+    work.mkdir(parents=True)
+    try:
+        for arch in MODEL_ARCHS:
+            cfg = mtrain_config(arch, "float32", MTRAIN_F32[arch])
+            params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.float32)
+            step_fn = mtrain_step(cfg, "float32", {"data": 1, "model": 1})[0]
+            opt = init_opt_state(params)
+            data = mtrain_batch(cfg, MTRAIN_F32_BATCH, MTRAIN_F32_LEN)
+            step = torch.zeros((), dtype=torch.int32, device=dev)
+            routing, losses, norms, handed, quiet, rms, grad0 = [], [], [], [], {}, {}, {}
+            for c in counters:
+                c.launches = 0
+            with recorded_routing(routing), plain[arch](), handed_gradients(handed):
+                for _ in range(MTRAIN_STEPS):
+                    params, opt, step, metrics = step_fn(params, opt, step, data)
+                    losses.append(metrics["loss"].item())
+                    norms.append(metrics["grad_norm"].item())
+                    grads = handed.pop()
+                    if not grad0:
+                        grad0 = {path: g.detach().cpu() for path, g in _flat(grads).items()}
+                    for path, g in _flat(grads).items():
+                        rms.setdefault(path, []).append(g.detach().float().pow(2).mean().sqrt().item())
+                    quieter(quiet, grads, {path: r[-1] for path, r in rms.items()})
+                    del grads
+            if any(c.launches for c in counters):
+                raise SystemExit(f"[mtrain] {arch}'s plain yardstick launched a kernel")
+            torch.save({"losses": losses, "grad_norms": norms, "routing": [r.cpu() for r in routing], "rms": rms,
+                        "quiet": {path: t.cpu() for path, t in quiet.items()}, "grad0": grad0,
+                        "params": {path: t.cpu() for path, t in _flat(params).items()}}, work / f"ref_{arch}.pt")
+            del params, opt, data, step_fn, routing, quiet, grad0
+            torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t_phase
+        reckoned = {}
+        phi4_run = trained.get("phi4-mini-3.8b")
+        beside = f" (the train phase's one-process phi4 peak: {phi4_run['peak_gib']:.2f} GiB)" if phi4_run else ""
+        for arch, layers, batch, seq in MTRAIN_BF16:
+            cfg = mtrain_config(arch, None, layers)
+            held, gib = reckon_rank_gib(cfg)
+            reckoned[arch] = gib
+            print(f"[mtrain] {card}; reckoned before the call, {arch} at {cfg.n_layers} layers in bf16 at model = "
+                  f"{MODEL_RANKS}: {held / 1e9:.3f} B params a rank of {cfg.n_params() / 1e9:.3f} B, {gib:.2f} GiB of "
+                  f"state a rank (bf16 params and gradients, float32 master and moments) and "
+                  f"{MODEL_RANKS * gib:.2f} GiB for the {MODEL_RANKS} beside the card's 80 GB, before activations"
+                  f"{beside}")
+        t_ranks = time.perf_counter()
+        ranks = two_ranks_on_one_card(model_axis_training_rank, work, MTRAIN_TIMEOUT_S, "[mtrain]")
+        ranks_s = time.perf_counter() - t_ranks
+        refs = {arch: {key: torch.load(work / f"ref_{arch}.pt", mmap=True)[key] for key in ("losses", "grad_norms")}
+                for arch in MODEL_ARCHS}  # fmt: skip
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    print(f"[mtrain] {card}; {MODEL_RANKS} processes on the one card, {{'data': 1, 'model': {MODEL_RANKS}}}: NCCL "
+          f"refused them ({ranks[0]['nccl']}), so they train in an explicit {ranks[0]['backend']!r} group over "
+          f"CUDA tensors; mesh coordinates {[r['coords'] for r in ranks]}")
+    failures = []
+    for arch in MODEL_ARCHS:
+        ref = refs[arch]
+        a = [r[arch]["f32"] for r in ranks]
+        want = train_expected_launches(mtrain_config(arch, "float32", MTRAIN_F32[arch]))
+        loss_err = max(abs(x - y) / abs(y) for r in a for x, y in zip(r["losses"], ref["losses"]))
+        norm_err = max(abs(x - y) / abs(y) for r in a for x, y in zip(r["grad_norms"], ref["grad_norms"]))
+        differ = [r["routing_differ"] for r in a]
+        routed = "" if not differ[0][1] else (
+            f"; the router's own top-k sets at model = 2 that differ from model = 1's, by rank "
+            f"{[f'{d} of {t}' for d, t in differ]} (at most {MODEL_ROUTING_DIFFER:.0%})")
+        print(f"[mtrain] {arch} float32 at {a[0]['layers']} layers, {MTRAIN_F32_BATCH} x {MTRAIN_F32_LEN}, "
+              f"{MTRAIN_STEPS} steps (scu, remat full, lr {TRAIN_LR:g}), model = 2 through the kernels against "
+              f"model = 1 through the plain versions (routing pinned to its): losses {[round(x, 6) for x in a[0]['losses']]} "
+              f"vs {[round(x, 6) for x in ref['losses']]}, largest rel err {loss_err:.2e}; grad norms largest rel err "
+              f"{norm_err:.2e} (tol {MTRAIN_TOL:g} each); step-0 gradient blocks by rank, the worst leaf's err / the "
+              f"block's largest entry {[f'{r['grad_gap'][0]:.2e} ({r['grad_gap'][1]})' for r in a]} (tol "
+              f"{MTRAIN_TOL:g}); parameter blocks by rank: entries beyond the allowance "
+              f"({MTRAIN_TOL:g} of the block's largest entry + {MTRAIN_UPDATE_TOL:g} of its largest update), of them "
+              f"with a gradient below {MTRAIN_QUIET:g} of its leaf's model = 1 RMS at some step on both sides (must be "
+              f"all), entries so quiet, entries {[r['params_beyond'] for r in a]}; the largest such ratio of an entry "
+              f"beyond {[f'{r['params_loudest']:.2e}' for r in a]}; the worst entry's err / allowance "
+              f"{[f'{r['params_worst'][0]:.3f} ({r['params_worst'][1]}: {r['params_worst'][2]:.2e} of {r['params_worst'][3]:.2e})' for r in a]} "
+              f"and its err / (2 x the summed learning rates, AdamW's most) {[round(r['params_farthest'], 4) for r in a]} "
+              f"(tol 1); leaves whole over model, the same bits on both ranks: {same_bits(a)}; launches a step "
+              f"by rank {[r['launches'][-1] for r in a]}{routed}")
+        for r in a:
+            d, t = r["routing_differ"]
+            beyond, near = r["params_beyond"][:2]
+            if not (loss_err <= MTRAIN_TOL and norm_err <= MTRAIN_TOL and r["grad_gap"][0] <= MTRAIN_TOL
+                    and beyond == near and r["params_farthest"] <= 1.0
+                    and not same_bits(a)[1] and all(x == want for x in r["launches"]) and d <= MODEL_ROUTING_DIFFER * t):
+                failures.append(f"{arch} float32: losses {loss_err:.2e}, grad norms {norm_err:.2e}, step-0 gradients "
+                                f"{r['grad_gap']}, params "
+                                f"{r['params_beyond']} {r['params_worst']} {r['params_farthest']}, leaves whole over "
+                                f"model that differ {same_bits(a)[1]}, launches {r['launches']} (want {want}), routing "
+                                f"{d} of {t}")
+    for arch, layers, batch, seq in MTRAIN_BF16:
+        b = [r[arch]["bf16"] for r in ranks]
+        cfg = mtrain_config(arch, None, layers)
+        want = train_expected_launches(cfg)
+        one = trained.get(arch)
+        gap = ("no model = 1 run of the train phase at this batch" if not one or (one["batch"], one["seq"]) != (batch, seq)
+               else "gap to the train phase's model = 1 losses by rank "
+               + str([[round(x - y, 4) for x, y in zip(r["losses"], one["losses"])] for r in b]) + " (printed, not checked)")
+        print(f"[mtrain] {card}; {arch} at {cfg.n_layers} layers in bf16 at model = {MODEL_RANKS}, {batch} x {seq}, "
+              f"{MTRAIN_STEPS} steps (scu, remat full, lr {TRAIN_LR:g}), by rank: params held "
+              f"{[round(r['params_held'] / 1e9, 3) for r in b]} B, optimizer state held "
+              f"{[round(r['opt_state_held'] / 1e9, 3) for r in b]} B floats (drawn in "
+              f"{[round(r['draw_s'], 1) for r in b]} s); ms a step (host clock) {[[round(t, 1) for t in r['step_ms']] for r in b]}; "
+              f"peak {[round(r['peak_gib'], 2) for r in b]} GiB (reckoned state {reckoned[arch]:.2f} GiB a rank); "
+              f"losses {[[round(x, 5) for x in r['losses']] for r in b]}; {gap}; launches a step "
+              f"{[r['launches'][-1] for r in b]} (expected {want})")
+        for r in b:
+            finite = all(math.isfinite(x) for x in r["losses"])
+            if r["zero_or_nonfinite_grads"] or not finite or not r["losses"][-1] < r["losses"][0] \
+                    or any(x != want for x in r["launches"]) or same_bits(b)[1]:
+                failures.append(f"{arch} bf16: zero or non-finite gradients {r['zero_or_nonfinite_grads']}, losses "
+                                f"{r['losses']}, launches {r['launches']} (want {want}), leaves whole over model "
+                                f"that differ {same_bits(b)[1]}")
+        print(f"[mtrain] {arch} bf16 step 0: every one of the {b[0]['n_leaves']} parameter leaves of each rank's "
+              f"blocks (every group of the stacked ones) has a finite, non-zero gradient: "
+              f"{[not r['zero_or_nonfinite_grads'] for r in b]}; after step {MTRAIN_STEPS - 1}, leaves whole over "
+              f"model (each rank updates its own copy), the same bits on both ranks: {same_bits(b)}")
+    kernels, kernel_failures = mtrain_kernels(ranks)
+    failures += kernel_failures
+    for arch, by_kernel in kernels.items():
+        for name, row in by_kernel.items():
+            print(f"[mtrain] {card}; {arch}: {name} at a rank's training shape held to its plain version and timed "
+                  f"(above): {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+                  f"{'none' if row['library_ms'] is None else f'{row['library_ms']:.3f} ms'}, bound {row['bound_ms']:.3f} ms")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[mtrain] two processes time-slicing one card measure correctness and memory, not the speed of tensor "
+          f"parallelism; yardsticks at model = 1 {ref_s:.1f} s, the two processes {ranks_s:.1f} s, phase {phase_s:.1f} s")
+    if failures:
+        raise SystemExit("[mtrain] " + "; ".join(failures))
+    return {arch: {"f32": [r[arch]["f32"] for r in ranks], "bf16": [r[arch]["bf16"] for r in ranks]}
+            for arch in MODEL_ARCHS} | {"phase_s": phase_s, "kernels": kernels, "reckoned_gib": reckoned}
+
+
+def mtrain_alone() -> dict:
+    """The mtrain phase by itself, K1 (both sources) and K2 built first:
+    ``python3 -c 'import chip_smoke; chip_smoke.mtrain_alone()'``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.compat import card_name_and_power_limit
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        for future in [pool.submit(flash_kernel.build), pool.submit(flash_kernel.build_bwd),
+                       pool.submit(ssd_kernel.build)]:  # fmt: skip
+            future.result()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return model_axis_training(card_name_and_power_limit(), {})
+
 
 def dist_alone() -> dict:
     """The dist phase by itself (about 80 s on an H100, K1's two builds
@@ -2894,6 +3472,18 @@ def main() -> int:
     for entry in (k1, k2):
         entry["model_axis"] = {arch: rows[entry["name"]] for arch, rows in model_phase["kernels"].items()
                                if entry["name"] in rows}  # fmt: skip
+
+    # ---- 5d. mtrain ----------------------------------------------------------
+    # training at model = 2, two processes on the card: each model's K1, K1 backward and K2
+    # launches a training step by rank, and (c)'s rows at a rank's training shape
+    mtrain = model_axis_training(card, trained)
+    for entry in (k1, k1b, k2):
+        entry["model_axis_training"] = {
+            arch: {"layers": got["bf16"][0]["layers"], "batch": got["bf16"][0]["batch"], "seq": got["bf16"][0]["seq"],
+                   "launches_per_step_by_rank": [r["launches"][-1][entry["name"]] for r in got["bf16"]],
+                   **({"at_rank_shape": mtrain["kernels"][arch][entry["name"]]}
+                      if entry["name"] in mtrain["kernels"].get(arch, {}) else {})}
+            for arch, got in mtrain.items() if arch in MODEL_ARCHS}  # fmt: skip
 
     # ---- 6. loop -------------------------------------------------------------
     k2["loop"] = train_through_the_loop(card, counters, trained[mamba2.name]["step_ms"])

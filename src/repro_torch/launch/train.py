@@ -16,13 +16,12 @@ Over N processes, one a device::
         -m repro_torch.launch.train --arch mamba2-1.3b --smoke --device cpu --steps 8
 
 each process joins the group (``env://``; NCCL on cards, ``gloo`` on the
-CPU), and ``--mesh host`` builds ``{"data": N, "model": 1}`` over it: the
-step is data-parallel (``repro_torch.train.step``), each process training
-on its rows of the global ``--batch``.  The JAX launcher takes ``model = 2``
-at 4 devices, and so does the port's serving launcher; the port's train
-step does not split the forward and its backward over ``model`` yet (ROADMAP
-Queue 1 item 5b), so this host mesh stays data-parallel only until then -- a
-known, deliberate difference.  Only rank 0 prints and writes checkpoints.
+CPU), and ``--mesh host`` builds the JAX launcher's host mesh over it,
+``{"data": N // model, "model": model}`` with ``model = 2`` from 4
+processes on: the step is data-parallel over ``data``, each data process
+training on its rows of the global ``--batch``, and tensor- and
+expert-parallel over ``model`` (``repro_torch.train.step``).  Only rank 0
+prints and writes checkpoints.
 
 Counterpart of ``repro/launch/train.py``, with the same flags and
 ``--device``.  ``build_run`` turns the arguments into what ``main`` hands
@@ -75,11 +74,11 @@ def build_run(argv: Optional[List[str]] = None):
         n = dist.get_world_size()
     else:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if args.mesh == "host" and is_distributed():
-        mesh = device_mesh(make_host_mesh(data=n, model=1, device=device), device)
-    elif args.mesh == "host":
+    if args.mesh == "host":
         model = 2 if n >= 4 else 1
         mesh = make_host_mesh(data=n // model, model=model, device=device)
+        if is_distributed():
+            mesh = device_mesh(mesh, device)
     else:
         mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
         if mesh_num_chips(mesh) > n:

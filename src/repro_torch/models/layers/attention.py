@@ -22,6 +22,14 @@ partial products are summed over ``model``.  MLA's latents (``w_dkv``,
 the local heads.  A prefill's cache sink receives every kv head (gathered
 over ``model``): the cache is placed after prefill (``launch/serve.py``).
 
+With gradients, what is whole enters a process's heads through (f)
+(``parallel/sharding.py``'s module note): the input of the split
+projections; where ``wk``/``wv`` stay whole under split q heads, ``k`` and
+``v`` themselves (each process's ``dk``/``dv`` covers its own q heads
+only, so ``wk``, ``wv`` and ``k_norm`` are summed there); ``q_norm`` under
+split q heads; MLA's latents ``c_kv`` and ``k_r``, read by each process's
+heads alone.  ``wo``'s sum is (g).
+
 Decode (single-token) paths are in :mod:`repro_torch.serve.decode`.
 """
 
@@ -33,7 +41,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.parallel.sharding import Shards, held, sub
+from repro_torch.parallel.sharding import Shards, enter, held, sub
 from .basics import apply_rope, dense, dense_rows, init_dense, init_norm, rmsnorm, rope_frequencies, take_cols
 from .flash_core import flash_attention_core
 
@@ -158,15 +166,17 @@ def kv_heads_for(q_heads: slice, kv_heads: slice, group: int, k: torch.Tensor, v
 
 
 def attention_qkv(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, x_kv: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projections + RoPE; shared by prefill and decode paths.  The heads
-    are those of the projections' blocks (all of them on one process)."""
+    are those of the projections' blocks (all of them on one process).
+    ``x_kv`` (default ``x``) feeds ``wk`` and ``wv``."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    x_kv = x if x_kv is None else x_kv
     q = dense(p["wq"], x).reshape(b, s, -1, hd)
-    k = dense(p["wk"], x).reshape(b, s, -1, hd)
-    v = dense(p["wv"], x).reshape(b, s, -1, hd)
+    k = dense(p["wk"], x_kv).reshape(b, s, -1, hd)
+    v = dense(p["wv"], x_kv).reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["scale"])
         k = rmsnorm(k, p["k_norm"]["scale"])
@@ -199,7 +209,14 @@ def attention_apply(
         positions = torch.arange(s, device=x.device)
     q_heads, h = head_block(p, shards, "wq", hd)
     kv_heads, kvh = head_block(p, shards, "wk", hd)
-    q, k, v = attention_qkv(p, cfg, x, positions)
+    split_q, split_kv = q_heads != slice(0, h), kv_heads != slice(0, kvh)
+    x_own = enter(shards, x) if split_q else x
+    if cfg.qk_norm and (split_q or split_kv):
+        p = dict(p, q_norm={"scale": enter(shards if split_q else None, p["q_norm"]["scale"])},
+                 k_norm={"scale": enter(shards if split_kv else None, p["k_norm"]["scale"])})  # fmt: skip
+    q, k, v = attention_qkv(p, cfg, x_own, positions, x_own if split_kv else x)
+    if split_q and not split_kv:  # whole k and v read by this process's q heads alone
+        k, v = shards.enter(k), shards.enter(v)
     if kv_sink is not None:  # every kv head, gathered over model where this process holds a block
         kv_sink["k"], kv_sink["v"] = (k, v) if shards is None else shards.gather_all([(k, 2, kv_heads, kvh),
                                                                                        (v, 2, kv_heads, kvh)])
@@ -280,7 +297,8 @@ def mla_apply(
         positions = torch.arange(s, device=x.device)
     heads, h = head_block(p, shards, "wq", m.qk_nope_dim + m.qk_rope_dim)
     hl = heads.stop - heads.start
-    q = dense(p["wq"], x).reshape(b, s, hl, m.qk_nope_dim + m.qk_rope_dim)
+    split = heads != slice(0, h)
+    q = dense(p["wq"], enter(shards, x) if split else x).reshape(b, s, hl, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
     rot, inv = rope_frequencies(m.qk_rope_dim, 1.0, cfg.rope_theta, x.device)
     q_rope = apply_rope(q_rope, positions, rot, inv)
@@ -288,6 +306,8 @@ def mla_apply(
     c_kv, k_r = mla_latents(p, cfg, x, positions)  # (b, s, r), (b, s, rope)
     if cache_sink is not None:
         cache_sink["c_kv"], cache_sink["k_r"] = c_kv, k_r
+    if split:  # the whole latents, read by this process's heads alone
+        c_kv, k_r = shards.enter(c_kv), shards.enter(k_r)
     w_uk = take_cols(p["w_uk"], sub(shards, "w_uk"), slice(heads.start * m.qk_nope_dim, heads.stop * m.qk_nope_dim))
     w_uv = take_cols(p["w_uv"], sub(shards, "w_uv"), slice(heads.start * m.v_head_dim, heads.stop * m.v_head_dim))
     k_nope = dense(w_uk, c_kv).reshape(b, s, hl, m.qk_nope_dim)

@@ -15,6 +15,12 @@ this process's block of logits, and :func:`greedy` takes the argmax across
 the blocks.  Which block a process holds is read from each leaf's spec
 (``Shards.held``); a whole leaf (its dimension does not split the axis) is
 sliced to the block the layer needs (:func:`take`).
+
+With gradients (training over ``model``) the collectives are the ones
+autograd sees (``repro_torch.parallel.sharding``'s module note): the MLP's
+input enters its hidden block through (f), a row-split projection's and the
+embedding's sums are (g), and a whole leaf sliced to a block passes (f)
+before the slice, so that its gradient sums every process's block of it.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.parallel import dist as pdist
-from repro_torch.parallel.sharding import Shards, Spec, entry_axes, held, sub
+from repro_torch.parallel.sharding import Shards, Spec, enter, entry_axes, held, sub
 
 __all__ = [
     "rmsnorm",
@@ -164,12 +170,13 @@ def take(leaf: torch.Tensor, shards: Optional[Shards], key, dim: int, part: slic
     """``leaf`` (at ``key`` under ``shards``) restricted to ``part`` of its
     dimension ``dim``: the leaf itself where its own block is ``part``, a
     view of ``part`` where it is whole.  Any other block is refused: the
-    layer and the spec disagree."""
+    layer and the spec disagree.  A whole leaf's slice is this process's
+    own work: its gradient is summed over ``model`` (f)."""
     got, whole = held(shards, key, leaf, dim)
     if got == part:
         return leaf
     if got == slice(0, whole):
-        return leaf.narrow(dim, part.start, part.stop - part.start)
+        return enter(shards, leaf).narrow(dim, part.start, part.stop - part.start)
     raise ValueError(f"{key}: this process holds {got} of dimension {dim}, the layer needs {part}")
 
 
@@ -185,17 +192,21 @@ def dense_rows(p: Params, x: torch.Tensor, part: slice, whole: int, shards: Opti
                reduce: bool = True) -> torch.Tensor:
     """``dense(p, x)`` where ``x`` holds the input features ``part`` of
     ``whole``: a row-split projection (``wo``, ``down``, ``out_proj``).  The
-    partial products of the model processes are summed (``all_reduce``), then
-    the bias is added once.  With ``reduce=False`` the partial sum is
-    returned for the caller to reduce with others (the bias on model process
-    0 alone).  Where ``part`` is the whole, this is ``dense``."""
+    partial products of the model processes are summed (``all_reduce``, (g)),
+    then the bias is added once.  With ``reduce=False`` the partial sum is
+    returned for the caller to reduce with others, the bias in model process
+    0's alone: every process adds it times 1 or 0 and passes it through (f),
+    so that its gradient, which only process 0's product carries, is whole
+    on each.  Where ``part`` is the whole, this is ``dense``."""
     if part == slice(0, whole):
         return dense(p, x)
     y = x @ take(p["w"], shards, "w", 0, part).to(x.dtype)
     if reduce:
-        y = shards.psum(y)
-    if "b" in p and (reduce or shards.model_index == 0):
-        y = y + p["b"].to(x.dtype)
+        y = shards.reduce(y)
+        if "b" in p:
+            y = y + p["b"].to(x.dtype)
+    elif "b" in p:
+        y = y + shards.enter(p["b"]).to(x.dtype) * float(shards.model_index == 0)
     return y
 
 
@@ -214,8 +225,11 @@ def init_mlp(
 def mlp_apply(p: Params, x: torch.Tensor, act: str, shards: Optional[Shards] = None,
               reduce: bool = True) -> torch.Tensor:
     """The MLP; over ``model`` ``up``/``gate`` give this process's hidden
-    block and ``down`` takes it (``dense_rows``; ``reduce`` as there)."""
+    block, which ``x`` enters through (f), and ``down`` takes it
+    (``dense_rows``; ``reduce`` as there)."""
     part, whole = held(sub(shards, "up"), "w", p["up"]["w"], 1)
+    if part != slice(0, whole):
+        x = shards.enter(x)
     if act == "swiglu":
         h = F.silu(dense(take_cols(p["gate"], sub(shards, "gate"), part), x)) * dense(p["up"], x)
     else:
@@ -247,7 +261,7 @@ def embed(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16, shards: Optiona
 
     With the table's vocabulary split over ``model``, each process looks up
     the ids in its rows, zeros for the rest, and the rows are summed over
-    ``model``: one non-zero term each, exact.
+    ``model`` (g): one non-zero term each, exact.
     """
     rows, whole = held(shards, "table", p["table"], 0)
     if rows == slice(0, whole):
@@ -255,7 +269,7 @@ def embed(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16, shards: Optiona
     local = tokens - rows.start
     inside = (local >= 0) & (local < rows.stop - rows.start)
     found = p["table"][local.clamp(0, rows.stop - rows.start - 1)].to(dtype)
-    return shards.psum(torch.where(inside[..., None], found, torch.zeros_like(found)))
+    return shards.reduce(torch.where(inside[..., None], found, torch.zeros_like(found)))
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,12 @@ Across processes (a ``Shards`` beside the parameters):
     token's ``K`` slots are summed per process and then across processes:
     with ``K = 2``, two model processes and no shared experts the same sums
     in float32 as one process (``(a + 0) + b``), in general a reordering of
-    them within float32 rounding (the tests' tolerance, 1e-5).
+    them within float32 rounding (the tests' tolerance, 1e-5).  With
+    gradients (``parallel/sharding.py``'s module note) the routing weights
+    and the tokens, whole on every process, enter its experts through (f)
+    -- each process combines only its own experts' slots, so the router's
+    gradient is otherwise a partial sum -- the shared experts' input enters
+    through the MLP's own (f), and the ``all_reduce`` is (g).
 """
 
 from __future__ import annotations
@@ -143,6 +148,12 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, shards: Optional[Sha
     # optimizer's param dtype (bf16) after a training step
     logits = xf.float() @ p["router"].float()  # (T, E)
     weights, idx = router_topk(logits, m)  # (T, K)
+    experts, _ = held(sub(shards, "gate"), (), p["gate"], 0)
+    n_local = experts.stop - experts.start
+    if n_local != E:  # whole weights and tokens, read by this process's experts alone: (f)
+        weights, xf_own = shards.enter(weights), shards.enter(xf)
+    else:
+        xf_own = xf
     # the global tokens of the data axes: every data process's expert ids, in
     # the order of the global batch, this process's rows from `row0`
     row0, T_all = 0, T
@@ -151,8 +162,6 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, shards: Optional[Sha
         row0, T_all = _data_index(shards) * T, T * shards.dp_size
     capacity = moe_capacity(T_all, m)
     dest, token, order = dispatch_indices(idx, E, capacity)
-    experts, _ = held(sub(shards, "gate"), (), p["gate"], 0)
-    n_local = experts.stop - experts.start
     own = T_all != T
 
     # scatter tokens into the expert buffers; every dropped slot (and every
@@ -161,9 +170,9 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, shards: Optional[Sha
     buf = torch.zeros((E * capacity + 1, d), dtype=x.dtype, device=x.device)
     if own:
         mine = (token >= row0) & (token < row0 + T)
-        buf[torch.where(mine, dest, E * capacity)] = xf[(token - row0).clamp(0, T - 1)]
+        buf[torch.where(mine, dest, E * capacity)] = xf_own[(token - row0).clamp(0, T - 1)]
     else:
-        buf[dest] = xf[token]
+        buf[dest] = xf_own[token]
     h = buf[experts.start * capacity : experts.stop * capacity].view(n_local, capacity, d)
 
     # grouped expert FFN (SwiGLU) over this process's experts
@@ -197,7 +206,7 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, shards: Optional[Sha
         out = out + slot_out[positions[:, k]]
 
     # what is a partial sum over model (this process's experts, its block of
-    # the shared experts' hidden units) is added up by one all_reduce
+    # the shared experts' hidden units) is added up by one all_reduce (g)
     partial, whole = (out, None) if n_local != E else (None, out)
     if m.n_shared > 0:
         shared = mlp_apply(p["shared"], xf, "swiglu", sub(shards, "shared"), reduce=False)
@@ -207,7 +216,7 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, shards: Optional[Sha
         else:
             whole = shared if whole is None else whole + shared
     if partial is not None:
-        partial = shards.psum(partial)
+        partial = shards.reduce(partial)
         whole = partial if whole is None else whole + partial
     return whole.reshape(b, s, d)
 

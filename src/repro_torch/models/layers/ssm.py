@@ -22,6 +22,15 @@ scale; ``out_proj`` is row-split, its partial products summed over
 ``model``.  The decode cache's SSD state is split by heads and its conv
 window is whole (``cache_specs``): a step reads its channels of the window
 and gathers its new channels into the whole one.
+
+With gradients (``parallel/sharding.py``'s module note): the input enters
+the split projections (``in_z``, ``in_x`` and this process's heads of
+``in_dt``) through (f); ``B`` and ``C``, whole after their conv, enter the
+local heads' scan through (f), so that ``in_B``, ``in_C`` and their conv
+see every head; ``in_dt``, ``A_log``, ``D`` and ``dt_bias`` pass (f) as
+whole leaves sliced to the local heads; the gated norm's mean of squares
+is (s), since each process scales its own channels by the whole of it;
+``out_proj``'s sum is (g).
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.parallel.sharding import Shards, held, sub
+from repro_torch.parallel.sharding import Shards, enter, held, sub
 from .basics import _normal, dense, dense_rows, init_dense, take, take_cols
 
 Params = Dict[str, torch.Tensor]
@@ -199,15 +208,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return F.silu(out + b.to(x.dtype))
 
 
-def _project(p: Params, cfg: ModelConfig, x: torch.Tensor, local):
+def _project(p: Params, cfg: ModelConfig, x: torch.Tensor, local, x_bc: Optional[torch.Tensor] = None):
     """Shared projection path for full-seq and decode: this process's
     channels of ``z`` and ``x`` and its heads of ``dt`` (``local``, from
-    :func:`_local`; all of them on one process)."""
+    :func:`_local`; all of them on one process).  ``x_bc`` (default ``x``)
+    feeds the whole ``in_B`` and ``in_C``."""
     channels, heads, shards = local
+    x_bc = x if x_bc is None else x_bc
     z = dense(take_cols(p["in_z"], sub(shards, "in_z"), channels), x)
     xs = dense(p["in_x"], x)
-    B = dense(p["in_B"], x)
-    C = dense(p["in_C"], x)
+    B = dense(p["in_B"], x_bc)
+    C = dense(p["in_C"], x_bc)
     dt = dense(take_cols(p["in_dt"], sub(shards, "in_dt"), heads), x)
     return z, xs, B, C, dt
 
@@ -233,13 +244,13 @@ def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, channels: slice, d_
     """Mamba-2's gated RMSNorm over the whole ``d_inner``: ``rmsnorm(y *
     silu(z))``.  Where ``y`` holds a block of the channels, each block's mean
     of squares is weighted by its share of ``d_inner`` and summed over
-    ``model``; whole, the weight is 1 and the formula is ``rmsnorm``'s."""
+    ``model`` (s); whole, the weight is 1 and the formula is ``rmsnorm``'s."""
     scale = take(p["norm_scale"], shards, "norm_scale", 0, channels)
     dt = y.dtype
     v = (y * F.silu(z)).float()
     ms = torch.mean(v * v, dim=-1, keepdim=True) * (v.shape[-1] / d_inner)
     if channels != slice(0, d_inner):
-        ms = shards.psum(ms)
+        ms = shards.reduce_both(ms)
     return (v * torch.rsqrt(ms + eps) * scale).to(dt)
 
 
@@ -267,7 +278,8 @@ def ssm_apply(
 
     local = _local(p, cfg, shards)
     channels, heads, _ = local
-    z, xs, B, C, dt = _project(p, cfg, x, local)
+    split = channels != slice(0, d_inner)
+    z, xs, B, C, dt = _project(p, cfg, enter(shards, x) if split else x, local, x)
     if state_sink is not None:
         w = s_cfg.d_conv - 1
         tail = F.pad(torch.cat([xs, B, C], dim=-1), (0, 0, max(0, w - s), 0))[:, -w:]
@@ -279,6 +291,8 @@ def ssm_apply(
                       take(p["conv_bx"], shards, "conv_bx", 0, channels))  # fmt: skip
     B = _causal_conv(B, p["conv_B"].to(B.dtype), p["conv_bB"])
     C = _causal_conv(C, p["conv_C"].to(C.dtype), p["conv_bC"])
+    if split:  # whole, read by this process's heads alone
+        B, C = shards.enter(B), shards.enter(C)
 
     xs = xs.reshape(b, s, heads.stop - heads.start, s_cfg.head_dim)
     B = B.reshape(b, s, g, n)

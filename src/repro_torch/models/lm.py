@@ -18,12 +18,22 @@ Across processes, ``shards`` (a ``repro_torch.parallel.sharding.Shards``
 beside the parameter tree) is threaded to every block: each group's
 parameters are joined over the data axes first where their specs split them
 there (``Shards.local``), and the layers split over ``model`` as their
-specs say.  A data-parallel train step passes the mesh alone (its parameters
-whole), so that a MoE layer dispatches the global batch.
+specs say.  A train step passes its parameters' placement
+(``Shards.of(param_shardings)``), whole over the data axes, so that its
+layers split over ``model`` and a MoE layer dispatches the global batch.
 
 ``lm_loss`` is the mean next-token cross-entropy, in chunks of 2048 tokens,
 each checkpointed so that the full ``(b, s, vocab)`` float32 logits never
-exist at once.  The ``nn.Module`` that owns a parameter tree for serving is
+exist at once.  With the head's vocabulary split over ``model`` it is the
+vocab-parallel cross-entropy: each process holds its block of every chunk's
+logits, and the log-sum-exp and the gold logit are summed across the blocks
+(``parallel/sharding.py``'s (f) and (g)).  The residual stream stays whole
+over ``model`` between the blocks: the JAX function's ``residual_spec``,
+``embed_grad_spec`` and ``logits_spec`` are placements that change no value,
+taken as hints and not applied (a deliberate difference).  Under remat
+"full" a recomputed group issues its forward's collectives again during the
+backward; every process runs the same layers in the same order, so they
+meet.  The ``nn.Module`` that owns a parameter tree for serving is
 :class:`repro_torch.serve.decode.CausalLM`.
 """
 
@@ -37,6 +47,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import dist as pdist
 from repro_torch.parallel.sharding import NamedSharding, Shards, Spec, shard_local, sub
 from .blocks import block_apply, group_pattern, init_block, prelude_layers
 from .layers.basics import apply_norm, embed, init_embedding, init_norm, unembed
@@ -241,9 +252,13 @@ def lm_loss(
     (one where that does not divide it), each chunk's summed CE is
     checkpointed, the gold logit is a masked sum over the vocabulary (not a
     gather), and the total is divided by ``b * s``.  The sharding hints are
-    accepted and ignored on one device.  ``shards`` is ``lm_forward``'s: a
-    data-parallel step's mesh, with the parameters whole (training does not
-    split over ``model``).
+    accepted and ignored (module note).  ``shards`` is ``lm_forward``'s: a
+    train step's placement of the parameters.  Where it splits the head's
+    vocabulary over ``model``, each process computes its block of the logits
+    from the hidden state entering through (f); the block's maximum is
+    reduced by MAX over ``model`` (no gradient: the log-sum-exp does not
+    depend on it), and the sum of exponentials and the gold logit's masked
+    sum over the block are each summed over ``model`` (g).
     """
     hidden = lm_forward(
         params,
@@ -254,14 +269,25 @@ def lm_loss(
         shards=shards,
     )
     labels = batch["labels"]
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    key = head_key(cfg)
+    head = params[key]
+    vocab = _vocab_split(shards, key, head["table"])
+    if vocab is not None:
+        hidden = shards.enter(hidden)
 
     def chunk_loss(h_chunk, l_chunk, table):
         """Summed CE of one sequence chunk: its float32 logits are the only full-vocab buffer."""
         logits = unembed({"table": table}, h_chunk).float()
-        logz = torch.logsumexp(logits, dim=-1)
         vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+        if vocab is None:
+            logz = torch.logsumexp(logits, dim=-1)
+        else:
+            top = shards.psum(logits.detach().amax(dim=-1, keepdim=True), pdist.dist.ReduceOp.MAX)
+            logz = torch.log(shards.reduce(torch.exp(logits - top).sum(dim=-1))) + top[..., 0]
+            vocab_iota = vocab_iota + vocab.start
         gold = torch.where(vocab_iota == l_chunk[..., None], logits, 0.0).sum(dim=-1)
+        if vocab is not None:
+            gold = shards.reduce(gold)
         return (logz - gold).sum()
 
     b, s, _ = hidden.shape
@@ -276,3 +302,12 @@ def lm_loss(
     else:
         total = chunk_loss(hidden, labels, head["table"])
     return total / (b * s)
+
+
+def _vocab_split(shards: Optional[Shards], key: str, table: torch.Tensor) -> Optional[slice]:
+    """This process's rows of the head's vocabulary where ``shards`` splits
+    them over ``model``, else None."""
+    if shards is None or shards.model == 1:
+        return None
+    rows, whole = shards[key].held("table", table, 0)
+    return None if rows == slice(0, whole) else rows

@@ -36,8 +36,29 @@ Using the specs: :class:`Shards` walks a spec tree beside the parameter (or
 cache) tree, so that a layer reads which head, channel, expert or vocabulary
 block this process holds from the leaf's own spec (:func:`model_block`) and
 can never split otherwise than ``_spec_for`` placed it.
-``check_data_parallel`` says which steps run across processes: serving on
-any ``{"data", "model"}`` mesh, training with ``model = 1``.
+``check_data_parallel`` says which steps run across processes: serving and
+training, each on any ``{"data", "model"}`` mesh.
+
+Collectives over ``model`` that autograd sees (training): a layer's work is
+either the same on every model process (the residual stream, the norms on
+it, a whole projection) or its own (its heads, channels, experts or
+vocabulary rows).  Three operations join the two, after Megatron-LM's f and
+g (Shoeybi et al., 2019):
+
+  * (f) :meth:`Shards.enter` -- identity forward, ``all_reduce`` of the
+    gradient backward: where a whole tensor (an activation, or a whole leaf
+    used by this process's block alone) first meets the process's own work,
+    so that its gradient sums every process's part;
+  * (g) :meth:`Shards.reduce` -- ``all_reduce`` forward, identity backward:
+    where the processes' partial results are summed and the sum is then
+    used alike on every process (a row-split projection, the vocab-split
+    embedding, the MoE combine, the vocab-parallel cross-entropy's sums);
+  * (s) :meth:`Shards.reduce_both` -- ``all_reduce`` both ways: where the sum
+    feeds each process's own work again (Mamba-2's gated norm), so that the
+    gradient of the whole sum is the sum of the processes' gradients.
+
+Without gradients (serving) each is the plain collective or nothing: (f)
+returns its input, (g) and (s) reduce in place as :meth:`Shards.psum` does.
 """
 
 from __future__ import annotations
@@ -58,6 +79,7 @@ __all__ = [
     "batch_spec",
     "check_data_parallel",
     "dp_axes",
+    "enter",
     "gather",
     "held",
     "is_spec",
@@ -70,6 +92,7 @@ __all__ = [
     "sub",
     "tree_map_with_path",
     "tree_size_bytes",
+    "within",
     "zero_spec",
 ]
 
@@ -360,6 +383,21 @@ def shard_local(x: torch.Tensor, sharding: NamedSharding, coords: Optional[Mappi
     return x[sharding.index(tuple(x.shape), coords)].clone(memory_format=torch.contiguous_format)
 
 
+def within(sharding: NamedSharding, held_by: NamedSharding) -> NamedSharding:
+    """The placement ``sharding`` relative to the block that ``held_by``
+    places: ``shard_local(x, within(s, h))`` of this process's block ``x`` at
+    ``h`` is its block at ``s``.  ``s`` must split every dimension as ``h``
+    does, or over more axes where ``h`` leaves it whole (a ZeRO block of a
+    parameter's block over ``model``)."""
+    ndim = max(len(sharding.spec), len(held_by.spec))
+    entries = []
+    for e, h in zip(sharding._entries(ndim), held_by._entries(ndim)):
+        if entry_axes(h) and entry_axes(e) != entry_axes(h):
+            raise ValueError(f"{sharding.spec} does not refine {held_by.spec}")
+        entries.append(None if entry_axes(h) else e)
+    return NamedSharding(sharding.mesh, Spec(*entries))
+
+
 def gather(local: torch.Tensor, sharding: NamedSharding, axes: Optional[Sequence[str]] = None) -> torch.Tensor:
     """The whole array from every process's block (``all_gather`` over the
     axis groups of the ``DeviceMesh``): a new tensor, or ``local`` itself
@@ -376,17 +414,11 @@ def gather(local: torch.Tensor, sharding: NamedSharding, axes: Optional[Sequence
 
 def check_data_parallel(mesh: Any, step: str = "train") -> None:
     """Raise unless a ``step`` ("train" or "serve") across processes runs on
-    ``mesh``: a serve step splits the batch over the data axes and its layers
-    over ``model`` (:class:`Shards`); a train step splits only the batch, and
-    raises for ``model > 1``."""
+    ``mesh``.  Both run on any ``{"data", "model"}`` mesh: the batch split
+    over the data axes, the layers over ``model`` (:class:`Shards`; a train
+    step's backward through the collectives of the module note)."""
     if step not in ("train", "serve"):
         raise ValueError(f"step is 'train' or 'serve', got {step!r}")
-    if step == "train" and model_axis_size(mesh) > 1:
-        raise NotImplementedError(
-            f"mesh {axis_sizes(mesh)}: training over 'model' (tensor and expert parallelism of the forward and "
-            "its backward) is not in the port yet (ROADMAP Queue 1 item 5b); a train step across processes "
-            "takes model = 1, and nothing is replicated in its place"
-        )
 
 
 def model_block(spec: Spec, dim: int, whole: int, mesh: Any) -> slice:
@@ -431,16 +463,16 @@ class Shards:
     """A parameter (or cache) subtree's placement on a ``DeviceMesh``, walked
     beside the subtree: ``shards["mixer"]["wq"]`` belongs to
     ``params["mixer"]["wq"]``.  ``specs`` is the subtree's :class:`Spec` tree
-    (``param_specs`` / ``cache_specs``), or None where every leaf is whole
-    (a data-parallel step that holds its parameters whole).
+    (``param_specs`` / ``cache_specs``), or None where every leaf is whole.
 
     A layer asks it which block of a leaf this process holds over ``model``
     (:meth:`block`, from the leaf's own spec: the port can never split a
     layer otherwise than ``_spec_for`` placed it), joins the data-axis
     (FSDP) blocks of its parameters before use (:meth:`local`), and reduces
     or gathers over ``model`` (:meth:`psum`, :meth:`gather`: ``all_reduce``
-    alone, see ``parallel/dist.py``).  Over a model axis of one process the
-    collectives are skipped: nothing is split.
+    alone, see ``parallel/dist.py``; with gradients :meth:`enter`,
+    :meth:`reduce` and :meth:`reduce_both`, the module note).  Over a model
+    axis of one process the collectives are skipped: nothing is split.
     """
 
     def __init__(self, mesh: Any, specs: Any = None):
@@ -518,10 +550,29 @@ class Shards:
         return tree_map_with_path(one, tree, self.specs)
 
     def psum(self, x: torch.Tensor, op=None) -> torch.Tensor:
-        """``x`` reduced over ``model`` in place (sum by default), returned."""
+        """``x`` reduced over ``model`` in place (sum by default), returned.
+        Autograd does not see it: a value with a gradient takes :meth:`reduce`."""
         if self.model == 1:
             return x
         return pdist.all_reduce(x, self.mesh, "model", op=op if op is not None else pdist.dist.ReduceOp.SUM)
+
+    def _traced(self, x: torch.Tensor) -> bool:
+        return self.model > 1 and torch.is_grad_enabled() and x.requires_grad
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """(f): ``x``, a tensor whole and alike on every model process, as it
+        enters this process's own work; its gradient is summed over ``model``."""
+        return _Enter.apply(x, self) if self._traced(x) else x
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """(g): the sum over ``model`` of every process's ``x``, used alike on
+        every process after; its gradient passes to each ``x`` as it is."""
+        return _Reduce.apply(x, self, False) if self._traced(x) else self.psum(x)
+
+    def reduce_both(self, x: torch.Tensor) -> torch.Tensor:
+        """(s): the sum over ``model`` of every process's ``x``, used by each
+        process's own work after; its gradient is summed over ``model`` too."""
+        return _Reduce.apply(x, self, True) if self._traced(x) else self.psum(x)
 
     def gather(self, x: torch.Tensor, dim: int, part: slice, whole: int) -> torch.Tensor:
         """The whole of dimension ``dim`` (``whole`` long) from every model
@@ -553,3 +604,39 @@ class Shards:
         ``all_reduce`` of their concatenation: new tensors."""
         flat = self.psum(torch.cat([t.reshape(-1) for t in tensors]))
         return [part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def enter(shards: Optional[Shards], x: torch.Tensor) -> torch.Tensor:
+    """:meth:`Shards.enter`, ``x`` itself where ``shards`` is None (one process)."""
+    return x if shards is None else shards.enter(x)
+
+
+def _summed(x: torch.Tensor, shards: Shards) -> torch.Tensor:
+    return shards.psum(x.clone(memory_format=torch.contiguous_format))
+
+
+class _Enter(torch.autograd.Function):
+    """(f): identity forward, the gradient summed over ``model`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, shards):
+        ctx.shards = shards
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.shards), None
+
+
+class _Reduce(torch.autograd.Function):
+    """(g) and (s): the sum over ``model`` forward; backward the gradient as
+    it is (g) or summed over ``model`` too (s)."""
+
+    @staticmethod
+    def forward(ctx, x, shards, both):
+        ctx.shards, ctx.both = shards, both
+        return _summed(x, shards)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_summed(grad, ctx.shards) if ctx.both else grad), None, None

@@ -47,7 +47,12 @@ over gradients it no longer needs):
 
 The optimizer-state specs are the reference's, from
 ``repro_torch.parallel.sharding``; ``step_opt_state_specs`` gives the
-placement the port's train step applies.
+placement the port's train step applies.  Over ``model`` a gradient is this
+process's block by the parameter specs, whole where the specs keep a leaf
+whole (made so by the forward's collectives over ``model``), and the
+hooks' collectives run over the data axes alone, within one model
+coordinate: each data-axis group of the ``DeviceMesh`` is the processes of
+one model block.
 """
 
 from __future__ import annotations
@@ -341,8 +346,10 @@ def step_opt_state_specs(policy, params_shape, mesh, cfg=None):
     data axes too, while its docstring (and the paper's baseline) keeps every
     data process's own copy.  The port's step holds the parameters whole over
     the data axes (its forward reads whole weights), so the baselines' state
-    is placed as the parameters are: ``param_specs(..., fsdp=False)``, whole
-    on every data process.
+    is placed as the parameters are: ``param_specs(..., fsdp=False)``, each
+    process's block over ``model``, whole on every data process.  The ZeRO
+    policies' state is split over ``model`` the same way, with the ZeRO
+    split over the data axes on top.
     """
     if policy.opt_state_specs is replicated_opt_state_specs:
         specs = param_specs(params_shape, axis_sizes(mesh), fsdp=False, cfg=cfg)

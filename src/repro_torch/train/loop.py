@@ -21,8 +21,10 @@ Over a ``DeviceMesh`` (one process a device, ``repro_torch.train.step``)
 every process runs this loop: ``batch_fn(i)`` is the global batch, and each
 process takes its rows ``[r b, (r + 1) b)`` of it by the batch's placement,
 as the reference's batch sharding splits it; the state is initialised or
-restored at the step's placements; a checkpoint gathers onto rank 0, which
-writes it; only rank 0 prints.
+restored at the step's placements (each process's blocks over ``model``
+and, for the optimizer state, over the data axes); a checkpoint gathers
+every process's block onto rank 0, which writes one slot a rank; only rank
+0 prints.
 """
 
 from __future__ import annotations
@@ -100,8 +102,8 @@ def train(
         del restored
     else:
         gen = torch.Generator(device).manual_seed(trainer.seed)
-        params = init_lm(gen, cfg, torch_dtype(tcfg.param_dtype))
-        opt_state = init_opt_state(params, in_sh[1] if placed else None)
+        params = init_lm(gen, cfg, torch_dtype(tcfg.param_dtype), shardings=in_sh[0] if placed else None)
+        opt_state = init_opt_state(params, in_sh) if placed else init_opt_state(params)
 
     ckpt = CheckpointManager(trainer.ckpt_dir) if trainer.ckpt_dir else None
     history = []

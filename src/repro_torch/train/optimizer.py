@@ -4,13 +4,15 @@ Counterpart of ``repro/train/optimizer.py``, with the same configuration,
 state and arithmetic.  The optimizer state holds float32 master weights and
 first and second moments; the model's parameters are kept in the compute
 type (bf16).  On one device there is nothing to shard.  Over a
-``DeviceMesh`` each process holds the state at its placement (the ``scu``
-policy's ZeRO blocks over the data axes, ``repro_torch.sync``) and is handed
-the gradients there; ``adamw_update`` updates those blocks, with the global
-norm's squares summed over the data processes for the blocks they split
-(a whole leaf counted once), and ``compress_decompress`` takes its scale's
-max over them.  The train step gathers the new parameters back to their
-placement.
+``DeviceMesh`` each process holds the state at its placement (its block
+over ``model`` by the parameter specs, and over the data axes the ``scu``
+policy's ZeRO blocks, ``repro_torch.sync``) and is handed the gradients
+there; ``adamw_update`` updates those blocks, with the global norm's
+squares summed over every axis that splits a leaf, ``model`` among them (a
+leaf whole over an axis counted once there), and ``compress_decompress``
+takes its scale's max over the same axes: the whole tensor's peak, as the
+reference's one program takes it.  The train step gathers the new
+parameters back to their placement, whole over the data axes.
 
 Gradient compression: ``int8`` applies per-tensor scale quantization with
 error feedback (``compress_decompress``); ``none`` keeps the gradients as
@@ -70,28 +72,33 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def init_opt_state(params: Any, shardings: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+def init_opt_state(params: Any, in_shardings: Optional[Tuple[Any, ...]] = None) -> Dict[str, Any]:
     """float32 master (a copy, never the parameter itself) and zero moments.
 
-    With ``shardings`` (``{"master", "m", "v"}`` trees of ``NamedSharding``,
-    the reference's ``out_shardings``) each leaf is this process's block of
-    the whole one, made leaf by leaf from the whole parameters.
+    With ``in_shardings``, the train step's ``(params, opt, ...)`` placements
+    (trees of ``NamedSharding``; ``opt`` is ``{"master", "m", "v"}``, the
+    reference's ``out_shardings``), ``params`` are this process's blocks at
+    the first and each state leaf is made from them, leaf by leaf, as this
+    process's block of the whole one at the second.
     """
-    if shardings is None:
+    if in_shardings is None:
         return {
             "master": tree_map(lambda p: p.to(torch.float32, copy=True), params),
             "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
             "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
         }
-    from repro_torch.parallel.sharding import shard_local
+    from repro_torch.parallel.sharding import shard_local, within
 
-    def zeros(p, s):
-        return torch.zeros(s.shard_shape(p.shape), dtype=torch.float32, device=p.device)
+    held, shardings = in_shardings[0], in_shardings[1]
+
+    def zeros(p, s, h):
+        return torch.zeros(within(s, h).shard_shape(p.shape), dtype=torch.float32, device=p.device)
 
     return {
-        "master": tree_map(lambda p, s: shard_local(p.to(torch.float32), s), params, shardings["master"]),
-        "m": tree_map(zeros, params, shardings["m"]),
-        "v": tree_map(zeros, params, shardings["v"]),
+        "master": tree_map(lambda p, s, h: shard_local(p.to(torch.float32), within(s, h)), params,
+                           shardings["master"], held),  # fmt: skip
+        "m": tree_map(zeros, params, shardings["m"], held),
+        "v": tree_map(zeros, params, shardings["v"], held),
     }
 
 
@@ -100,11 +107,11 @@ def init_error_feedback(params: Any) -> Any:
 
 
 def _split_over(sharding) -> Tuple[str, ...]:
-    """The data axes a placement splits an optimizer-state leaf over (none
-    without a placement, or on an ``{axis: size}`` mesh)."""
+    """The axes a placement splits an optimizer-state leaf over, in mesh
+    order (none without a placement, or on an ``{axis: size}`` mesh)."""
     if sharding is None or isinstance(sharding.mesh, Mapping):
         return ()
-    return tuple(a for a in sharding.sharded_axes() if a in ("pod", "data"))
+    return tuple(a for a in sharding.mesh.mesh_dim_names if a in sharding.sharded_axes())
 
 
 def compress_decompress(
@@ -115,7 +122,7 @@ def compress_decompress(
     Returns (dequantized gradient to feed the collective path, new residual).
     ``g`` may be a process's block of the tensor placed by ``sharding``
     (a ``NamedSharding``): the scale is then the max over the whole tensor,
-    taken over the data processes that split it.
+    taken over the processes that split it (over ``model`` and the data axes).
     """
     gf = g.float()
     if residual is not None:
@@ -155,7 +162,8 @@ def adamw_update(
     split = [_split_over(s) for s in tree_leaves(shardings)] if shardings is not None else [()] * len(flat_g)
 
     # global-norm clip: the squares summed leaf by leaf in the reference's leaf
-    # order; the blocks of leaves the data processes split, summed over them
+    # order; the blocks of leaves the processes split, summed over the axes that
+    # split them, and a leaf whole over an axis counted once there
     sq, sq_split = 0, {}
     for g, axes in zip(flat_g, split):
         g32 = g.float()

@@ -8,22 +8,37 @@ for a (model config, train config, mesh) triple.  The mesh is either
     (``repro_torch.parallel.sharding.Spec``), the reference's placements,
     which one device does not apply; or
   * a ``DeviceMesh`` over a ``torch.distributed`` group (one process a
-    device): the step is data-parallel over the data axes and returns the
-    ``NamedSharding`` trees it applies.  Each process takes its rows of the
-    global batch; the gradients are shaped by the sync policy's collectives
-    (``scu``: a reduce-scatter onto the ZeRO blocks of the optimizer state);
-    AdamW updates this process's blocks; the new parameters are gathered
-    back whole over the data axes; the loss is the mean over the global
-    batch.  The forward gets the mesh (``lm_loss(..., shards=...)``), so that
-    a MoE layer dispatches the global batch as the reference's one program
-    does.  A mesh with ``model > 1`` raises ``NotImplementedError``: training
-    over ``model`` is ROADMAP Queue 1 item 5b.
+    device): the step is data-parallel over the data axes and tensor- and
+    expert-parallel over ``model``, and returns the ``NamedSharding`` trees
+    it applies.  Each process holds its blocks of the parameters over
+    ``model`` (``param_shardings``: heads, MLP hidden units, experts,
+    vocabulary rows; ``init_lm(..., shardings=)`` draws them) and takes its
+    rows of the global batch.  The forward and its backward split as the
+    specs say (``lm_loss(..., shards=Shards.of(...))``, the collectives over
+    ``model`` of ``parallel/sharding.py``), so that every gradient is this
+    process's block of the whole one, and a MoE layer dispatches the global
+    batch as the reference's one program does.  The gradients are shaped by
+    the sync policy's collectives over the data axes (``scu``: a
+    reduce-scatter onto the ZeRO blocks of the optimizer state); AdamW
+    updates this process's blocks; the new parameters are gathered back
+    over the data axes and stay split over ``model``; the loss is the mean
+    over the global batch.  A leaf whole over ``model`` (the norms, the
+    router, a kv projection whole under split q heads) is held and updated
+    by every model process alike, and nothing broadcasts it: its copies stay
+    equal because each process's gradient of it is the same bits (the
+    collective over ``model`` hands every process the same sum, and each
+    then runs the same operations on the same inputs).  The CPU tests and
+    ``chip_smoke.py``'s mtrain phase compare the copies bit for bit.
 
 One known difference from the reference over a ``DeviceMesh``: the
 parameters are held whole over the data axes (``param_specs(...,
 fsdp=False)``), where the reference's default FSDP rule also splits each
 weight over them and lets XLA gather it in the forward; the optimizer state
 takes the policy's placement (``repro_torch.sync.policies.step_opt_state_specs``).
+And another: the residual stream stays whole over ``model`` between the
+blocks (``TrainConfig.sequence_parallel``, and the reference's residual,
+embedding-gradient and logits specs, are placements that change no value:
+hints, ``models/lm.py``).
 """
 
 from __future__ import annotations
@@ -162,7 +177,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
         out = {k: batch_spec(sizes, extra_dims=2 if v.dim() == 3 else 1) for k, v in batch.items()}
         return {k: NamedSharding(mesh, s) for k, s in out.items()} if placed else out
 
-    shards = Shards(mesh) if placed else None  # the parameters are whole: the mesh alone
+    shards = Shards.of(params_sh) if placed else None
 
     def loss_fn(p, b):
         return lm_loss(p, cfg, b, remat_policy=tcfg.remat_policy, shards=shards)
@@ -196,7 +211,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
                 grads = tree_map(lambda g: compress_decompress(g, None)[0], grads)
 
         new_params, new_opt, metrics = adamw_update(tcfg.opt, grads, opt_state, step, param_dtype, master_sh)
-        if placed:  # params return whole over the data axes (an all-gather of the ZeRO blocks)
+        if placed:  # params return whole over the data axes (an all-gather of the ZeRO blocks), split over model
             new_params = tree_map(lambda p, s: gather(p, s, dp), new_params, master_sh)
         metrics = dict(metrics, loss=loss)
         return new_params, new_opt, step + 1, metrics

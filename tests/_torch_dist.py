@@ -15,12 +15,14 @@ hold the port against JAX in the test process.
 
 from __future__ import annotations
 
+import dataclasses
 import multiprocessing
 import os
 import pickle
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -168,8 +170,9 @@ def placements(rank: int, world: int, workdir: Path, archs: tuple) -> dict:
     the whole leaf back, ``tree_size_bytes`` from the blocks and from the
     whole tree; a checkpoint of the blocks saved by the group into
     ``group_<arch>``; the blocks restored from the JAX run's sharded
-    checkpoint ``jax_sharded_<arch>``.  Then a train step and a serve call on
-    the mesh, each expected to refuse ``model = 2``."""
+    checkpoint ``jax_sharded_<arch>``.  Then a train step built on the mesh
+    (``check_data_parallel`` passes ``model = 2``) and a serve call there,
+    whose decode graph is expected to refuse the ``gloo`` group."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch.mesh import device_mesh
     from repro_torch.launch.serve import make_inputs, place_model, serve
@@ -201,10 +204,8 @@ def placements(rank: int, world: int, workdir: Path, archs: tuple) -> dict:
         got["restored"] = {path: bits(t) for path, t in leaves_with_path(restored)}
         out[arch] = got
 
-    try:  # the last arch's config and params
-        make_train_step(cfg, TrainConfig(), mesh)
-    except NotImplementedError as err:
-        out["train_refusal"] = str(err)
+    # the last arch's config and params
+    out["train_built"] = callable(make_train_step(cfg, TrainConfig(), mesh)[0])
     model = place_model(CausalLM(cfg, params), mesh)
     try:
         capture_serve_step(cfg, model.params, init_cache(cfg, 4, 12, "cpu", mesh), 2, model.shardings,
@@ -224,11 +225,11 @@ def float32_smoke(arch: str):
     return dataclasses.replace(get_smoke_config(arch), dtype="float32")
 
 
-def train_config(policy: str, lr: float, warmup: int):
+def train_config(policy: str, lr: float, warmup: int, remat: str = "none"):
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import TrainConfig
 
-    return TrainConfig(sync_strategy=policy, remat_policy="none", param_dtype="float32",
+    return TrainConfig(sync_strategy=policy, remat_policy=remat, param_dtype="float32",
                        opt=OptConfig(lr=lr, warmup_steps=warmup))  # fmt: skip
 
 
@@ -309,8 +310,9 @@ def model_axis(rank: int, world: int, workdir: Path, archs: tuple, batch: int, p
     ``params_<arch>`` and served (``tokens_<arch>.npy`` the prompts): the
     prefill logits of this rank's rows, the gathered tokens, the last step's
     logits, and the shapes of this rank's parameter and cache blocks.  Then
-    the refusals of ``make_train_step`` at ``model = 2`` and of a decode step
-    of the last arch's placed model without its cache's placement, and
+    whether ``check_data_parallel`` passes a train step at ``model = 2`` and
+    ``make_train_step`` builds it, the refusals of a decode step of the last
+    arch's placed model without its cache's placement, and
     phi4's smoke config at a vocabulary of ``odd_vocab`` rows (no split over
     ``model``) served from the port's own seed-0 params."""
     import dataclasses
@@ -318,7 +320,7 @@ def model_axis(rank: int, world: int, workdir: Path, archs: tuple, batch: int, p
     from repro_torch.launch.mesh import device_mesh
     from repro_torch.launch.serve import make_inputs, serve
     from repro_torch.models.lm import init_lm
-    from repro_torch.parallel.sharding import param_shardings
+    from repro_torch.parallel.sharding import check_data_parallel, param_shardings, param_specs
     from repro_torch.serve.decode import CausalLM, EagerServeStep, init_cache
     from repro_torch.train.checkpoint import restore_checkpoint
     from repro_torch.train.step import TrainConfig, abstract_params, make_train_step
@@ -338,10 +340,10 @@ def model_axis(rank: int, world: int, workdir: Path, archs: tuple, batch: int, p
                      "params": {path: tuple(t.shape) for path, t in leaves_with_path(params)},
                      "cache": {path: tuple(t.shape)
                                for path, t in leaves_with_path(init_cache(cfg, batch, prompt + gen, "cpu", mesh))}}
-    try:
-        make_train_step(cfg, TrainConfig(), mesh)
-    except NotImplementedError as err:
-        out["train_refusal"] = str(err)
+    check_data_parallel(mesh, "train")
+    step_fn, (in_sh, _), _, _ = make_train_step(cfg, TrainConfig(), mesh)
+    out["train_built"] = callable(step_fn) and in_sh[0]["embed"]["table"].spec == param_specs(
+        abstract_params(cfg, torch.float32), {"data": 2, "model": 2}, fsdp=False, cfg=cfg)["embed"]["table"]
     model, cache = CausalLM(cfg, params, shardings), init_cache(cfg, batch, prompt + gen, "cpu", mesh)
     out["step_refusals"] = []
     for step in (lambda: model.decode_step(cache, tokens[: batch // 2, :1], torch.zeros(batch // 2, dtype=torch.int32)),
@@ -381,7 +383,7 @@ def moe_data(rank: int, world: int, workdir: Path, arch: str, batch: int, prompt
            "last_logits": got["last_logits"].numpy()}
     params = init_lm(torch.Generator().manual_seed(0), cfg, torch.float32)
     step_fn, (in_sh, _), _, _ = make_train_step(cfg, train_config("scu", lr, 1), mesh)
-    opt_state = init_opt_state(params, in_sh[1])
+    opt_state = init_opt_state(params, in_sh)
     rows = slice(rank * batch // world, (rank + 1) * batch // world)
     whole = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=torch.Generator().manual_seed(2))
     data = {"tokens": whole[rows, :-1], "labels": whole[rows, 1:]}
@@ -394,5 +396,96 @@ def moe_data(rank: int, world: int, workdir: Path, arch: str, batch: int, prompt
     return out
 
 
+def model_train(rank: int, world: int, workdir: Path, runs: tuple, steps: int, batch: int, seq: int, lr: float,
+                warmup: int, resume_at: int, resume_arch: Optional[str] = None, launch: tuple = ()) -> dict:
+    """On ``{"data": 2, "model": 2}``, for each ``(arch, policy, remat)`` of
+    ``runs``, from the float32 step-0 checkpoint ``step0_<arch>`` (copied into
+    ``run_<arch>_<policy>``): the step-0 gradient of every leaf (this rank's
+    block, the mean over the data processes: the ``tas`` hook's), then
+    ``train`` for ``steps`` steps of ``SyntheticLM(seed 0)``'s global batches,
+    its losses, grad norms, final parameter blocks and optimizer-state block
+    shapes.  With ``resume_arch``, its ``scu`` run again, saved at
+    ``resume_at`` into ``resume`` (its blocks there kept) and resumed in the
+    group, and int8 compression of a block split over ``model``; with
+    ``launch``, the training launcher's mesh and ``main`` on those arguments
+    in the group, its checkpoints in ``launched``."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.parallel.sharding import NamedSharding, Shards, Spec, shard_local
+    from repro_torch.sync import get_policy
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.train.data import SyntheticLM, make_batch_fn
+    from repro_torch.train.loop import TrainerConfig, _device_batch, train
+    from repro_torch.train.optimizer import compress_decompress
+    from repro_torch.train.step import abstract_params, make_train_step, value_and_grad
+
+    mesh = device_mesh({"data": 2, "model": 2}, "cpu")
+    out = {"coords": tuple(mesh.get_coordinate())}
+
+    def fresh(src, name):
+        if rank == 0:
+            shutil.copytree(workdir / src, workdir / name)
+        dist.barrier()
+        return workdir / name
+
+    for arch, policy, remat in runs:
+        cfg = float32_smoke(arch)
+        tcfg = train_config(policy, lr, warmup, remat)
+        batch_fn = make_batch_fn(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, seed=0), batch)
+
+        def run(ckpt_dir, until, ckpt_every=1000):
+            trainer = TrainerConfig(steps=until, ckpt_every=ckpt_every, ckpt_dir=str(ckpt_dir), log_every=1000)
+            return train(cfg, tcfg, trainer, mesh, batch_fn, device="cpu")
+
+        _, (in_sh, batch_sh), _, params_sds = make_train_step(cfg, tcfg, mesh)
+        params = restore_checkpoint(str(workdir / f"step0_{arch}"), 0, {"params": params_sds}, {"params": in_sh[0]},
+                                    device="cpu")["params"]  # fmt: skip
+        shards = Shards.of(in_sh[0])
+        loss, grads = value_and_grad(lambda p, b: lm_loss(p, cfg, b, remat_policy=remat, shards=shards), params,
+                                     _device_batch(batch_fn(0), torch.device("cpu"), batch_sh))  # fmt: skip
+        grads = get_policy("tas").shape_gradients(grads, params_sds, mesh, cfg=cfg)
+        params, opt_state, history = run(fresh(f"step0_{arch}", f"run_{arch}_{policy}"), steps)
+        out[(arch, policy)] = {
+            "grads": {path: g.numpy() for path, g in leaves_with_path(grads)},
+            "loss": [h["loss"] for h in history], "grad_norm": [h["grad_norm"] for h in history],
+            "params": {path: t.numpy() for path, t in leaves_with_path(params)},
+            "opt_shapes": {key: {path: tuple(t.shape) for path, t in leaves_with_path(tree)}
+                           for key, tree in opt_state.items()},
+        }  # fmt: skip
+
+    if resume_arch is None:
+        return out
+    cfg = float32_smoke(resume_arch)
+    tcfg = train_config("scu", lr, warmup)
+    batch_fn = make_batch_fn(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, seed=0), batch)
+    resume_dir = fresh(f"step0_{resume_arch}", "resume")
+    trainer = TrainerConfig(steps=resume_at, ckpt_every=resume_at, ckpt_dir=str(resume_dir), log_every=1000)
+    params, opt_state, _ = train(cfg, tcfg, trainer, mesh, batch_fn, device="cpu")
+    out["saved"] = {key: {path: bits(t) for path, t in leaves_with_path(tree)}
+                    for key, tree in (("params", params), *opt_state.items())}  # fmt: skip
+    trainer = dataclasses.replace(trainer, steps=steps)
+    out["resumed"] = [h["loss"] for h in train(cfg, tcfg, trainer, mesh, batch_fn, device="cpu")[2]]
+
+    # int8 compression of a block split over model (and data): the scale is the whole tensor's max
+    whole = torch.randn(8, 6, generator=torch.Generator().manual_seed(5))
+    for name, spec in (("model", Spec(None, "model")), ("both", Spec("data", "model"))):
+        placed = NamedSharding(mesh, spec)
+        out[("int8_block", name)] = compress_decompress(shard_local(whole, placed), None, placed)[0].numpy()
+        out[("int8_whole", name)] = shard_local(compress_decompress(whole, None)[0], placed).numpy()
+
+    if launch:
+        from repro_torch.launch.train import build_run, main
+        from repro_torch.parallel.sharding import axis_sizes
+
+        argv = [*launch, "--ckpt-dir", str(workdir / "launched")]
+        out["launched_mesh"] = axis_sizes(build_run(argv)[3])
+        out["launched_loss"] = [h["loss"] for h in main(argv)[2]]
+    return out
+
+
 JOBS = {"collectives": collectives, "placements": placements, "data_parallel": data_parallel, "serving": serving,
-        "model_axis": model_axis, "moe_data": moe_data}
+        "model_axis": model_axis, "moe_data": moe_data, "model_train": model_train}

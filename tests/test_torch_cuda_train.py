@@ -134,6 +134,33 @@ def test_flash_bwd_kernel_matches_plain_backward(card, b, h, kvh, s, dqk, dv, ca
     _assert_grads_within(got, plain_grads, [r.float() for r in ref], (q, k, v), dtype)
 
 
+# K1's backward at the heads one process of model = 2 hands it in training
+# (phi4-mini: 12 of 24 q heads and 4 of 8 kv heads of 128; deepseek-v2-lite's
+# MLA: 8 of 16 heads at (192, 128)), against its plain version as above.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "deepseek-v2-lite-16b"])
+def test_flash_bwd_kernel_at_a_model_rank_head_count(card, arch, dtype):
+    cfg, model, b, s = get_config(arch), 2, 1, 512
+    if cfg.mla is not None:
+        h = kvh = cfg.n_heads // model
+        dqk, dv = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim, cfg.mla.v_head_dim
+    else:
+        h, kvh = cfg.n_heads // model, cfg.n_kv_heads // model
+        dqk = dv = cfg.resolved_head_dim
+    rng = np.random.default_rng(13)
+    q, k, v, dout = (_normal(rng, shape, card, dtype) for shape in
+                     ((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv), (b, s, h, dv)))  # fmt: skip
+    out, lse = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    out = out.transpose(1, 2)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*(x.transpose(1, 2) for x in (q, k, v, out)), lse, dout.transpose(1, 2), causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    plain_grads = attention_bwd(q, k, v, out, lse, dout, causal=True)
+    ref = attention_bwd(*(x.float() for x in (q, k, v, out)), lse, dout.float(), causal=True)
+    _assert_grads_within([g.transpose(1, 2) for g in got], plain_grads, [r.float() for r in ref], (q, k, v), dtype)
+
+
 # What K1 does not build raises on CUDA tensors before any launch: head dims
 # around the built ones, a pair other than MLA's, and float16.
 @pytest.mark.parametrize(

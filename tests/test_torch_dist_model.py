@@ -189,9 +189,12 @@ def test_each_rank_holds_only_its_parameter_and_cache_blocks(model_axis, arch):
     assert split > 0
 
 
-def test_a_train_step_over_model_is_refused_naming_item_5b(model_axis):
+def test_a_train_step_over_model_builds_on_the_same_group(model_axis):
+    """``check_data_parallel(mesh, "train")`` passes ``model = 2`` and
+    ``make_train_step`` builds, its parameters placed over ``model`` (the
+    training itself: ``tests/test_torch_dist_model_train*.py``)."""
     for result in model_axis[2]:
-        assert "ROADMAP Queue 1 item 5b" in result["train_refusal"] and "'model'" in result["train_refusal"]
+        assert result["train_built"] is True
 
 
 def test_a_vocab_that_does_not_split_serves_replicated(model_axis):

@@ -128,14 +128,15 @@ def test_a_sharded_jax_checkpoint_restores_into_the_group(placed, arch, rank):
 
 @pytest.mark.parametrize("kind", ["train", "serve"])
 def test_model_axis_above_one_is_refused_by_name(placed, kind):
-    """A train step at ``model = 2`` is refused, naming its ROADMAP item; a
-    serve call there serves, and only its decode graph, which cannot capture
-    a ``gloo`` group's collectives, is refused, naming the backend."""
+    """A train step at ``model = 2`` builds (nothing of it is refused any
+    more); a serve call there serves, and only its decode graph, which
+    cannot capture a ``gloo`` group's collectives, is refused, naming the
+    backend."""
     for result in placed[3]:
-        message = result[f"{kind}_refusal"]
         if kind == "train":
-            assert "ROADMAP Queue 1 item 5b" in message and "'model'" in message
+            assert result["train_built"] is True
         else:
+            message = result[f"{kind}_refusal"]
             assert "'gloo'" in message and "EagerServeStep" in message
             assert result["served"].shape == (4, 3)
 
