@@ -21,7 +21,7 @@ non-zero exit if it fails:
             test shapes take clusters of 2, 4 and 8, the serving shapes the
             sequential form (the batch) and clusters of 2 (one prompt); it
             is timed at jamba's SSD dims too.  K1 names the
-            path each shape took (``wgmma``, ``mma_sync`` or ``f32``), is
+            path each shape took (``wgmma`` or ``f32``), is
             checked at MLA's head dims (qk 192, v 128) and at head dim 80
             (both on ``wgmma`` in bf16, which the run checks), and is also
             timed at musicgen's heads (24 of 64), deepseek's MLA prefill (16
@@ -48,7 +48,12 @@ non-zero exit if it fails:
             (``ops.attention_bwd``) at b=1, 4096 tokens at phi4's, MLA's and
             head dim 80's dims, and timed there in turns with SDPA's
             backward and the PyTorch FA-2 backward it replaced; K2's
-            backward timed at the serving shape.
+            backward timed at the serving shape.  K1 and its backward at
+            every width the reference takes (``WIDTHS``: 16, 24, 32, 48, 96,
+            the widest square 160, (24, 16) and (96, 64), each in the
+            smallest instance that holds it) against their plain versions in
+            float32 and bf16, each timed in bf16 at phi4's heads and 4096
+            tokens beside SDPA (forward and backward) and the bound.
 4. serve:   each served model at its published width (random weights from a
             seed) through the launcher's functions: a batch of prompts is
             prefilled, then greedy-decoded.  phi4-mini-3.8b (32 layers,
@@ -87,7 +92,12 @@ non-zero exit if it fails:
             token (a MoE model with capacity for every slot).  mamba2 then
             answers one prompt alone (K2 in clusters of 2, counted the same
             way), and that prefill is timed in turns with K2's sequential
-            form, the form of a card without cluster launch.
+            form, the form of a card without cluster launch.  Then the ten
+            smoke configs, each drawn in bf16 and served (2 prompts of 64
+            tokens, 4 decoded through the graph): K1 at the smoke widths,
+            16 and deepseek's MLA (24, 16); checks that prefill launched K1
+            once an attention layer and K2 once an SSD layer, finite logits
+            and tokens in the vocabulary.
 4b. batch:  ``serve_stream`` on phi4-mini-3.8b whole: 24 requests from seed
             3 (prompts of 128-1024 tokens, 8-64 new tokens each) over 8
             slots of a 1152-position cache, through the graph, then the same
@@ -238,7 +248,23 @@ non-zero exit if it fails:
             replays, capture s, and the CPU's us a cycle at 8 lanes.  No
             kernel launches in this phase (every count set to 0 just before,
             read just after).
-9. result:  one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5; K1
+9. dryrun:  after every phase that starts a process group
+            (``repro_torch.launch.dryrun`` on fake CUDA tensors): phi4
+            training at 1 x 4096, mamba2 at 4 x 4096, and both prefilled at
+            4 x 4096, at ``{"data": 1, "model": 1}``, and one production
+            cell, phi4 ``train_4k`` on the 16 x 16 mesh (a ``"fake"``
+            group of 256, rank 0).  Checks that the dry run allocated
+            nothing on the card (``memory_allocated`` before and after),
+            launched no kernel and left no group up.  Prints each cell's
+            roofline bound (``launch/roofline.py``) beside its measured time
+            (the train phase's steps; the prefills measured here) and its
+            predicted peak beside ``max_memory_allocated``; fails if a
+            measured time is below its bound or a peak is off by more than
+            25 %.
+10. examples: the three example twins (``examples/*_torch.py``), each in a
+            process of its own on the card: the quickstart, train_100m at
+            40 steps with its resume, the batched serve; checks each exits 0.
+11. result: one ``{"kernels": [...]}`` line (K1, K1's backward, K2-K5; K1 and its backward with ``widths``; K1
             and K2 with, under ``model_axis``, each model's launches by rank
             at model = 2 and the check and times at a rank's shape; K1, K1's
             backward and K2 with, under ``model_axis_training``, each model's
@@ -259,13 +285,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the work's FLOPs and the least time on the card: one definition with the
+# kernels' flop formulas (the dry run's count); the card's peaks are
+# repro_torch/hardware.py's.  Without the checkout's src/ this import
+# fails and the script exits non-zero, printing no result.
+from repro_torch.kernels.costs import attention_bwd_bound, attention_flops, bound, ssd_flops  # noqa: E402
 
 # the request the serving phase answers: a batch of prompts, greedy-decoded
 BATCH, PROMPT_LEN, GEN = 4, 4096, 32
 
-# NVIDIA H100 SXM data sheet, dense rates
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES_PER_S = 3.35e12
 
 # (b, h, kvh, s, d, causal): the four shapes of tests/test_kernels.py, one
 # ragged length, the non-causal case, llava's 7 and command-r's 12 q heads a kv
@@ -298,6 +327,24 @@ MUSICGEN_HEADS = (24, 24, 64)
 # float32: the same f32 arithmetic in another order.  bfloat16: p and the
 # output are rounded to 8 bits of mantissa at different places on each side.
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# K1's widths beyond its first instances: the smoke configs' 16, 24, 32, 48, 96, the widest
+# square (160), deepseek's smoke MLA (24, 16) and (96, 64), against the plain versions in
+# float32 and bf16 at WIDTHS_CHECK (b, h, kvh, s: ragged, 4 q heads a kv head), the backward
+# within WIDTH_BWD_TOL of the largest gradient; timed in bf16 at WIDTHS_TIMED (phi4's heads
+# at the serving length)
+WIDTHS = [(16, 16), (24, 24), (32, 32), (48, 48), (96, 96), (160, 160), (24, 16), (96, 64)]
+WIDTHS_CHECK, WIDTHS_TIMED = (2, 8, 2, 333), (4, 24, 8, 4096)
+WIDTH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the serve phase's ten smoke configs: a request of SMOKE_BATCH prompts of SMOKE_PROMPT tokens,
+# SMOKE_GEN tokens decoded
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_GEN = 2, 64, 4
+# the dryrun phase: (arch, kind, batch, seq) of the cells this script measures, at
+# {"data": 1, "model": 1}; prefills timed a cell; the predicted peak's tolerance
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train", 1, 4096), ("mamba2-1.3b", "train", 4, 4096),
+                ("phi4-mini-3.8b", "prefill", 4, 4096), ("mamba2-1.3b", "prefill", 4, 4096))
+DRYRUN_PREFILLS, DRYRUN_PEAK_TOL = 3, 0.25
+# the examples phase: train_100m's steps, and any example's time limit
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TIMEOUT_S = 40, 300
 
 # (b, s, h, p, n, chunk): the three shapes of tests/test_kernels.py, one
 # ragged chunk, the smoke configs' dims in chunks of 11, and 16 tiles of two
@@ -441,20 +488,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float, dtype_name: str):
-    """Least time for the work: (ms, 'bytes' | 'operations'), the larger of the two."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def attention_flops(b, h, sq, sk, d, dv, causal) -> int:
-    """Two products for every (query, key) pair that the mask keeps: q k^T
-    (2*d FLOP) and p v (2*dv FLOP)."""
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    return 2 * (d + dv) * b * h * pairs
-
-
 def attention_bound(b, h, kvh, sq, sk, d, causal, dtype_name, dv=None):
     """Bytes: q, k (d wide), v (dv wide) read once, out (dv wide) and lse
     written once.  Operations: ``attention_flops``."""
@@ -462,29 +495,6 @@ def attention_bound(b, h, kvh, sq, sk, d, causal, dtype_name, dv=None):
     size = 2 if dtype_name == "bfloat16" else 4
     nbytes = size * (d * (b * h * sq + b * kvh * sk) + dv * (b * kvh * sk + b * h * sq)) + 4 * b * h * sq
     return bound(nbytes, attention_flops(b, h, sq, sk, d, dv, causal), dtype_name)
-
-
-def attention_bwd_bound(b, h, kvh, s, d, dv, dtype_name):
-    """K1's backward, causal, sq = sk = s.  Bytes: q, k, v, out, dout and lse
-    read once, dq, dk, dv written once.  Operations: the function's five
-    products (P again, dP, dV, dK, dQ), 2.5x the forward's; the kernel's two
-    passes take S and dP twice, 3.5x, which the bound does not count."""
-    size = 2 if dtype_name == "bfloat16" else 4
-    nbytes = size * (2 * d * (b * h * s + b * kvh * s) + dv * (b * kvh * s + 2 * b * h * s) + dv * b * kvh * s)
-    nbytes += 4 * b * h * s
-    return bound(nbytes, 2.5 * attention_flops(b, h, s, s, d, dv, True), dtype_name)
-
-
-def ssd_flops(b, s, h, p, n, chunk) -> int:
-    """Operations of the chunked SSD form, as the reference computes it: per
-    (batch, head, chunk of Q), C B^T over the j <= i pairs only (the masked
-    half not counted; counted per head, as the reference and the kernel
-    compute it per head), those scores times x (j <= i), C times the carried
-    state, and the state update: 2 FLOP a multiply-add.  The kernel's second
-    (lo) products and the elementwise exp, decay and cumsum are not counted."""
-    nc = s // chunk
-    pairs = chunk * (chunk + 1) // 2
-    return b * h * nc * (2 * pairs * (n + p) + 4 * chunk * n * p)
 
 
 def ssd_bound(b, s, h, p, n, chunk, dtype_name):
@@ -2600,6 +2610,29 @@ def model_axis_rank(rank: int, world: int, workdir: str) -> None:
         sys.exit(1)
 
 
+def held_at_recorded_shape(gen, name: str, shape, tag: str) -> tuple:
+    """K1 or K2 held to its plain version at the [kernels] tolerances, and
+    timed, at a ``shape`` that ``recorded_kernel_shapes`` recorded, on inputs
+    drawn from ``gen``.  Returns (row, None), or (None, why it is not
+    covered)."""
+    if name == "flash_attention_fwd":
+        (q, q_t), (k, k_t), (v, v_t), causal = shape
+        if {q_t, k_t, v_t} != {"bfloat16"} or not causal:
+            return None, f"K1 given {shape}; the check covers causal bf16 only"
+        b, s, h, d = q
+        row = attention_at_shape(gen, b, s, h, k[2], d, True, v[3], tag=tag)
+        row["shape"] = {"b": b, "s": s, "h": h, "kvh": k[2], "dqk": d, "dv": v[3]}
+        return row, None
+    (x, x_t), (dt, dt_t), _, (B, B_t), (C, C_t), chunk, fresh = shape
+    if (x_t, dt_t, B_t, C_t) != ("bfloat16", "float32", "bfloat16", "bfloat16") or not fresh:
+        return None, f"K2 given {shape}; the check covers the serving types from a zero state"
+    b, s, h, p = x
+    form, err, ms, plain_ms, bound_ms, bound_by = ssd_at_shape(gen, b, s, h, p, B[3], chunk, tag=tag)
+    return {"form": form.name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": {"b": b, "s": s, "h": h, "p": p, "n": B[3], "chunk": chunk}}, None  # fmt: skip
+
+
 def model_axis_kernels(ranks: list) -> tuple:
     """K1 and K2 held to their plain versions, and timed, at every shape and
     type that a rank's bf16 run handed them (``kernel_shapes``), on inputs
@@ -2618,26 +2651,11 @@ def model_axis_kernels(ranks: list) -> tuple:
             if len(shapes) != 1:
                 failures.append(f"{arch}: the ranks handed {name} {len(shapes)} shapes, not one: {sorted(shapes)}")
                 continue
-            shape = json.loads(shapes.pop())
             launches = [r[arch]["bf16"]["launches"][name] for r in ranks]
-            if name == "flash_attention_fwd":
-                (q, q_t), (k, k_t), (v, v_t), causal = shape
-                if {q_t, k_t, v_t} != {"bfloat16"} or not causal:
-                    failures.append(f"{arch}: K1 given {shape}; the check covers causal bf16 only")
-                    continue
-                b, s, h, d = q
-                row = attention_at_shape(gen, b, s, h, k[2], d, True, v[3], tag="[model]")
-                row["shape"] = {"b": b, "s": s, "h": h, "kvh": k[2], "dqk": d, "dv": v[3]}
-            else:
-                (x, x_t), (dt, dt_t), _, (B, B_t), (C, C_t), chunk, fresh = shape
-                if (x_t, dt_t, B_t, C_t) != ("bfloat16", "float32", "bfloat16", "bfloat16") or not fresh:
-                    failures.append(f"{arch}: K2 given {shape}; the check covers the serving types from a zero state")
-                    continue
-                b, s, h, p = x
-                form, err, ms, plain_ms, bound_ms, bound_by = ssd_at_shape(gen, b, s, h, p, B[3], chunk, tag="[model]")
-                row = {"form": form.name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "shape": {"b": b, "s": s, "h": h, "p": p, "n": B[3], "chunk": chunk}}  # fmt: skip
+            row, why = held_at_recorded_shape(gen, name, json.loads(shapes.pop()), "[model]")
+            if why is not None:
+                failures.append(f"{arch}: {why}")
+                continue
             rows.setdefault(arch, {})[name] = {"launches": launches, **row}
             print(f"[model] {arch}: {name} held to its plain version at the shape each rank gave it "
                   f"{row['shape']}, launched {launches} times by rank")
@@ -2812,13 +2830,22 @@ def mtrain_step(cfg, dtype: str, mesh):
     return make_train_step(cfg, tcfg, mesh)
 
 
-def mtrain_batch(cfg, batch: int, seq: int) -> dict:
-    """The train phase's batch: ``(batch, seq + 1)`` token ids from seed 1 on the card."""
+def mtrain_batch(cfg, batch: int, seq: int, edges: int = 0) -> dict:
+    """The train phase's batch: ``(batch, seq + 1)`` token ids from seed 1 on
+    the card.  With ``edges``, the first and last rows of each of the
+    vocabulary's ``edges`` blocks (the split of the embedding and of the
+    vocab-parallel cross-entropy over that many model processes) are planted
+    at positions 1, 2, ... of every row, so that they are input tokens and
+    labels both: the split's boundary rows then carry gradients."""
     import torch
 
     dev = torch.device("cuda")
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=torch.Generator(device=dev).manual_seed(1),
                            device=dev)  # fmt: skip
+    if edges:
+        block = cfg.vocab_size // edges
+        ids = sorted({row for i in range(edges) for row in (i * block, (i + 1) * block - 1)})
+        tokens[:, 1 : 1 + len(ids)] = torch.tensor(ids, device=dev)
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
@@ -2891,7 +2918,7 @@ def model_axis_training_rank(rank: int, world: int, workdir: str) -> None:
             ref = torch.load(work / f"ref_{arch}.pt", mmap=True)
             step_fn, in_sh, params, opt = draw(cfg, torch.float32)
             start = {path: t.clone() for path, t in _flat(params).items()}
-            data = mtrain_batch(cfg, MTRAIN_F32_BATCH, MTRAIN_F32_LEN)
+            data = mtrain_batch(cfg, MTRAIN_F32_BATCH, MTRAIN_F32_LEN, edges=MODEL_RANKS)
             pins, own, handed, quiet = [r.to(dev) for r in ref["routing"]], [], [], {}
             shardings = _flat(in_sh[0])
             step = torch.zeros((), dtype=torch.int32, device=dev)
@@ -3082,7 +3109,7 @@ def model_axis_training(card: str, trained: dict) -> dict:
             params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.float32)
             step_fn = mtrain_step(cfg, "float32", {"data": 1, "model": 1})[0]
             opt = init_opt_state(params)
-            data = mtrain_batch(cfg, MTRAIN_F32_BATCH, MTRAIN_F32_LEN)
+            data = mtrain_batch(cfg, MTRAIN_F32_BATCH, MTRAIN_F32_LEN, edges=MODEL_RANKS)
             step = torch.zeros((), dtype=torch.int32, device=dev)
             routing, losses, norms, handed, quiet, rms, grad0 = [], [], [], [], {}, {}, {}
             for c in counters:
@@ -3155,7 +3182,9 @@ def model_axis_training(card: str, trained: dict) -> dict:
               f"{[f'{r['params_worst'][0]:.3f} ({r['params_worst'][1]}: {r['params_worst'][2]:.2e} of {r['params_worst'][3]:.2e})' for r in a]} "
               f"and its err / (2 x the summed learning rates, AdamW's most) {[round(r['params_farthest'], 4) for r in a]} "
               f"(tol 1); leaves whole over model, the same bits on both ranks: {same_bits(a)}; launches a step "
-              f"by rank {[r['launches'][-1] for r in a]}{routed}")
+              f"by rank {[r['launches'][-1] for r in a]}{routed}; with each rank's vocabulary block edges among the "
+              f"tokens, the quiet entries by rank {[f'{r['params_beyond'][2] / r['params_beyond'][3]:.1%}' for r in a]} "
+              f"(2.9-35 % without them, PERF.md section 6)")
         for r in a:
             d, t = r["routing_differ"]
             beyond, near = r["params_beyond"][:2]
@@ -3327,6 +3356,305 @@ def check_train_step_against_plain(cfg, plain, grad_tol: float) -> dict:
             "params_unexplained_abs_err": unexplained}
 
 
+def check_attention_widths() -> dict:
+    """Phase 3 for K1 at the widths beyond its first instances (``WIDTHS``):
+    the forward and its backward against their plain versions in float32 and
+    bf16 at ``WIDTHS_CHECK``, then each timed in bf16 at ``WIDTHS_TIMED``
+    beside SDPA (forward and backward) and the bound.  Returns the rows of
+    K1's ``widths`` entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd, kernel_instance
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_lse
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def draw(shapes, dtype):
+        return [torch.randn(sh, generator=gen, device=dev).to(dtype) for sh in shapes]
+
+    rows = {}
+    for dqk, dv in WIDTHS:
+        instance = kernel_instance(dqk, dv)
+        b, h, kvh, s = WIDTHS_CHECK
+        errs = {}
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v, dout = draw(((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv), (b, s, h, dv)), dtype)
+            qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+            out, lse = flash_attention_fwd(qt, kt, vt, causal=True)
+            grads = flash_attention_bwd(qt, kt, vt, out, lse, dt, causal=True)
+            torch.cuda.synchronize()
+            ref = attention_ref(qt, kt, vt, causal=True)
+            fwd_err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - attention_ref_lse(qt, kt, causal=True)).abs().max().item()
+            want = attention_bwd(q, k, v, out.transpose(1, 2), lse, dout, causal=True)
+            bwd_err = max((g.transpose(1, 2).float() - w.float()).abs().max().item() / max(1.0, w.float().abs().max().item())
+                          for g, w in zip(grads, want))  # fmt: skip
+            errs[name] = {"fwd": fwd_err, "lse": lse_err, "bwd": bwd_err}
+            if not (fwd_err <= KERNEL_TOL[name] and lse_err <= 1e-3 and bwd_err <= WIDTH_BWD_TOL[name]):
+                raise SystemExit(f"[kernels] K1 at dqk={dqk} dv={dv} {name} (instance {instance}) disagrees with its "
+                                 f"plain versions: forward {fwd_err:.3e} (tol {KERNEL_TOL[name]:g}), lse {lse_err:.3e}, "
+                                 f"backward {bwd_err:.3e} of the largest gradient (tol {WIDTH_BWD_TOL[name]:g})")
+        b, h, kvh, s = WIDTHS_TIMED
+        q, k, v, dout = draw(((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv), (b, s, h, dv)), torch.bfloat16)
+        qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+        out, lse = flash_attention_fwd(qt, kt, vt, causal=True)
+        row = {"instance": list(instance), "max_abs_err": errs,
+               "ms": time_ms(lambda: flash_attention_fwd(qt, kt, vt, causal=True), iters=20),
+               "bwd_ms": time_ms(lambda: flash_attention_bwd(qt, kt, vt, out, lse, dt, causal=True), iters=10)}
+        row["bound_ms"], row["bound_by"] = attention_bound(b, h, kvh, s, s, dqk, True, "bfloat16", dv)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = attention_bwd_bound(b, h, kvh, s, dqk, dv, "bfloat16")
+        # the yardsticks, which the port never calls; SDPA refuses some widths
+        try:
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+        except RuntimeError:
+            row["library_ms"] = None
+        try:
+            qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
+            ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+            row["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(ref_out, (qs, ks, vs), dt, retain_graph=True),
+                                            iters=10)  # fmt: skip
+            del ref_out
+        except RuntimeError:
+            row["bwd_library_ms"] = None
+
+        def against(ms, library):
+            return "refused" if library is None else f"{library:.3f} ms (kernel {ms / library:.2f}x)"
+
+        print(f"[kernels] K1 width dqk={dqk} dv={dv} (instance {instance[0]}x{instance[1]}): against the plain "
+              f"versions at b={WIDTHS_CHECK[0]} h={WIDTHS_CHECK[1]} kvh={WIDTHS_CHECK[2]} s={WIDTHS_CHECK[3]} causal, "
+              + "; ".join(f"{name} forward {e['fwd']:.2e}, lse {e['lse']:.2e}, backward {e['bwd']:.2e} of the largest "
+                          f"gradient" for name, e in errs.items())
+              + f"; at b={b} h={h} kvh={kvh} s={s} bf16 causal: forward {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} "
+              f"by {row['bound_by']}, {row['bound_ms'] / row['ms'] * 100:.0f} %), SDPA {against(row['ms'], row['library_ms'])}; "
+              f"backward {row['bwd_ms']:.3f} ms (bound {row['bwd_bound_ms']:.3f} by {row['bwd_bound_by']}, "
+              f"{row['bwd_bound_ms'] / row['bwd_ms'] * 100:.0f} %), SDPA's backward "
+              f"{against(row['bwd_ms'], row['bwd_library_ms'])}")
+        rows[f"{dqk}x{dv}"] = row
+        del q, k, v, dout, qt, kt, vt, dt, out, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_smoke_configs(counters) -> dict:
+    """The serve phase's ten smoke configs: each drawn in bf16 on the card and
+    served through ``launch.serve.serve`` (a batch of ``SMOKE_BATCH`` prompts of
+    ``SMOKE_PROMPT`` tokens prefilled, ``SMOKE_GEN`` tokens decoded through the
+    graph), K1 at every smoke head width (16, and deepseek's MLA at (24, 16)).
+    Checks that prefill launched K1 once an attention layer and K2 once an SSD
+    layer (counts set to 0 just before, read just after), that the logits
+    are finite and the tokens in the vocabulary, and holds each kernel to its
+    plain version at every shape and type the prefill handed it
+    (``recorded_kernel_shapes``; a launched kernel with no shape recorded
+    fails).  Returns, by arch, the widths, the launches and those checks."""
+    import torch
+
+    from repro_torch.configs.registry import get_smoke_config, list_archs
+    from repro_torch.kernels.flash_attention.kernel import kernel_instance
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.decode import CausalLM
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    t0 = time.perf_counter()
+    for arch in list_archs():
+        cfg = get_smoke_config(arch)
+        model = CausalLM(cfg, init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16))
+        inputs = make_inputs(cfg, SMOKE_BATCH, SMOKE_PROMPT, torch.Generator(device=dev).manual_seed(1))
+        shapes = {}
+        for counted in counters.values():
+            counted.launches = 0
+        with recorded_kernel_shapes(shapes):
+            got = serve(model, inputs, SMOKE_GEN, log=lambda *a, **k: None)
+        torch.cuda.synchronize()
+        launches = {name: counters[name].launches for name in ("flash_attention_fwd", "ssd_scan_fwd")}
+        want = {name: n for name, n in expected_launches(cfg).items() if name in launches}
+        m = cfg.mla
+        widths = (None if want["flash_attention_fwd"] == 0 else
+                  (m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim) if m is not None else
+                  (cfg.resolved_head_dim, cfg.resolved_head_dim))  # fmt: skip
+        tokens = got["tokens"]
+        fine = (bool(torch.isfinite(got["prefill_logits"]).all() and torch.isfinite(got["last_logits"]).all())
+                and tokens.shape == (SMOKE_BATCH, SMOKE_GEN + 1) and int(tokens.min()) >= 0
+                and int(tokens.max()) < cfg.vocab_size)  # fmt: skip
+        print(f"[serve] smoke {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, K1 head dims "
+              f"{widths if widths else 'none'}{f' (instance {kernel_instance(*widths)})' if widths else ''}; prefill "
+              f"{SMOKE_BATCH} x {SMOKE_PROMPT} and {SMOKE_GEN} tokens decoded through the graph in "
+              f"{got['prefill_s'] + got['decode_s']:.2f} s; prefill launches {launches} (expected {want}); "
+              f"tokens {tokens[0, :6].tolist()}")
+        if launches != want or not fine:
+            raise SystemExit(f"[serve] smoke {arch}: launches {launches} (expected {want}), logits finite and tokens "
+                             f"in the vocabulary: {fine}")
+        del model, inputs, got
+        held = {}
+        for name in launches:
+            if launches[name] and not shapes.get(name):
+                raise SystemExit(f"[serve] smoke {arch}: {name} launched {launches[name]} times, no shape recorded")
+            for shape in sorted(shapes.get(name, ())):
+                row, why = held_at_recorded_shape(gen, name, shape, f"[serve] smoke {arch}:")
+                if why is not None:
+                    raise SystemExit(f"[serve] smoke {arch}: {why}")
+                held.setdefault(name, []).append({key: row[key] for key in ("shape", "max_abs_err", "ms", "bound_ms")})
+        out[arch] = {"head_dims": widths, "launches": launches, "held": held}
+    torch.cuda.empty_cache()
+    print(f"[serve] the ten smoke configs: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def measured_prefill(arch: str, batch: int, seq: int) -> tuple:
+    """``make_prefill`` of ``arch`` whole in bf16 on the card at ``batch`` x
+    ``seq`` random tokens: (median ms of ``DRYRUN_PREFILLS`` after a warm-up,
+    peak GiB of one, the peak's baseline the parameters and the inputs)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import make_inputs
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.decode import make_prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
+    inputs = make_inputs(cfg, batch, seq, torch.Generator(device=dev).manual_seed(1))
+    prefill = make_prefill(cfg, dev, batch, seq)
+    prefill(params, inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRYRUN_PREFILLS):
+        t0 = time.perf_counter()
+        got = prefill(params, inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del got
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, inputs
+    torch.cuda.empty_cache()
+    return statistics.median(times), peak
+
+
+def dryrun_on_the_card(trained: dict, counters) -> dict:
+    """The dry run (``repro_torch.launch.dryrun``) on the card's own PyTorch
+    (fake CUDA tensors): the cells this script measures at ``{"data": 1,
+    "model": 1}`` (``DRYRUN_CELLS``) and one production cell, phi4
+    ``train_4k`` on the 16 x 16 mesh (a fake group of 256).  Checks that it
+    allocated nothing on the card and launched no kernel, and that no process
+    group is up before or after.  Then each cell's predicted peak beside the
+    ``max_memory_allocated`` of its real run (the train phase's steps; a
+    prefill measured here) and the roofline's bound beside the measured time:
+    the measured time at or above the bound, the peak within
+    ``DRYRUN_PEAK_TOL``."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import analyze_record
+
+    if dist.is_initialized():
+        raise SystemExit("[dryrun] a process group is up after the phases that start one")
+    out_dir = ROOT / "build" / "dryrun_torch"
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    launched = {name: c.launches for name, c in counters.items()}
+    t0 = time.perf_counter()
+    recs = {}
+    for arch, kind, batch, seq in DRYRUN_CELLS:
+        shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        recs[(arch, kind)] = dryrun.run_cell(arch, shape, {"data": 1, "model": 1}, out_dir)
+    production = dryrun.run_cell("phi4-mini-3.8b", "train_4k", "single", out_dir)
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    after = {name: c.launches for name, c in counters.items()}
+    if torch.cuda.memory_allocated() != allocated or after != launched or dist.is_initialized():
+        raise SystemExit(f"[dryrun] the dry run touched the card: allocated {allocated} -> "
+                         f"{torch.cuda.memory_allocated()} bytes, launches {launched} -> {after}, a group up after it: "
+                         f"{dist.is_initialized()}")
+    failed = [f"{arch} {kind}: {rec.get('error')}" for (arch, kind), rec in recs.items() if rec["status"] != "ok"]
+    if production["status"] != "ok":
+        failed.append(f"phi4 train_4k single: {production.get('error')}")
+    if failed:
+        raise SystemExit(f"[dryrun] cells failed: {failed}")
+    print(f"[dryrun] {len(recs) + 1} cells traced on fake CUDA tensors in {traced_s:.1f} s: nothing allocated on the "
+          f"card ({allocated} bytes before and after), no kernel launched, no process group before or after")
+    row = analyze_record(production)
+    print(f"[dryrun] phi4-mini-3.8b train_4k on the 16 x 16 mesh (a fake group of 256, rank 0): per device "
+          f"{production['cost']['flops_per_device']:.3e} FLOPs, {production['cost']['bytes_accessed_per_device']:.3e} "
+          f"bytes, peak {production['memory']['peak_bytes'] / 2**30:.2f} GiB (arguments "
+          f"{production['memory']['argument_bytes'] / 2**30:.2f}); collectives "
+          + json.dumps({k: [v["count"], v["wire_bytes"]] for k, v in production["collectives"].items() if v["count"]})
+          + f"; roofline compute {row['compute_s'] * 1e3:.1f} ms, memory {row['memory_s'] * 1e3:.1f} ms, collective "
+          f"{row['collective_s'] * 1e3:.1f} ms ({row['dominant']}), useful ratio {row['useful_ratio']:.3f}")
+    rows, failures = {}, []
+    for arch, kind, batch, seq in DRYRUN_CELLS:
+        rec = recs[(arch, kind)]
+        if kind == "train":  # the train phase's steps after the first, and its peak
+            measured_ms = statistics.median(trained[arch]["step_ms"][1:])
+            peak = trained[arch]["peak_gib"]
+        else:
+            measured_ms, peak = measured_prefill(arch, batch, seq)
+        r = analyze_record(rec)
+        predicted = rec["memory"]["peak_bytes"] / 2**30
+        entry = {"bound_ms": r["bound_s"] * 1e3, "dominant": r["dominant"], "compute_ms": r["compute_s"] * 1e3,
+                 "memory_ms": r["memory_s"] * 1e3, "measured_ms": measured_ms,
+                 "fraction": r["bound_s"] * 1e3 / measured_ms, "predicted_peak_gib": predicted,
+                 "measured_peak_gib": peak, "peak_ratio": predicted / peak,
+                 "bf16_flops": rec["dispatch_analysis"]["bf16_flops_per_device"],
+                 "f32_flops": rec["dispatch_analysis"]["f32_flops_per_device"]}  # fmt: skip
+        rows[f"{arch} {rec['shape']}"] = entry
+        print(f"[dryrun] {arch} {rec['shape']}: roofline bound {entry['bound_ms']:.1f} ms ({r['dominant']}; compute "
+              f"{entry['compute_ms']:.1f} ms from {entry['bf16_flops']:.3e} bf16 and {entry['f32_flops']:.3e} float32 "
+              f"FLOPs, memory {entry['memory_ms']:.1f} ms) beside {measured_ms:.1f} ms measured "
+              f"({entry['fraction']:.3f} of it); peak predicted {predicted:.2f} GiB beside {peak:.2f} GiB measured "
+              f"(max_memory_allocated; ratio {entry['peak_ratio']:.3f})")
+        if measured_ms < entry["bound_ms"] or abs(entry["peak_ratio"] - 1) > DRYRUN_PEAK_TOL:
+            failures.append(f"{arch} {rec['shape']}: measured {measured_ms:.1f} ms against a bound of "
+                            f"{entry['bound_ms']:.1f}, peak ratio {entry['peak_ratio']:.3f}")
+    if failures:
+        raise SystemExit(f"[dryrun] {failures}")
+    return {"cells": rows, "traced_s": traced_s}
+
+
+def examples_on_the_card() -> dict:
+    """The three example twins (``examples/*_torch.py``) on the card, each in
+    a process of its own: the quickstart, ``train_100m_torch.py --steps
+    EXAMPLE_TRAIN_STEPS`` (its checkpoint under ``build/``, removed after) and
+    the batched serve.  Checks that each exits 0; prints its last line and
+    seconds."""
+    import os
+    import shutil
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ckpt = ROOT / "build" / "train_100m_ckpt"
+    runs = (("quickstart_torch.py", []), ("train_100m_torch.py", ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt", str(ckpt)]),
+            ("serve_batch_torch.py", []))  # fmt: skip
+    out = {}
+    try:
+        for name, args in runs:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(ROOT / "examples" / name), *args], cwd=ROOT, env=env,
+                                  capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)  # fmt: skip
+            seconds = time.perf_counter() - t0
+            lines = [x for x in proc.stdout.splitlines() if x.strip()]
+            if proc.returncode != 0:
+                raise SystemExit(f"[examples] {name} exited {proc.returncode}: {proc.stdout[-1500:]}\n{proc.stderr[-3000:]}")
+            print(f"[examples] {name} {' '.join(args)}: exit 0 in {seconds:.1f} s; last line: {lines[-1] if lines else ''}")
+            out[name] = {"seconds": seconds, "last": lines[-1] if lines else ""}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3371,6 +3699,13 @@ def main() -> int:
     command_r = dataclasses.replace(get_config("command-r-plus-104b"), n_layers=COMMAND_R_LAYERS)
     k1 = check_attention_kernel(PROMPT_LEN, phi4, deepseek, stablelm, (llava, command_r))
     k1b = check_attention_backward(phi4, deepseek, stablelm)
+    # every head width the reference takes: the instances' widths and those between them
+    widths = check_attention_widths()
+    k1["widths"] = {key: {k: row[k] for k in ("instance", "max_abs_err", "ms", "bound_ms", "bound_by", "library_ms")}
+                    for key, row in widths.items()}  # fmt: skip
+    k1b["widths"] = {key: {"instance": row["instance"], "ms": row["bwd_ms"], "bound_ms": row["bwd_bound_ms"],
+                           "bound_by": row["bwd_bound_by"], "library_ms": row["bwd_library_ms"]}
+                     for key, row in widths.items()}  # fmt: skip
     k2 = check_ssd_kernel(PROMPT_LEN, mamba2)
     k2["backward"] = check_ssd_backward(mamba2)
     k3, k4, k5 = check_scu_kernels()
@@ -3438,6 +3773,11 @@ def main() -> int:
     # ---- 4b. batch -----------------------------------------------------------
     stream = serve_a_stream(phi4, counters)
 
+    # ---- 4c. the ten smoke configs: K1 at 16 and at deepseek's smoke MLA (24, 16) --------
+    smoke = serve_smoke_configs(counters)
+    k1["launches_smoke"] = {arch: got["launches"]["flash_attention_fwd"] for arch, got in smoke.items()}
+    k1["head_dims_smoke"] = {arch: got["head_dims"] for arch, got in smoke.items()}
+
     k1["launches"] = by_model[phi4.name]["flash_attention_fwd"]
     k2["launches"] = by_model[mamba2.name]["ssd_scan_fwd"]
     k1["mla"]["launches"] = by_model[deepseek.name]["flash_attention_fwd"]
@@ -3502,7 +3842,13 @@ def main() -> int:
         raise SystemExit(f"[trace] kernels launched in the trace phase: "
                          f"{ {name: counted.launches for name, counted in counters.items()} }")
 
-    # ---- 9. result ----------------------------------------------------------
+    # ---- 9. dryrun: after every phase that starts a group --------------------
+    dryrun_on_the_card(trained, counters)
+
+    # ---- 10. examples --------------------------------------------------------
+    examples_on_the_card()
+
+    # ---- 11. result ----------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k1b, k2, k3, k4, k5]}))
     print(card)

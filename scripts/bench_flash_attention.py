@@ -42,11 +42,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.compat import card_name_and_power_limit
+from repro_torch.hardware import PEAK_FLOPS
+from repro_torch.kernels.costs import attention_flops
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import attention_bwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-PEAK_BF16_FLOPS = 989e12  # NVIDIA H100 SXM data sheet, dense
+PEAK_BF16_FLOPS = PEAK_FLOPS["bfloat16"]  # NVIDIA H100 SXM data sheet, dense
 
 
 def time_ms(fn, iters=30, warmup=3):
@@ -81,7 +83,7 @@ def main() -> None:
     draw = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, dv)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    flops = 2 * (d + dv) * b * h * (s * (s + 1) // 2) * (2.5 if args.backward else 1)
+    flops = attention_flops(b, h, s, s, d, dv, True) * (2.5 if args.backward else 1)
     bound_ms = flops / PEAK_BF16_FLOPS * 1e3
     print(card_name_and_power_limit())
     dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"

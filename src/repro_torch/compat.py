@@ -7,12 +7,38 @@ run on the card unless the caller asks for the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
-from typing import Union
+from typing import Iterator, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-__all__ = ["resolve_device", "card_name_and_power_limit", "torch_dtype", "synchronize"]
+__all__ = ["card_stand_in", "on_card", "resolve_device", "card_name_and_power_limit", "torch_dtype", "synchronize"]
+
+_stand_in = False
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's route (the kernels): a CUDA tensor, or,
+    inside ``card_stand_in()``, a fake tensor on any device."""
+    return x.is_cuda or (_stand_in and is_fake(x))
+
+
+@contextlib.contextmanager
+def card_stand_in() -> Iterator[None]:
+    """Fake tensors stand for the card's inside this block: they take the
+    kernels' route (the kernels' fake ops: checks and allocations, no
+    launch).  The dry run's use on a build of PyTorch without CUDA, where a
+    fake CUDA tensor cannot enter autograd (its metadata asks the CUDA
+    device guard, which such a build lacks, and the process aborts), so the
+    fake tensors lie on the CPU there."""
+    global _stand_in
+    before, _stand_in = _stand_in, True
+    try:
+        yield
+    finally:
+        _stand_in = before
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:

@@ -2,7 +2,8 @@
 
 The dataclasses, their fields, defaults and methods are those of the JAX
 package, so a config of one package equals the other's field by field.
-``input_specs`` is not here yet: it comes with the slice that uses it.
+``input_specs`` gives the step functions' inputs as ``meta`` tensors (shape
+and type, no storage), where the JAX function gives ``ShapeDtypeStruct``s.
 
 One :class:`ModelConfig` dataclass covers all ten assigned architecture
 families (dense / GQA / MLA / MoE / SSM / hybrid / audio / vlm backbones).
@@ -18,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import torch
+
 __all__ = [
     "MoEConfig",
     "MLAConfig",
@@ -25,6 +28,7 @@ __all__ = [
     "ModelConfig",
     "ShapeConfig",
     "SHAPES",
+    "input_specs",
     "shape_applicable",
     "sync_policy_choices",
     "validate_sync_policy",
@@ -213,3 +217,26 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
             f"{cfg.name} is a full-attention arch (skip per assignment)"
         )
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors (shape and type, no storage) for every model input of
+    the step function, the global batch.
+
+    ``train``/``prefill``: token ids + labels (or stub embeddings for
+    audio/vlm frontends).  ``decode``: one new token per sequence plus the
+    current position; the KV/SSM cache is part of the step *state*
+    (``serve.decode.cache_shapes``).
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend is not None:
+            # modality stub: precomputed frame/patch embeddings
+            return {"embeddings": meta((b, s, cfg.d_model), torch.bfloat16), "labels": meta((b, s), torch.int32)}
+        return {"tokens": meta((b, s), torch.int32), "labels": meta((b, s), torch.int32)}
+    # decode: one token step against a cache of length s
+    return {"tokens": meta((b, 1), torch.int32), "position": meta((b,), torch.int32)}

@@ -20,6 +20,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["NVCC_FLAGS", "build_dir", "load_library", "rows_aligned"]
 
@@ -78,10 +79,12 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
 
 def rows_aligned(x: torch.Tensor) -> bool:
     """Last dim contiguous and every row on a 16-byte boundary, as the kernels'
-    16-byte copies need; a wrapper hands any other tensor over as a contiguous copy."""
+    16-byte copies need; a wrapper hands any other tensor over as a contiguous copy.
+    A fake tensor (the dry run's) has no address and is taken as the
+    allocator's, which aligns every block to far more than 16 bytes."""
     per16 = 16 // x.element_size()
     return (
         x.stride(-1) == 1
-        and x.data_ptr() % 16 == 0
+        and (is_fake(x) or x.data_ptr() % 16 == 0)
         and all(s % per16 == 0 for s in x.stride()[:-1])
     )

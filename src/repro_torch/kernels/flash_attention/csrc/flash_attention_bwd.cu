@@ -34,15 +34,19 @@
 // s=4096, d=128, bf16, causal) the five products of the function are 2.5x
 // the forward's: 257.8 GFLOP, 0.261 ms at 989 TFLOP/s, against some 125 MB
 // of compulsory traffic (0.037 ms at 3.35 TB/s): the tensor cores bound it.
-// The two passes do 3.5x the forward's products.  Three kernel families:
+// The two passes do 3.5x the forward's products.  Two kernel families, each
+// built at the forward's instances (DQK, DV) = 32, 64, 80, 96, 128 and 160
+// (square) and (192, 128); a call takes the smallest that holds both of its
+// head dims, so every width up to 160 is taken, and a qk width up to 192
+// beside a v width up to 128.  The true widths (`wqk`, `wv`) are the tensor
+// maps' extents and the columns stored:
 //
-// - bf16 at every built head dim, d = 16, 64, 80 and 128 and (dqk, dv) =
-//   (192, 128): the Hopper passes (`flash_bwd_dkdv_hopper`,
+// - bf16: the Hopper passes (`flash_bwd_dkdv_hopper`,
 //   `flash_bwd_dq_hopper`).  Two warpgroups of 64 rows each run `wgmma` on
-//   operands in 128-byte-swizzled shared memory (64-byte at d = 16 and 80,
-//   whose rows are cut into 32-element boxes and padded to 32 and 96 by
-//   TMA's zero fill, as the forward pads 80; the pad columns of dQ, dK and
-//   dV are not stored), fed by TMA through a ring of stages with a full
+//   operands in 128-byte-swizzled shared memory (64-byte at the instances
+//   32, 80, 96 and 160, whose rows are cut into 32-element boxes, as the
+//   forward cuts them; TMA's zero fill pads a row past its true width, and
+//   the pad columns of dQ, dK and dV are not stored), fed by TMA through a ring of stages with a full
 //   and an empty mbarrier each; 4-D tensor maps over the caller's strides, so
 //   the models' transposed (b, s, h, d) views go in with no copy.  Thread 0
 //   also issues every load: without a warp of its own for the loads, a CTA
@@ -72,7 +76,7 @@
 //   do and as the reference rounds dq's dS; sums are f32.  Both passes
 //   number their CTAs heavy first under a causal mask (the first key tiles,
 //   the last q tiles) and skip tiles wholly above the diagonal.
-// - f32 at every built head dim: `flash_bwd_dkdv_fma` and
+// - f32: `flash_bwd_dkdv_fma` and
 //   `flash_bwd_dq_fma`, full-precision FMAs on the CUDA cores (no TF32: the
 //   reference upcasts before its products, and a float32 train step is held
 //   to 2e-5); the same two passes with 16 x 16 threads over 64 x 64 tiles in
@@ -106,6 +110,7 @@ struct BwdParams {
     float* lse2;       // (b, h, sq_pad): lse * log2(e), +inf past sq
     float* delta;      // (b, h, sq_pad): rowsum(dout * out), 0 past sq
     int b, h, kvh, sq, sk, sq_pad;
+    int wqk, wv;  // the true head dims: the tensor maps' extents and the columns stored
     // element strides of (batch, head, seq); the head dim is contiguous
     long long q_sb, q_sh, q_ss;
     long long k_sb, k_sh, k_ss;
@@ -160,7 +165,7 @@ __global__ void __launch_bounds__(256) flash_bwd_delta(const BwdParams p, int dv
 }
 
 // ---------------------------------------------------------------------------
-// f32 (every built head dim): full-precision FMAs on the CUDA cores.  256 threads as 16 x 16; tiles of 64 q rows and 64 keys; a
+// f32: full-precision FMAs on the CUDA cores.  256 threads as 16 x 16; tiles of 64 q rows and 64 keys; a
 // thread (ty, tx) owns rows ty + 16 i of a tile's left operand and columns
 // tx + 16 c of its right one.
 // ---------------------------------------------------------------------------
@@ -173,15 +178,16 @@ constexpr int fma_smem_bytes() {
     return (2 * kFmaTile * (DQK + 1) + 2 * kFmaTile * (DV + 1) + 2 * kFmaTile * (kFmaTile + 1) + 2 * kFmaTile) * 4;
 }
 
-// 64 rows of `width` elements of a (b, head, s, width) tensor from row `row0`,
-// rows `ld` apart; rows past `limit` read as zeros
+// 64 rows of `padded` elements from row `row0` of a (b, head, s, width)
+// tensor, rows `ld` apart: the first `width` of each row from memory, the
+// rest and rows past `limit` zeros
 __device__ __forceinline__ void fma_load_rows(float* dst, const float* src, long long stride, int row0, int limit,
-                                              int width, int ld) {
-    for (int idx = threadIdx.x; idx < kFmaTile * width; idx += 256) {
-        const int r = idx / width;
-        const int c = idx - r * width;
+                                              int width, int padded, int ld) {
+    for (int idx = threadIdx.x; idx < kFmaTile * padded; idx += 256) {
+        const int r = idx / padded;
+        const int c = idx - r * padded;
         const int grow = row0 + r;
-        dst[r * ld + c] = (grow < limit) ? src[(long long)grow * stride + c] : 0.f;
+        dst[r * ld + c] = (grow < limit && c < width) ? src[(long long)grow * stride + c] : 0.f;
     }
 }
 
@@ -215,8 +221,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_fma(const BwdParams p) {
     const int kvhead = (blockIdx.x % bkv) - batch * p.kvh;
     const int g = p.h / p.kvh;
 
-    fma_load_rows(sK, static_cast<const float*>(p.k) + batch * p.k_sb + kvhead * p.k_sh, p.k_ss, k0, p.sk, DQK, LDQ);
-    fma_load_rows(sV, static_cast<const float*>(p.v) + batch * p.v_sb + kvhead * p.v_sh, p.v_ss, k0, p.sk, DV, LDV);
+    fma_load_rows(sK, static_cast<const float*>(p.k) + batch * p.k_sb + kvhead * p.k_sh, p.k_ss, k0, p.sk, p.wqk, DQK, LDQ);
+    fma_load_rows(sV, static_cast<const float*>(p.v) + batch * p.v_sb + kvhead * p.v_sh, p.v_ss, k0, p.sk, p.wv, DV, LDV);
 
     float dk[R][CK], dv[R][CV];
 #pragma unroll
@@ -235,9 +241,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_fma(const BwdParams p) {
         for (int qt = first; qt < n_qt; ++qt) {
             const int q0 = qt * BQ;
             __syncthreads();  // the tile before is done with sQ, sO, sP, sS
-            fma_load_rows(sQ, static_cast<const float*>(p.q) + batch * p.q_sb + head * p.q_sh, p.q_ss, q0, p.sq, DQK, LDQ);
-            fma_load_rows(sO, static_cast<const float*>(p.dout) + batch * p.do_sb + head * p.do_sh, p.do_ss, q0, p.sq,
-                          DV, LDV);
+            fma_load_rows(sQ, static_cast<const float*>(p.q) + batch * p.q_sb + head * p.q_sh, p.q_ss, q0, p.sq, p.wqk, DQK, LDQ);
+            fma_load_rows(sO, static_cast<const float*>(p.dout) + batch * p.do_sb + head * p.do_sh, p.do_ss, q0, p.sq, p.wv, DV, LDV);
             for (int r = threadIdx.x; r < BQ; r += 256) {
                 sL[r] = (q0 + r < p.sq) ? p.lse[bh * p.sq + q0 + r] : INFINITY;
                 sD[r] = p.delta[bh * p.sq_pad + q0 + r];
@@ -323,9 +328,13 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_fma(const BwdParams p) {
         const int key = k0 + ty + 16 * i;
         if (key < p.sk) {
 #pragma unroll
-            for (int c = 0; c < CK; ++c) gdk[(long long)key * p.dk_ss + tx + 16 * c] = dk[i][c];
+            for (int c = 0; c < CK; ++c) {
+                if (tx + 16 * c < p.wqk) gdk[(long long)key * p.dk_ss + tx + 16 * c] = dk[i][c];
+            }
 #pragma unroll
-            for (int c = 0; c < CV; ++c) gdv[(long long)key * p.dv_ss + tx + 16 * c] = dv[i][c];
+            for (int c = 0; c < CV; ++c) {
+                if (tx + 16 * c < p.wv) gdv[(long long)key * p.dv_ss + tx + 16 * c] = dv[i][c];
+            }
         }
     }
 }
@@ -358,8 +367,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_fma(const BwdParams p) {
     const int kvhead = head / (p.h / p.kvh);
     const long long bh = static_cast<long long>(batch) * p.h + head;
 
-    fma_load_rows(sQ, static_cast<const float*>(p.q) + batch * p.q_sb + head * p.q_sh, p.q_ss, q0, p.sq, DQK, LDQ);
-    fma_load_rows(sO, static_cast<const float*>(p.dout) + batch * p.do_sb + head * p.do_sh, p.do_ss, q0, p.sq, DV, LDV);
+    fma_load_rows(sQ, static_cast<const float*>(p.q) + batch * p.q_sb + head * p.q_sh, p.q_ss, q0, p.sq, p.wqk, DQK, LDQ);
+    fma_load_rows(sO, static_cast<const float*>(p.dout) + batch * p.do_sb + head * p.do_sh, p.do_ss, q0, p.sq, p.wv, DV, LDV);
     for (int r = threadIdx.x; r < BQ; r += 256) {
         sL[r] = (q0 + r < p.sq) ? p.lse[bh * p.sq + q0 + r] : INFINITY;
         sD[r] = p.delta[bh * p.sq_pad + q0 + r];
@@ -379,8 +388,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_fma(const BwdParams p) {
     for (int j = 0; j < n_kt; ++j) {
         const int k0 = j * BK;
         __syncthreads();  // the tile before is done with sK, sV, sS (and, the first time, Q has landed)
-        fma_load_rows(sK, gK, p.k_ss, k0, p.sk, DQK, LDQ);
-        fma_load_rows(sV, gV, p.v_ss, k0, p.sk, DV, LDV);
+        fma_load_rows(sK, gK, p.k_ss, k0, p.sk, p.wqk, DQK, LDQ);
+        fma_load_rows(sV, gV, p.v_ss, k0, p.sk, p.wv, DV, LDV);
         __syncthreads();
 
         // S and dP: q rows ty + 16 i, keys tx + 16 c
@@ -450,13 +459,15 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_fma(const BwdParams p) {
         const int row = q0 + ty + 16 * i;
         if (row < p.sq) {
 #pragma unroll
-            for (int c = 0; c < CQ; ++c) gdq[(long long)row * p.dq_ss + tx + 16 * c] = dq[i][c];
+            for (int c = 0; c < CQ; ++c) {
+                if (tx + 16 * c < p.wqk) gdq[(long long)row * p.dq_ss + tx + 16 * c] = dq[i][c];
+            }
         }
     }
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 16, 64, 80 and 128 and MLA's (192, 128): the Hopper passes.
+// bf16: the Hopper passes.
 // Most helpers below are copies of flash_attention_fwd.cu's: the two
 // sources are built apart, so that the forward's object code does not move
 // with this file (its time moves with code that never runs).
@@ -470,9 +481,9 @@ constexpr long long kWaitTrapCycles = 1LL << 34;  // ~8 s at 2 GHz: a lost barri
 // The shared-memory layout of both passes at (DQK, DV).  Every tile is cut
 // into boxes of kBox elements a row, one TMA load each, with the swizzle of
 // that span: 64-element boxes with 128-byte swizzle where both head dims are
-// multiples of 64; at d = 16 and 80, 32-element boxes with 64-byte swizzle,
-// the row padded to 32 and 96 (the tensor map's extent stays 16 or 80, TMA
-// fills the rest with zeros).
+// multiples of 64, else 32-element boxes with 64-byte swizzle; the row pads
+// to 80's 96 (the tensor map's extent stays the true width, and TMA fills
+// the rest with zeros).
 template <int DQK, int DV>
 struct BwdCfg {
     static constexpr int kBox = (DQK % 64 == 0 && DV % 64 == 0) ? 64 : 32;
@@ -716,6 +727,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 160, f32) += A (64 x 16, registers) * B (16 x 160, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 192, f32) += A (64 x 16, registers) * B (16 x 192, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t desc_b) {
     asm volatile(
@@ -763,24 +794,29 @@ __device__ __forceinline__ void issue_rs(float (&acc)[N], const uint32_t (&f)[KS
     for (int ks = 0; ks < KS; ++ks) wgmma_rs(acc, f[ks], swizzled_desc<ROW>(b + ks * 16 * ROW, b_box));
 }
 
-// Stores the rows row_a and row_a + 8 of a (64 x W) accumulator, W columns
-// of which are stored, in bf16 to a (seq, W) slice with row stride `ss`.
-template <int W, int N>
+// Stores the rows row_a and row_a + 8 of a (64 x 2N) accumulator, `width`
+// columns of which (a multiple of 8) are stored, in bf16 to a (seq, width)
+// slice with row stride `ss`.
+template <int N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ss, const float (&acc)[N], int row_a,
-                                           int limit, int tq) {
-    static_assert(W / 8 <= N / 4, "the accumulator is narrower than the store");
+                                           int limit, int tq, int width) {
     if (row_a < limit) {
         __nv_bfloat16* r = base + (long long)row_a * ss + tq * 2;
 #pragma unroll
-        for (int c = 0; c < W / 8; ++c) {
-            *reinterpret_cast<__nv_bfloat162*>(r + c * 8) = __floats2bfloat162_rn(acc[4 * c], acc[4 * c + 1]);
+        for (int c = 0; c < N / 4; ++c) {
+            if (c * 8 < width) {
+                *reinterpret_cast<__nv_bfloat162*>(r + c * 8) = __floats2bfloat162_rn(acc[4 * c], acc[4 * c + 1]);
+            }
         }
     }
     if (row_a + 8 < limit) {
         __nv_bfloat16* r = base + (long long)(row_a + 8) * ss + tq * 2;
 #pragma unroll
-        for (int c = 0; c < W / 8; ++c) {
-            *reinterpret_cast<__nv_bfloat162*>(r + c * 8) = __floats2bfloat162_rn(acc[4 * c + 2], acc[4 * c + 3]);
+        for (int c = 0; c < N / 4; ++c) {
+            if (c * 8 < width) {
+                *reinterpret_cast<__nv_bfloat162*>(r + c * 8) =
+                    __floats2bfloat162_rn(acc[4 * c + 2], acc[4 * c + 3]);
+            }
         }
     }
 }
@@ -951,8 +987,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
 
         __nv_bfloat16* gdk = static_cast<__nv_bfloat16*>(p.dk) + batch * p.dk_sb + kvhead * p.dk_sh;
         __nv_bfloat16* gdv = static_cast<__nv_bfloat16*>(p.dv) + batch * p.dv_sb + kvhead * p.dv_sh;
-        store_rows<DQK>(gdk, p.dk_ss, dka, key_a, p.sk, tq);
-        store_rows<DV>(gdv, p.dv_ss, dva, key_a, p.sk, tq);
+        store_rows(gdk, p.dk_ss, dka, key_a, p.sk, tq, p.wqk);
+        store_rows(gdv, p.dv_ss, dva, key_a, p.sk, tq, p.wv);
     }
 }
 
@@ -1099,7 +1135,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
         }
 
         __nv_bfloat16* gdq = static_cast<__nv_bfloat16*>(p.dq) + batch * p.dq_sb + head * p.dq_sh;
-        store_rows<DQK>(gdq, p.dq_ss, dqa, row_a, p.sq, tq);
+        store_rows(gdq, p.dq_ss, dqa, row_a, p.sq, tq, p.wqk);
     }
 }
 
@@ -1111,14 +1147,26 @@ __global__ void __launch_bounds__(kHThreads, 1)
 constexpr int kErrNotBuilt = -1;
 constexpr int kErrNoEncoder = -2;
 constexpr int kErrTensorMap = -3;
+constexpr int kErrWidth = -4;
 
-// Path ids, as kernel.py names them: 0 "fma", 1 "wgmma".  The head dims
-// built are the forward's: dqk == dv in {16, 64, 80, 128}, and (192, 128).
+// The instances, as the forward's (`instance_of` there): the square widths
+// 32, 64, 80, 96, 128 and 160 and (192, 128); a call takes the smallest that
+// holds both head dims.  Returns the instance's dqk, 0 for none.
+constexpr int kSquares[] = {32, 64, 80, 96, 128, 160};
+
+int instance_of(int dqk, int dv) {
+    if (dqk < 1 || dv < 1) return 0;
+    const int w = dqk > dv ? dqk : dv;
+    for (int sq : kSquares) {
+        if (w <= sq) return sq;
+    }
+    return (dqk <= 192 && dv <= 128) ? 192 : 0;
+}
+
+// Path ids, as kernel.py names them: 0 "fma", 1 "wgmma".
 int path_of(int dtype, int dqk, int dv) {
-    const bool same = dqk == dv && (dqk == 16 || dqk == 64 || dqk == 80 || dqk == 128);
-    const bool mla = dqk == 192 && dv == 128;
-    if (!(same || mla) || (dtype != 0 && dtype != 1)) return kErrNotBuilt;
-    return dtype == 0 ? 0 : 1;
+    if (instance_of(dqk, dv) == 0 || (dtype != 0 && dtype != 1)) return kErrNotBuilt;
+    return dtype;
 }
 
 int sq_padded(int sq) { return (sq + kRowPad - 1) / kRowPad * kRowPad; }
@@ -1196,14 +1244,14 @@ int launch_hopper(const BwdParams& p, cudaStream_t stream) {
     // the dq pass: Q and dout tiles of 128 rows, K and V tiles of kBN keys
     CUtensorMap kv_q, kv_k, kv_v, kv_do, q_q, q_k, q_v, q_do;
     const bool ok =
-        encode_map(encode, &kv_q, p.q, DQK, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, Cfg::kBQ) &&
-        encode_map(encode, &kv_k, p.k, DQK, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, kHRows) &&
-        encode_map(encode, &kv_v, p.v, DV, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, kHRows) &&
-        encode_map(encode, &kv_do, p.dout, DV, p.sq, p.h, p.b, p.do_ss, p.do_sh, p.do_sb, box, Cfg::kBQ) &&
-        encode_map(encode, &q_q, p.q, DQK, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, kHRows) &&
-        encode_map(encode, &q_k, p.k, DQK, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, Cfg::kBN) &&
-        encode_map(encode, &q_v, p.v, DV, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, Cfg::kBN) &&
-        encode_map(encode, &q_do, p.dout, DV, p.sq, p.h, p.b, p.do_ss, p.do_sh, p.do_sb, box, kHRows);
+        encode_map(encode, &kv_q, p.q, p.wqk, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, Cfg::kBQ) &&
+        encode_map(encode, &kv_k, p.k, p.wqk, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, kHRows) &&
+        encode_map(encode, &kv_v, p.v, p.wv, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, kHRows) &&
+        encode_map(encode, &kv_do, p.dout, p.wv, p.sq, p.h, p.b, p.do_ss, p.do_sh, p.do_sb, box, Cfg::kBQ) &&
+        encode_map(encode, &q_q, p.q, p.wqk, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, kHRows) &&
+        encode_map(encode, &q_k, p.k, p.wqk, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, Cfg::kBN) &&
+        encode_map(encode, &q_v, p.v, p.wv, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, Cfg::kBN) &&
+        encode_map(encode, &q_do, p.dout, p.wv, p.sq, p.h, p.b, p.do_ss, p.do_sh, p.do_sb, box, kHRows);
     if (!ok) return kErrTensorMap;
     cudaError_t err = set_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_hopper<DQK, DV>), Cfg::kKVSmem);
     if (err == cudaSuccess) err = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_hopper<DQK, DV>), Cfg::kQSmem);
@@ -1224,21 +1272,16 @@ int launch_hopper(const BwdParams& p, cudaStream_t stream) {
 // table; a card test holds the two together.
 extern "C" int flash_attention_bwd_path(int dtype, int dqk, int dv) { return path_of(dtype, dqk, dv); }
 
-// Floats of scratch a call needs: lse * log2(e) and delta, each (b, h, sq)
-// padded to a multiple of 128 rows.
-extern "C" long long flash_attention_bwd_scratch_floats(int b, int h, int sq) {
-    return 2LL * b * h * sq_padded(sq);
-}
-
 // Returns a cudaError_t as int (0 on success), -1 for head dims or a type
 // that this file does not build, -2 when libcuda has no tensor-map
 // encoder, -3 when a tensor map cannot be encoded for these pointers and
-// strides.  `dtype`: 0 = float32, 1 = bfloat16.  q, k and dq, dk rows are
+// strides, -4 for a bf16 head dim that is not a multiple of 8.  `dtype`: 0 = float32, 1 = bfloat16.  q, k and dq, dk rows are
 // `dqk` wide, v, out, dout and dv rows `dv` wide.  Strides are in elements,
 // (batch, head, seq) of q, k, v, out, dout, dq, dk, dv in that order; the
 // head dim must be contiguous, and for bf16 every row must start on a
-// 16-byte boundary.  `lse` is (b, h, sq) contiguous; `scratch` holds
-// `flash_attention_bwd_scratch_floats(b, h, sq)` floats.  Three launches go
+// 16-byte boundary.  `lse` is (b, h, sq) contiguous; `scratch` holds 2 b h
+// sq_pad floats (lse * log2(e) and delta, sq padded to a multiple of 128;
+// kernel.py's `scratch_floats`).  Three launches go
 // onto `stream`; nothing is allocated and nothing synchronises.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                    const float* lse, void* dq, void* dk, void* dv, float* scratch, int dtype,
@@ -1246,6 +1289,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    const long long* strides, float scale, int causal, void* stream) {
     const int path = path_of(dtype, dqk, dv_dim);
     if (path < 0) return kErrNotBuilt;
+    if (path == 1 && (dqk % 8 != 0 || dv_dim % 8 != 0)) return kErrWidth;
     BwdParams p;
     p.q = q;
     p.k = k;
@@ -1262,6 +1306,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     p.sq = sq;
     p.sk = sk;
     p.sq_pad = sq_padded(sq);
+    p.wqk = dqk;
+    p.wv = dv_dim;
     p.lse2 = scratch;
     p.delta = scratch + static_cast<long long>(b) * h * p.sq_pad;
     long long* fields[24] = {&p.q_sb,  &p.q_sh,  &p.q_ss,  &p.k_sb,  &p.k_sh,  &p.k_ss,  &p.v_sb,  &p.v_sh,
@@ -1283,19 +1329,23 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     if (err != cudaSuccess) return static_cast<int>(err);
 
     if (path == 1) {
-        switch (dqk) {
-            case 16: return launch_hopper<16, 16>(p, s);
+        switch (instance_of(dqk, dv_dim)) {
+            case 32: return launch_hopper<32, 32>(p, s);
             case 64: return launch_hopper<64, 64>(p, s);
             case 80: return launch_hopper<80, 80>(p, s);
+            case 96: return launch_hopper<96, 96>(p, s);
             case 128: return launch_hopper<128, 128>(p, s);
+            case 160: return launch_hopper<160, 160>(p, s);
             default: return launch_hopper<192, 128>(p, s);
         }
     }
-    switch (dqk) {
-        case 16: return launch_fma<16, 16>(p, s);
+    switch (instance_of(dqk, dv_dim)) {
+        case 32: return launch_fma<32, 32>(p, s);
         case 64: return launch_fma<64, 64>(p, s);
         case 80: return launch_fma<80, 80>(p, s);
+        case 96: return launch_fma<96, 96>(p, s);
         case 128: return launch_fma<128, 128>(p, s);
+        case 160: return launch_fma<160, 160>(p, s);
         default: return launch_fma<192, 128>(p, s);
     }
 }

@@ -23,10 +23,19 @@
 // 0.27 GB of compulsory traffic: 1500 FLOP per byte, far above the card's
 // 295, so the bound is the tensor cores: 0.42 ms at 989 TFLOP/s.  Only
 // `wgmma` reaches that rate, and it must be fed from shared memory without
-// the math warps spending registers or issue slots on loads.  Three kernels:
+// the math warps spending registers or issue slots on loads.  Two kernels,
+// each built at the instances (DQK, DV) = 32, 64, 80, 96, 128 and 160
+// (square) and (192, 128); a call takes the smallest instance that holds
+// both of its head dims (`instance_of`), so every width the reference takes
+// is taken up to 160, and a qk width up to 192 beside a v width up to 128.
+// The true widths travel in Params (`dqk`, `dv`): they are the tensor maps'
+// extents, so TMA's zero fill pads a row to its instance (zero Q and K
+// columns add nothing to S; zero V columns give output columns that are
+// not stored), and the store writes `dv` columns.  A square 192 would leave
+// one K/V stage in shared memory, so 160 is the widest square:
 //
-// - bf16, d = 64, 80 and 128 and (dqk, dv) = (192, 128) (`flash_fwd_hopper`,
-//   templated on DQK and DV): a CTA of three warpgroups, 128 q rows.
+// - bf16 (`flash_fwd_hopper`, templated on DQK and DV): a CTA of three
+//   warpgroups, 128 q rows.
 //   Warpgroup 0 is the producer: one thread issues TMA loads of Q once and of
 //   K and V through a ring of stages (the largest power of two that fits,
 //   at most four: two at d = 128 and (192, 128), four at 64 and 80; three
@@ -35,7 +44,7 @@
 //   the group drops to 24 registers (`setmaxnreg`), the consumers rise to
 //   240.  Warpgroups 1 and 2 are consumers of 64 q rows each.  S = Q K^T is
 //   a `wgmma` m64n128k16 with both operands in swizzled shared memory
-//   (K-major; 128-byte swizzle, 64-byte at d = 80); the online softmax runs
+//   (K-major; 128-byte swizzle, 64-byte at 32, 80, 96 and 160); the online softmax runs
 //   on the accumulator in registers in base 2 (`ex2.approx`, scale * log2(e) folded into one FMA);
 //   P is rounded to bf16 as the reference rounds it and repacked in
 //   registers from the accumulator layout into the A fragment of O += P V, a
@@ -48,7 +57,7 @@
 //   tiles have their own widths and byte counts (48 and 32 KB at (192,
 //   128); with Q's 48 KB and two stages, 214,096 bytes of the 232,448 a
 //   block may have); Q K^T takes DQK/16 k-steps, P V one m64nDVk16 `wgmma`
-//   a k-step, and the store writes DV columns.
+//   a k-step, and the store writes dv columns.
 //   d = 80: a 160-byte row fits no 128-byte swizzle box, so at 80 the rows
 //   are cut into 32-element boxes with 64-byte swizzle and padded to 96:
 //   the tensor maps' extent stays 80, TMA fills columns 80-95 with zeros
@@ -89,10 +98,9 @@
 //   causal) the work is 2*(dqk+dv)*b*h*pairs = 3.4e11 FLOP against 0.34 GB,
 //   and at stablelm's (b=4, h=32, s=4096, d=80) as much: both bound by the
 //   tensor cores, 0.35 ms.
-// - bf16, d = 16 (`flash_fwd_bf16`): the `mma.sync.m16n8k16` kernel with
-//   `ldmatrix` and `cp.async` double buffering, 4 warps of two m-tiles, 128
-//   q rows a block.  Its instances at 80 and (192, 128) are gone: both take
-//   the Hopper kernel.  16 serves only the smoke configs.
+//   At 16 (the smoke configs') the row pads to 32 and S takes two k-steps:
+//   the `mma.sync` kernel that took 16 before is gone.  bf16 rows must be
+//   multiples of 8 wide (a store writes 8 columns); kernel.py pads others.
 // - f32 (`flash_fwd_f32`): full-precision FMAs on the CUDA cores (no TF32),
 //   because the reference upcasts before its dot products and is held to
 //   2e-5.  It is a correctness path, not a fast one.
@@ -111,7 +119,6 @@ namespace {
 
 constexpr float kNegCausal = -1e30f;  // the reference's causal mask value
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
     const void* q;
@@ -125,6 +132,7 @@ struct Params {
     long long k_sb, k_sh, k_ss;
     long long v_sb, v_sh, v_ss;
     long long o_sb, o_sh, o_ss;
+    int dqk, dv;  // the true head dims: the tensor maps' extents and the columns stored
     float scale;
     int causal;
     int band;  // the Hopper kernel's schedule: q tiles of one (batch, head) dealt out side by side
@@ -134,342 +142,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte asynchronous copy global -> shared; `valid == false` reads nothing
-// and fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-    const int bytes = valid ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
-                 "l"(gmem), "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                            const void* smem) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-                 : "r"(smem_u32(smem))
-                 : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                                  uint32_t& r3, const void* smem) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-                 : "r"(smem_u32(smem))
-                 : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ---------------------------------------------------------------------------
-// bf16: tensor-core kernel on `mma.sync`, for the head dim the Hopper kernel
-// does not take (16, the smoke configs').  A block is 4 warps of two m-tiles
-// of 16 rows, 128 q rows.  Every K and V fragment a warp loads from shared
-// memory feeds both m-tiles' products: a warp reads the whole K and V tile
-// whatever its row count.
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockN = 64;     // keys per KV tile
-constexpr int kBf16Warps = 4;   // warps a block
-constexpr int kBf16MTiles = 2;  // m-tiles of 16 q rows a warp
-constexpr int kBf16BlockM = kBf16Warps * kBf16MTiles * 16;  // q rows a block
-
-// Q, then two stages of K, then two stages of V, each row padded by 8 elements
-template <int D>
-constexpr int bf16_smem_bytes() {
-    return (kBf16BlockM + 4 * kBlockN) * (D + 8) * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBf16Warps * 32) flash_fwd_bf16(const Params p) {
-    constexpr int NWARPS = kBf16Warps;
-    constexpr int MT = kBf16MTiles;
-    constexpr int WM = MT * 16;  // q rows per warp
-    constexpr int BM = kBf16BlockM;
-    constexpr int BN = kBlockN;
-    constexpr int LD = D + 8;  // padded rows: conflict-free fragment loads
-    constexpr int NTHREADS = NWARPS * 32;
-    constexpr int KSTEPS = D / 16;    // k-steps of q k^T
-    constexpr int SNT = BN / 8;       // n-tiles of the score tile
-    constexpr int ONT = D / 8;        // n-tiles of the output tile
-    constexpr int PSTEPS = BN / 16;   // k-steps of p v
-    static_assert(D % 16 == 0, "the head dim must be a multiple of 16");
-
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* sK = sQ + BM * LD;      // two stages
-    __nv_bfloat16* sV = sK + 2 * BN * LD;  // two stages
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;   // row of the fragment (and g + 8)
-    const int t = lane & 3;    // column pair of the fragment
-    const int mi = lane >> 3;  // which 8x8 matrix of an ldmatrix.x4 this lane addresses
-    const int mr = lane & 7;   // which row of it
-
-    // late q tiles see the most keys under a causal mask: start them first
-    const int qtile = gridDim.x - 1 - blockIdx.x;
-    const int head = blockIdx.y;
-    const int batch = blockIdx.z;
-    const int kvhead = head / (p.h / p.kvh);
-    const int q0 = qtile * BM;
-    const int wrow0 = q0 + warp * WM;  // this warp's first q row
-
-    const __nv_bfloat16* gQ =
-        static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + head * p.q_sh;
-    const __nv_bfloat16* gK =
-        static_cast<const __nv_bfloat16*>(p.k) + batch * p.k_sb + kvhead * p.k_sh;
-    const __nv_bfloat16* gV =
-        static_cast<const __nv_bfloat16*>(p.v) + batch * p.v_sb + kvhead * p.v_sh;
-    __nv_bfloat16* gO = static_cast<__nv_bfloat16*>(p.o) + batch * p.o_sb + head * p.o_sh;
-
-    // `width` elements a row (16-byte chunks), rows `ld` apart in shared memory
-    auto load_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, long long stride,
-                         int row0, int nrows, int limit, int width, int ld) {
-        const int chunks = width / 8;
-        for (int c = tid; c < nrows * chunks; c += NTHREADS) {
-            const int r = c / chunks;
-            const int ch = c - r * chunks;
-            const int grow = row0 + r;
-            const bool valid = grow < limit;
-            const __nv_bfloat16* s = src + (long long)(valid ? grow : 0) * stride + ch * 8;
-            cp_async_16(dst + r * ld + ch * 8, s, valid);
-        }
-    };
-
-    // KV tiles this q tile needs: under the causal mask none above the diagonal
-    int n_tiles = (p.sk + BN - 1) / BN;
-    if (p.causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
-
-    load_rows(sQ, gQ, p.q_ss, q0, BM, p.sq, D, LD);
-    load_rows(sK, gK, p.k_ss, 0, BN, p.sk, D, LD);
-    load_rows(sV, gV, p.v_ss, 0, BN, p.sk, D, LD);
-    cp_async_commit();
-
-    // Per-lane ldmatrix addresses.  An x4 load brings four 8x8 matrices; lane
-    // (mi, mr) gives the address of row mr of matrix mi.
-    //   q (A operand, 16 rows x 16 k): matrices (rows 0-7, k 0-7), (rows 8-15,
-    //     k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) = a0..a3
-    //   k (B operand of q k^T, two n-tiles x 16 k): (keys 0-7, k 0-7), (keys
-    //     0-7, k 8-15), (keys 8-15, k 0-7), (keys 8-15, k 8-15) = b0, b1 of
-    //     the first n-tile, then of the second
-    //   v (B operand of p v, transposed on load, 16 keys x two n-tiles):
-    //     (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (keys
-    //     8-15, d 8-15) = b0, b1 of the first n-tile, then of the second
-    const int q_lane = (warp * WM + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
-    const int k_lane = ((mi >> 1) * 8 + mr) * LD + (mi & 1) * 8;
-    const int v_lane = ((mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
-
-    float oacc[MT][ONT][4];
-    float m_a[MT], m_b[MT];  // running max of rows g and g + 8, in units of log2
-    float l_a[MT], l_b[MT];  // per-thread partial denominators; reduced at the end
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        m_a[mt] = m_b[mt] = -INFINITY;
-        l_a[mt] = l_b[mt] = 0.f;
-#pragma unroll
-        for (int i = 0; i < ONT; ++i) {
-            oacc[mt][i][0] = oacc[mt][i][1] = oacc[mt][i][2] = oacc[mt][i][3] = 0.f;
-        }
-    }
-    const float scale_log2 = p.scale * kLog2e;
-
-    for (int j = 0; j < n_tiles; ++j) {
-        const int stage = j & 1;
-        // tile j (and, the first time, q) has landed, and every warp is done
-        // with tile j - 1
-        cp_async_wait_all();
-        __syncthreads();
-        if (j + 1 < n_tiles) {
-            load_rows(sK + (stage ^ 1) * BN * LD, gK, p.k_ss, (j + 1) * BN, BN, p.sk, D, LD);
-            load_rows(sV + (stage ^ 1) * BN * LD, gV, p.v_ss, (j + 1) * BN, BN, p.sk, D, LD);
-            cp_async_commit();
-        }
-        const int k0 = j * BN;
-        // every key of this tile lies above the diagonal for this warp's rows
-        if (p.causal && k0 > wrow0 + WM - 1) continue;
-
-        const __nv_bfloat16* kbase = sK + stage * BN * LD + k_lane;
-        const __nv_bfloat16* vbase = sV + stage * BN * LD + v_lane;
-
-        // ---- s = q k^T ------------------------------------------------------
-        float sacc[MT][SNT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-            for (int nt = 0; nt < SNT; ++nt) {
-                sacc[mt][nt][0] = sacc[mt][nt][1] = sacc[mt][nt][2] = sacc[mt][nt][3] = 0.f;
-            }
-        }
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-            uint32_t qf[MT][4];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-                ldmatrix_x4(qf[mt][0], qf[mt][1], qf[mt][2], qf[mt][3],
-                            sQ + q_lane + mt * 16 * LD + kk * 16);
-            }
-#pragma unroll
-            for (int np = 0; np < SNT / 2; ++np) {
-                uint32_t r0, r1, r2, r3;
-                ldmatrix_x4(r0, r1, r2, r3, kbase + np * 16 * LD + kk * 16);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    mma_bf16(sacc[mt][2 * np], qf[mt], r0, r1);
-                    mma_bf16(sacc[mt][2 * np + 1], qf[mt], r2, r3);
-                }
-            }
-        }
-
-        // ---- scale, mask, online softmax --------------------------------------
-        const bool edge = (k0 + BN > p.sk) || (p.causal && k0 + BN - 1 > wrow0);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            const int row_a = wrow0 + mt * 16 + g;
-            const int row_b = row_a + 8;
-#pragma unroll
-            for (int nt = 0; nt < SNT; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float s = sacc[mt][nt][e] * scale_log2;
-                    if (edge) {
-                        const int col = k0 + nt * 8 + t * 2 + (e & 1);
-                        const int row = (e & 2) ? row_b : row_a;
-                        if (col >= p.sk) {
-                            s = -INFINITY;  // never enters the max or the sum
-                        } else if (p.causal && col > row) {
-                            s = kNegCausal;
-                        }
-                    }
-                    sacc[mt][nt][e] = s;
-                }
-            }
-
-            float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-            for (int nt = 0; nt < SNT; ++nt) {
-                mx_a = fmaxf(mx_a, fmaxf(sacc[mt][nt][0], sacc[mt][nt][1]));
-                mx_b = fmaxf(mx_b, fmaxf(sacc[mt][nt][2], sacc[mt][nt][3]));
-            }
-            mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-            mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-            mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-            mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-            const float mnew_a = fmaxf(m_a[mt], mx_a);
-            const float mnew_b = fmaxf(m_b[mt], mx_b);
-            // a row that has seen no key yet keeps m = -inf; subtract 0 instead
-            // so that exp2(-inf - -inf) never appears
-            const float muse_a = (mnew_a == -INFINITY) ? 0.f : mnew_a;
-            const float muse_b = (mnew_b == -INFINITY) ? 0.f : mnew_b;
-            const float alpha_a = exp2f(m_a[mt] - muse_a);
-            const float alpha_b = exp2f(m_b[mt] - muse_b);
-            m_a[mt] = mnew_a;
-            m_b[mt] = mnew_b;
-
-            float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-            for (int nt = 0; nt < SNT; ++nt) {
-                sacc[mt][nt][0] = exp2f(sacc[mt][nt][0] - muse_a);
-                sacc[mt][nt][1] = exp2f(sacc[mt][nt][1] - muse_a);
-                sacc[mt][nt][2] = exp2f(sacc[mt][nt][2] - muse_b);
-                sacc[mt][nt][3] = exp2f(sacc[mt][nt][3] - muse_b);
-                sum_a += sacc[mt][nt][0] + sacc[mt][nt][1];
-                sum_b += sacc[mt][nt][2] + sacc[mt][nt][3];
-            }
-            l_a[mt] = l_a[mt] * alpha_a + sum_a;
-            l_b[mt] = l_b[mt] * alpha_b + sum_b;
-#pragma unroll
-            for (int i = 0; i < ONT; ++i) {
-                oacc[mt][i][0] *= alpha_a;
-                oacc[mt][i][1] *= alpha_a;
-                oacc[mt][i][2] *= alpha_b;
-                oacc[mt][i][3] *= alpha_b;
-            }
-        }
-
-        // ---- o += p v, p rounded to bf16 as the reference does ---------------
-        // (the C fragments of two neighbouring score n-tiles are the A fragment
-        // of one k-step of p v: p never leaves the registers)
-#pragma unroll
-        for (int ks = 0; ks < PSTEPS; ++ks) {
-            uint32_t pf[MT][4];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-                pf[mt][0] = pack_bf16(sacc[mt][2 * ks][0], sacc[mt][2 * ks][1]);
-                pf[mt][1] = pack_bf16(sacc[mt][2 * ks][2], sacc[mt][2 * ks][3]);
-                pf[mt][2] = pack_bf16(sacc[mt][2 * ks + 1][0], sacc[mt][2 * ks + 1][1]);
-                pf[mt][3] = pack_bf16(sacc[mt][2 * ks + 1][2], sacc[mt][2 * ks + 1][3]);
-            }
-#pragma unroll
-            for (int dp = 0; dp < ONT / 2; ++dp) {
-                uint32_t r0, r1, r2, r3;
-                ldmatrix_x4_trans(r0, r1, r2, r3, vbase + ks * 16 * LD + dp * 16);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    mma_bf16(oacc[mt][2 * dp], pf[mt], r0, r1);
-                    mma_bf16(oacc[mt][2 * dp + 1], pf[mt], r2, r3);
-                }
-            }
-        }
-    }
-
-    // ---- epilogue -----------------------------------------------------------
-    float* lse = p.lse + ((long long)batch * p.h + head) * p.sq;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        float la = l_a[mt], lb = l_b[mt];
-        la += __shfl_xor_sync(0xffffffffu, la, 1);
-        la += __shfl_xor_sync(0xffffffffu, la, 2);
-        lb += __shfl_xor_sync(0xffffffffu, lb, 1);
-        lb += __shfl_xor_sync(0xffffffffu, lb, 2);
-        const float den_a = fmaxf(la, 1e-30f);
-        const float den_b = fmaxf(lb, 1e-30f);
-        const float inv_a = 1.f / den_a;
-        const float inv_b = 1.f / den_b;
-        const int row_a = wrow0 + mt * 16 + g;
-        const int row_b = row_a + 8;
-        if (row_a < p.sq) {
-            __nv_bfloat16* orow = gO + (long long)row_a * p.o_ss + t * 2;
-#pragma unroll
-            for (int i = 0; i < ONT; ++i) {
-                *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) =
-                    __floats2bfloat162_rn(oacc[mt][i][0] * inv_a, oacc[mt][i][1] * inv_a);
-            }
-            if (t == 0) lse[row_a] = m_a[mt] * kLn2 + logf(den_a);
-        }
-        if (row_b < p.sq) {
-            __nv_bfloat16* orow = gO + (long long)row_b * p.o_ss + t * 2;
-#pragma unroll
-            for (int i = 0; i < ONT; ++i) {
-                *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) =
-                    __floats2bfloat162_rn(oacc[mt][i][2] * inv_b, oacc[mt][i][3] * inv_b);
-            }
-            if (t == 0) lse[row_b] = m_b[mt] * kLn2 + logf(den_b);
-        }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // bf16, head dims 64, 80 and 128 and MLA's (192, 128): the Hopper kernel.  A
@@ -491,9 +168,10 @@ constexpr int kKVShare = 8;  // CTAs that read one kv head's K and V tiles at on
 // The shared-memory layout of the Hopper kernel at (DQK, DV).  Every tile is
 // cut into boxes of kBox elements a row, one TMA load each, whose rows are
 // kRowBytes = 2 kBox bytes with the swizzle of that span: 64-element boxes
-// with 128-byte swizzle where both head dims are multiples of 64; at d = 80,
-// 32-element boxes with 64-byte swizzle, the row padded to 96 (the tensor
-// map's extent stays 80, so TMA fills columns 80-95 with zeros).
+// with 128-byte swizzle where both head dims are multiples of 64; else (32,
+// 80, 96, 160) 32-element boxes with 64-byte swizzle, 80's row padded to 96
+// (the tensor map's extent is the true width, so TMA fills the rest with
+// zeros).
 template <int DQK, int DV>
 struct HopperCfg {
     static constexpr int kBox = (DQK % 64 == 0 && DV % 64 == 0) ? 64 : 32;
@@ -622,6 +300,18 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
+// d (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
     asm volatile(
@@ -685,6 +375,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 160, f32) += A (64 x 16, registers) * B (16 x 160, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -997,7 +707,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
             if (lane == 0) mbar_arrive(empty_v(sl));
             kv += it.n_tiles;
 
-            // ---- epilogue: o / max(l, 1e-30) in bf16 (DV columns), lse -----------
+            // ---- epilogue: o / max(l, 1e-30) in bf16 (p.dv columns), lse ---------
             float l_a = sm.l_a, l_b = sm.l_b;
             const int row_b = row_a + 8;
             l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
@@ -1014,18 +724,22 @@ __global__ void __launch_bounds__(kHThreads, 1)
             if (row_a < p.sq) {
                 __nv_bfloat16* orow = gO + (long long)row_a * p.o_ss + tq * 2;
 #pragma unroll
-                for (int c = 0; c < DV / 8; ++c) {
-                    *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
-                        __floats2bfloat162_rn(oacc[4 * c] * inv_a, oacc[4 * c + 1] * inv_a);
+                for (int c = 0; c < DVP / 8; ++c) {
+                    if (c * 8 < p.dv) {
+                        *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
+                            __floats2bfloat162_rn(oacc[4 * c] * inv_a, oacc[4 * c + 1] * inv_a);
+                    }
                 }
                 if (tq == 0) lse[row_a] = sm.m_a * p.scale + logf(den_a);
             }
             if (row_b < p.sq) {
                 __nv_bfloat16* orow = gO + (long long)row_b * p.o_ss + tq * 2;
 #pragma unroll
-                for (int c = 0; c < DV / 8; ++c) {
-                    *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
-                        __floats2bfloat162_rn(oacc[4 * c + 2] * inv_b, oacc[4 * c + 3] * inv_b);
+                for (int c = 0; c < DVP / 8; ++c) {
+                    if (c * 8 < p.dv) {
+                        *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
+                            __floats2bfloat162_rn(oacc[4 * c + 2] * inv_b, oacc[4 * c + 3] * inv_b);
+                    }
                 }
                 if (tq == 0) lse[row_b] = sm.m_b * p.scale + logf(den_b);
             }
@@ -1078,21 +792,23 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
     const float* gV = static_cast<const float*>(p.v) + batch * p.v_sb + kvhead * p.v_sh;
     float* gO = static_cast<float*>(p.o) + batch * p.o_sb + head * p.o_sh;
 
-    // 64 rows of `width` elements, rows `ld` apart in shared memory
+    // 64 rows of `padded` elements, rows `ld` apart in shared memory: the
+    // first `width` of each row from memory, the rest and rows past `limit`
+    // zeros
     auto load_rows = [&](float* dst, const float* src, long long stride, int row0, int limit,
-                         int width, int ld) {
-        for (int idx = tid; idx < BM * width; idx += 256) {
-            const int r = idx / width;
-            const int c = idx - r * width;
+                         int width, int padded, int ld) {
+        for (int idx = tid; idx < BM * padded; idx += 256) {
+            const int r = idx / padded;
+            const int c = idx - r * padded;
             const int grow = row0 + r;
-            dst[r * ld + c] = (grow < limit) ? src[(long long)grow * stride + c] : 0.f;
+            dst[r * ld + c] = (grow < limit && c < width) ? src[(long long)grow * stride + c] : 0.f;
         }
     };
 
     int n_tiles = (p.sk + BN - 1) / BN;
     if (p.causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
 
-    load_rows(sQ, gQ, p.q_ss, q0, p.sq, DQK, LDQ);
+    load_rows(sQ, gQ, p.q_ss, q0, p.sq, p.dqk, DQK, LDQ);
 
     float oacc[R][DC];
     float m[R], l[R];
@@ -1107,8 +823,8 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
     for (int j = 0; j < n_tiles; ++j) {
         const int k0 = j * BN;
         __syncthreads();  // the previous tile's products are done with sK, sV, sP
-        load_rows(sK, gK, p.k_ss, k0, p.sk, DQK, LDQ);
-        load_rows(sV, gV, p.v_ss, k0, p.sk, DV, LDV);
+        load_rows(sK, gK, p.k_ss, k0, p.sk, p.dqk, DQK, LDQ);
+        load_rows(sV, gV, p.v_ss, k0, p.sk, p.dv, DV, LDV);
         __syncthreads();
 
         float s[R][C];
@@ -1198,7 +914,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
         if (row < p.sq) {
 #pragma unroll
             for (int c = 0; c < DC; ++c) {
-                gO[(long long)row * p.o_ss + tx + 16 * c] = oacc[i][c] / den;
+                if (tx + 16 * c < p.dv) gO[(long long)row * p.o_ss + tx + 16 * c] = oacc[i][c] / den;
             }
             if (tx == 0) lse[row] = m[i] + logf(den);
         }
@@ -1211,22 +927,36 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
 
 // Return codes of the C entry besides cudaError_t: the path does not take
 // this (dtype, d); libcuda has no cuTensorMapEncodeTiled; a tensor map
-// could not be encoded for these pointers and strides.
+// could not be encoded for these pointers and strides; a bf16 head dim is
+// not a multiple of 8 (the wrapper pads such widths).
 constexpr int kErrNotBuilt = -1;
 constexpr int kErrNoEncoder = -2;
 constexpr int kErrTensorMap = -3;
+constexpr int kErrWidth = -4;
 
-// Path ids, as kernel.py names them: 0 "f32", 1 "mma_sync", 2 "wgmma".  The
-// head dims built: dqk == dv in {16, 64, 80, 128}, and MLA's (192, 128).
-int path_of(int dtype, int dqk, int dv) {
-    const bool same = dqk == dv && (dqk == 16 || dqk == 64 || dqk == 80 || dqk == 128);
-    const bool mla = dqk == 192 && dv == 128;
-    if (dtype == 0) return (same || mla) ? 0 : kErrNotBuilt;
-    if (dtype == 1) {
-        if (same && dqk == 16) return 1;
-        if (same || mla) return 2;
+// The instances built, by the (dqk, dv) of their template: the square widths
+// 32, 64, 80, 96, 128 and 160, and MLA's (192, 128).  A call takes the
+// smallest that holds both of its head dims (the true widths are the tensor
+// maps' extents and the columns stored; TMA's zero fill pads the rest), so
+// every dqk and dv up to 160 is taken, and a dqk up to 192 with a dv up to
+// 128.  The square at 192 would leave a single K/V stage in shared memory.
+// Returns the instance's dqk, 0 for none.  kernel.py's `kernel_instance` is
+// the same table.
+constexpr int kSquares[] = {32, 64, 80, 96, 128, 160};
+
+int instance_of(int dqk, int dv) {
+    if (dqk < 1 || dv < 1) return 0;
+    const int w = dqk > dv ? dqk : dv;
+    for (int sq : kSquares) {
+        if (w <= sq) return sq;
     }
-    return kErrNotBuilt;
+    return (dqk <= 192 && dv <= 128) ? 192 : 0;
+}
+
+// Path ids, as kernel.py names them: 0 "f32", 1 "wgmma".
+int path_of(int dtype, int dqk, int dv) {
+    if (instance_of(dqk, dv) == 0 || (dtype != 0 && dtype != 1)) return kErrNotBuilt;
+    return dtype;
 }
 
 template <typename Kernel>
@@ -1240,11 +970,6 @@ cudaError_t launch(Kernel kernel, int smem, int threads, int block_m, const Para
     dim3 grid((p.sq + block_m - 1) / block_m, p.h, p.b);
     kernel<<<grid, threads, smem, stream>>>(p);
     return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-    return launch(flash_fwd_bf16<D>, bf16_smem_bytes<D>(), kBf16Warps * 32, kBf16BlockM, p, stream);
 }
 
 template <int DQK, int DV>
@@ -1303,9 +1028,9 @@ int launch_hopper(Params p, cudaStream_t stream) {
     if (encode == nullptr) return kErrNoEncoder;
     constexpr int box = Cfg::kBox;
     CUtensorMap tm_q, tm_k, tm_v;
-    if (!encode_map(encode, &tm_q, p.q, DQK, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, kHBlockM) ||
-        !encode_map(encode, &tm_k, p.k, DQK, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, kHBlockN) ||
-        !encode_map(encode, &tm_v, p.v, DV, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, kHBlockN)) {
+    if (!encode_map(encode, &tm_q, p.q, p.dqk, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, kHBlockM) ||
+        !encode_map(encode, &tm_k, p.k, p.dqk, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, kHBlockN) ||
+        !encode_map(encode, &tm_v, p.v, p.dv, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, kHBlockN)) {
         return kErrTensorMap;
     }
     constexpr int smem = Cfg::kSmem;
@@ -1330,7 +1055,7 @@ int launch_hopper(Params p, cudaStream_t stream) {
 }  // namespace
 
 // Which kernel takes (dtype, qk head dim, v head dim): 0 the f32 kernel, 1
-// the mma.sync kernel, 2 the wgmma kernel, -1 none.  kernel.py's
+// the wgmma kernel, -1 none.  kernel.py's
 // `kernel_path` is the same table; a card test holds the two together.
 extern "C" int flash_attention_path_dqk_dv(int dtype, int dqk, int dv) {
     return path_of(dtype, dqk, dv);
@@ -1339,10 +1064,14 @@ extern "C" int flash_attention_path_dqk_dv(int dtype, int dqk, int dv) {
 // The same table for one head dim (dqk == dv).
 extern "C" int flash_attention_path(int dtype, int d) { return path_of(dtype, d, d); }
 
+// The instance that takes (qk head dim, v head dim), by its template's dqk:
+// 32, 64, 80, 96, 128, 160 (square) or 192 (with dv 128); 0 for none.
+extern "C" int flash_attention_instance(int dqk, int dv) { return instance_of(dqk, dv); }
+
 // Returns a cudaError_t as int (0 on success), -1 for head dims or a type
 // that this file does not build, -2 when libcuda has no tensor-map
 // encoder, -3 when a tensor map cannot be encoded for these pointers and
-// strides.  `dtype`: 0 = float32, 1 = bfloat16.  q and k rows are `dqk`
+// strides, -4 for a bf16 head dim that is not a multiple of 8.  `dtype`: 0 = float32, 1 = bfloat16.  q and k rows are `dqk`
 // wide, v and o rows `dv` wide.  Strides are in elements; the head dim must
 // be contiguous, and for bf16 every row must start on a 16-byte boundary.
 // Nothing is allocated and nothing synchronises: the launch goes onto
@@ -1362,6 +1091,8 @@ extern "C" int flash_attention_fwd_dqk_dv(const void* q, const void* k, const vo
     p.kvh = kvh;
     p.sq = sq;
     p.sk = sk;
+    p.dqk = dqk;
+    p.dv = dv;
     p.q_sb = strides[0];
     p.q_sh = strides[1];
     p.q_ss = strides[2];
@@ -1378,26 +1109,28 @@ extern "C" int flash_attention_fwd_dqk_dv(const void* q, const void* k, const vo
     p.causal = causal;
     p.band = 1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (path_of(dtype, dqk, dv)) {
-        case 2:
-            switch (dqk) {
-                case 64: return launch_hopper<64, 64>(p, s);
-                case 80: return launch_hopper<80, 80>(p, s);
-                case 128: return launch_hopper<128, 128>(p, s);
-                default: return launch_hopper<192, 128>(p, s);
-            }
-        case 1:
-            return static_cast<int>(launch_bf16<16>(p, s));
-        case 0:
-            switch (dqk) {
-                case 16: return static_cast<int>(launch_f32<16, 16>(p, s));
-                case 64: return static_cast<int>(launch_f32<64, 64>(p, s));
-                case 80: return static_cast<int>(launch_f32<80, 80>(p, s));
-                case 128: return static_cast<int>(launch_f32<128, 128>(p, s));
-                default: return static_cast<int>(launch_f32<192, 128>(p, s));
-            }
-        default:
-            return kErrNotBuilt;
+    const int path = path_of(dtype, dqk, dv);
+    if (path < 0) return kErrNotBuilt;
+    if (path == 1) {
+        if (dqk % 8 != 0 || dv % 8 != 0) return kErrWidth;
+        switch (instance_of(dqk, dv)) {
+            case 32: return launch_hopper<32, 32>(p, s);
+            case 64: return launch_hopper<64, 64>(p, s);
+            case 80: return launch_hopper<80, 80>(p, s);
+            case 96: return launch_hopper<96, 96>(p, s);
+            case 128: return launch_hopper<128, 128>(p, s);
+            case 160: return launch_hopper<160, 160>(p, s);
+            default: return launch_hopper<192, 128>(p, s);
+        }
+    }
+    switch (instance_of(dqk, dv)) {
+        case 32: return static_cast<int>(launch_f32<32, 32>(p, s));
+        case 64: return static_cast<int>(launch_f32<64, 64>(p, s));
+        case 80: return static_cast<int>(launch_f32<80, 80>(p, s));
+        case 96: return static_cast<int>(launch_f32<96, 96>(p, s));
+        case 128: return static_cast<int>(launch_f32<128, 128>(p, s));
+        case 160: return static_cast<int>(launch_f32<160, 160>(p, s));
+        default: return static_cast<int>(launch_f32<192, 128>(p, s));
     }
 }
 

@@ -8,18 +8,33 @@ laid out as it is.
 
 ``flash_attention_fwd`` takes CUDA tensors only and launches the kernel or
 raises.  It counts its launches in ``flash_attention_fwd.launches``.  Which
-of the source's three kernels takes a call is ``kernel_path(dtype, dqk,
-dv)``: bf16 at head dims 64, 80 and 128 and at MLA's pair (qk 192, v 128)
-goes to the Hopper kernel (``wgmma``, TMA, warp specialisation), bf16 at 16
-to the ``mma.sync`` kernel, f32 to the full-precision one.  No path falls
-back to another.
+of the source's two kernels takes a call is ``kernel_path(dtype, dqk, dv)``:
+bf16 goes to the Hopper kernel (``wgmma``, TMA, warp specialisation), f32 to
+the full-precision one.  No path falls back to another.  Both are built at
+the instances ``HEAD_DIMS`` (square) and ``HEAD_DIM_PAIRS``, and a call takes
+the smallest that holds both of its head dims (``kernel_instance``): every
+qk and v width up to 160, as the reference takes any, and a qk width up to
+192 beside a v width up to 128 (MLA's).  Wider calls raise, naming the
+limit: a wider instance leaves the kernel too few K/V stages in shared
+memory.  In bf16 a width that is not a multiple of 8 is zero-padded to one
+here (the bf16 kernels store 8 columns at a time, and TMA wants rows on
+16-byte boundaries); zero columns change no score and give output columns
+that are cut off.  The float32 kernels load and store a float at a time,
+bounded by the true widths, and take any width as it is.
 
 The backward is ``csrc/flash_attention_bwd.cu``, a library of its own (the
 forward's object code does not move with it): ``flash_attention_bwd``
 launches it on CUDA tensors or raises, and counts its calls in
 ``flash_attention_bwd.launches``.  ``kernel_bwd_path(dtype, dqk, dv)`` says
-which of its families takes a call: bf16 at every built head dim the Hopper
-passes (``wgmma``, TMA), float32 the FMA passes.
+which of its families takes a call: bf16 the Hopper passes (``wgmma``, TMA),
+float32 the FMA passes, at the forward's instances and widths.
+
+Both launches are PyTorch custom ops (``torch.ops.repro_torch.
+flash_attention_fwd`` and ``flash_attention_bwd``, CUDA only), each with a
+fake version that runs the same checks and allocations on fake tensors and
+builds and launches nothing (the dry run, ``launch/dryrun.py``), and a flop
+formula (``kernels/costs.py``: the products of the (query, key) pairs the
+mask keeps, and 2.5x those for the backward).
 """
 
 from __future__ import annotations
@@ -30,8 +45,13 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.compat import on_card
 
 from .._build import load_library, rows_aligned
+from ..costs import attention_flops
 
 __all__ = [
     "BWD_PATHS",
@@ -43,16 +63,19 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_fwd",
     "kernel_bwd_path",
+    "kernel_instance",
     "kernel_path",
 ]
 
-HEAD_DIMS = (16, 64, 80, 128)  # the head dims (dqk == dv) that the CUDA source instantiates
-HEAD_DIM_PAIRS = ((192, 128),)  # the (dqk, dv) pairs with dqk != dv it instantiates: MLA's
+HEAD_DIMS = (32, 64, 80, 96, 128, 160)  # the square instances (dqk == dv) that both CUDA sources build
+HEAD_DIM_PAIRS = ((192, 128),)  # the instances with dqk != dv: MLA's
+MAX_SQUARE = HEAD_DIMS[-1]  # every qk and v width up to this is taken
+_ALIGN = 8  # widths reach the kernels as multiples of this; the wrappers pad others
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 _BWD_SOURCE = _SOURCE.with_name("flash_attention_bwd.cu")
 # the source's kernels, by the id that its `flash_attention_path` returns
-PATHS = ("f32", "mma_sync", "wgmma")
+PATHS = ("f32", "wgmma")
 # the backward source's kernel families, by the id that `flash_attention_bwd_path` returns
 BWD_PATHS = ("fma", "wgmma")
 # what the C entry returns besides a cudaError_t
@@ -60,43 +83,65 @@ _ERRORS = {
     -1: "this (dtype, head dim) is not built",
     -2: "libcuda has no cuTensorMapEncodeTiled",
     -3: "a TMA tensor map could not be encoded for these pointers and strides",
+    -4: "a bf16 head dim is not a multiple of 8",
 }
+
+
+def kernel_instance(dqk: int, dv: Optional[int] = None) -> Tuple[int, int]:
+    """The instance ``(DQK, DV)`` of both CUDA sources that takes head dims
+    ``(dqk, dv)``: the smallest square of ``HEAD_DIMS`` that holds both, else
+    (192, 128) where it holds them.  Raises, naming the limit, for widths
+    no instance holds.  The C entries' ``flash_attention_instance`` is the
+    same table."""
+    dv = dqk if dv is None else dv
+    if dqk < 1 or dv < 1:
+        raise ValueError(f"head dims (qk {dqk}, v {dv}) are not built: widths start at 1")
+    for sq in HEAD_DIMS:
+        if max(dqk, dv) <= sq:
+            return sq, sq
+    for pair in HEAD_DIM_PAIRS:
+        if dqk <= pair[0] and dv <= pair[1]:
+            return pair
+    raise ValueError(f"head dims (qk {dqk}, v {dv}) are not built: the kernels take every qk and v width up "
+                     f"to {MAX_SQUARE}, and qk up to {HEAD_DIM_PAIRS[0][0]} with v up to {HEAD_DIM_PAIRS[0][1]}; "
+                     f"a wider instance leaves too few K/V stages in the 232,448 bytes of shared memory")
 
 
 def kernel_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
     """The kernel that takes ``(dtype, dqk, dv)`` (``dv`` defaults to
-    ``dqk``): ``"wgmma"`` (bf16, d 64, 80 and 128, and (192, 128)),
-    ``"mma_sync"`` (bf16, d 16) or ``"f32"``.  Raises for anything the
-    source does not build.  The C entry's ``flash_attention_path_dqk_dv`` is
-    the same table."""
-    dv = dqk if dv is None else dv
+    ``dqk``): ``"wgmma"`` (bf16) or ``"f32"``, at the instance
+    ``kernel_instance(dqk, dv)``.  Raises for anything the source does not
+    build.  The C entry's ``flash_attention_path_dqk_dv`` is the same
+    table."""
     if dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got {dtype}")
-    if dqk == dv and dqk not in HEAD_DIMS:
-        raise ValueError(f"head dim {dqk} is not built; the kernel takes {HEAD_DIMS}")
-    if dqk != dv and (dqk, dv) not in HEAD_DIM_PAIRS:
-        raise ValueError(f"head dims (qk {dqk}, v {dv}) are not built; the kernel takes "
-                         f"{HEAD_DIMS} and the pairs {HEAD_DIM_PAIRS}")
-    if dtype == torch.float32:
-        return "f32"
-    return "mma_sync" if dqk == 16 else "wgmma"
+    kernel_instance(dqk, dv)
+    return "f32" if dtype == torch.float32 else "wgmma"
 
 
 def kernel_bwd_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
     """The backward's kernel family for ``(dtype, dqk, dv)``: ``"wgmma"``
-    (bf16 at d 16, 64, 80 and 128 and (192, 128)) or ``"fma"`` (float32 at
-    every built dim).  Raises, before any build, for what ``kernel_path``
-    refuses: the two sources build the same head dims.  The C entry's
-    ``flash_attention_bwd_path`` is the same table."""
+    (bf16) or ``"fma"`` (float32).  Raises, before any build, for what
+    ``kernel_path`` refuses: the two sources build the same instances.  The
+    C entry's ``flash_attention_bwd_path`` is the same table."""
     kernel_path(dtype, dqk, dv)
     return "fma" if dtype == torch.float32 else "wgmma"
+
+
+def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
+
+
+def _aligned(d: int) -> int:
+    return -(-d // _ALIGN) * _ALIGN
 
 
 @functools.lru_cache(maxsize=None)
 def build(source: Path = _SOURCE):
     """Compile (if needed) and load the kernel's library; returns its entry
     point for one head dim, with the entry for a (dqk, dv) pair as
-    ``.dqk_dv`` and the path tables as ``.path`` and ``.path_dqk_dv``."""
+    ``.dqk_dv``, the path tables as ``.path`` and ``.path_dqk_dv`` and the
+    instance table as ``.instance``."""
     lib = load_library("flash_attention_fwd", [source])
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     head = [ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, c_int]  # q k v o lse dtype b h kvh sq sk
@@ -108,35 +153,27 @@ def build(source: Path = _SOURCE):
     fn.dqk_dv = getattr(lib, "flash_attention_fwd_dqk_dv", None)
     fn.path = getattr(lib, "flash_attention_path", None)
     fn.path_dqk_dv = getattr(lib, "flash_attention_path_dqk_dv", None)
+    fn.instance = getattr(lib, "flash_attention_instance", None)
     if fn.dqk_dv is not None:
         fn.dqk_dv.argtypes = head + [c_int, c_int] + tail  # dqk dv
         fn.dqk_dv.restype = c_int
-    for table, n_dims in ((fn.path, 1), (fn.path_dqk_dv, 2)):
+    for table, n_args in ((fn.path, 2), (fn.path_dqk_dv, 3), (fn.instance, 2)):
         if table is not None:
-            table.argtypes = [c_int] * (1 + n_dims)
+            table.argtypes = [c_int] * n_args
             table.restype = c_int
     return fn
 
 
-def flash_attention_fwd(
-    q: torch.Tensor,  # (b, h, sq, dqk)
-    k: torch.Tensor,  # (b, kvh, sk, dqk)
-    v: torch.Tensor,  # (b, kvh, sk, dv)
-    *,
-    causal: bool = True,
-    out: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Head-major flash attention on the card.  Returns ``(out, lse)``.
+def _in_place(x: torch.Tensor, path: str) -> bool:
+    """Whether ``path``'s kernels read or write ``x`` where it lies: the
+    float32 ones need only a contiguous head dim; TMA and the bf16 stores also
+    need rows on 16-byte boundaries and no zero stride."""
+    return (rows_aligned(x) and _no_broadcast(x)) if path == "wgmma" else x.stride(-1) == 1
 
-    ``out`` is ``(b, h, sq, dv)`` in ``q.dtype``; ``lse`` is ``(b, h, sq)``
-    float32, ``m + log(max(l, 1e-30))``; the scores are scaled by
-    ``dqk ** -0.5``.  ``dv`` may differ from ``dqk`` only for a built pair
-    (``HEAD_DIM_PAIRS``).  The tensors may be strided views (a transposed
-    ``(b, s, h, d)`` tensor is taken as it is) as long as the head dim is
-    contiguous; ``out``, when given, is written in place.  Any ``sq`` and
-    ``sk`` are taken; ``causal`` needs ``sq == sk``.
-    """
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+
+def _check_fwd(q, k, v, causal, out) -> Tuple[str, bool]:
+    """The forward's checks, on real and fake tensors alike: ``(path, padded)``."""
+    if not (on_card(q) and on_card(k) and on_card(v)):
         raise ValueError("flash_attention_fwd launches a CUDA kernel: the tensors must be on the card")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
@@ -151,24 +188,86 @@ def flash_attention_fwd(
     path = kernel_path(q.dtype, d, dv)
     if causal and sq != sk:
         raise ValueError(f"causal attention needs sq == sk, got {sq} and {sk}")
+    padded = path == "wgmma" and bool(d % _ALIGN or dv % _ALIGN)
+    if out is not None and (out.shape != (b, h, sq, dv) or out.dtype != q.dtype or out.device != q.device
+                            or not (padded or _in_place(out, path))):
+        raise ValueError("out must be (b, h, sq, dv) in q's type and device, with rows its kernel writes in place")
+    return path, padded
 
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # (b, h, sq, dqk)
+    k: torch.Tensor,  # (b, kvh, sk, dqk)
+    v: torch.Tensor,  # (b, kvh, sk, dv)
+    *,
+    causal: bool = True,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Head-major flash attention on the card.  Returns ``(out, lse)``.
+
+    ``out`` is ``(b, h, sq, dv)`` in ``q.dtype``; ``lse`` is ``(b, h, sq)``
+    float32, ``m + log(max(l, 1e-30))``; the scores are scaled by
+    ``dqk ** -0.5``.  Any ``dqk`` and ``dv`` that ``kernel_instance`` takes
+    are taken.  The tensors may be strided views (a transposed
+    ``(b, s, h, d)`` tensor is taken as it is) as long as the head dim is
+    contiguous; ``out``, when given, is written in place.  Any ``sq`` and
+    ``sk`` are taken; ``causal`` needs ``sq == sk``.  The launch is the
+    custom op ``torch.ops.repro_torch.flash_attention_fwd``, which runs the
+    checks; its fake version runs the same checks and allocations and
+    launches nothing.
+    """
+    if out is None:
+        out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype, device=q.device)
+    return out, torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal, out)
+
+
+def _fwd(q, k, v, causal, out, launch):
+    path, padded = _check_fwd(q, k, v, causal, out)
+    d, dv = q.shape[3], v.shape[3]
+    if padded:  # zero columns: the same scores, output columns cut off
+        o, lse = _launch_fwd(_pad_to(q, _aligned(d)), _pad_to(k, _aligned(d)), _pad_to(v, _aligned(dv)),
+                             None, causal, d**-0.5, path, launch)
+        out.copy_(o[..., :dv])
+        return lse
+    return _launch_fwd(q, k, v, out, causal, d**-0.5, path, launch)[1]
+
+
+# on every device, so that a CPU tensor meets the checks' ValueError
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=("out",))
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, out: torch.Tensor) -> torch.Tensor:
+    return _fwd(q, k, v, causal, out, launch=True)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, out):
+    return _fwd(q, k, v, causal, out, launch=False)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    b, h, sq, d = q_shape
+    return attention_flops(b, h, sq, k_shape[2], d, v_shape[3], causal)
+
+
+def _launch_fwd(q, k, v, out, causal, scale, path, launch):
+    """The copies, the allocations and (with ``launch``) the launch: ``(out, lse)``."""
+    b, h, sq, d = q.shape
+    kvh, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     # TMA follows any stride that is a multiple of 16 bytes, but not a zero
     # one (a broadcast head): such a tensor is handed over as a copy too
-    q, k, v = (x if rows_aligned(x) and (path != "wgmma" or _no_broadcast(x)) else x.contiguous()
-               for x in (q, k, v))
+    q, k, v = (x if _in_place(x, path) else x.contiguous() for x in (q, k, v))
     if out is None:
         out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
-    elif (out.shape != (b, h, sq, dv) or out.dtype != q.dtype or out.device != q.device
-          or not rows_aligned(out)):
-        raise ValueError("out must be (b, h, sq, dv) in q's type and device, with aligned rows")
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if not launch:
+        return out, lse
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
     fn = build()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[q.dtype], b, h, kvh, sq, sk)  # fmt: skip
-    tail = (strides, d**-0.5, int(causal), torch.cuda.current_stream().cuda_stream)
+    tail = (strides, scale, int(causal), torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(q.device):
         if dv == d:
             err = fn(*args, d, *tail)
@@ -189,8 +288,7 @@ flash_attention_fwd.launches = 0
 @functools.lru_cache(maxsize=None)
 def build_bwd(source: Path = _BWD_SOURCE):
     """Compile (if needed) and load the backward's library; returns its entry
-    point, with the path table as ``.path`` and the scratch size as
-    ``.scratch_floats``."""
+    point, with the path table as ``.path``."""
     lib = load_library("flash_attention_bwd", [source])
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     fn = lib.flash_attention_bwd
@@ -201,10 +299,49 @@ def build_bwd(source: Path = _BWD_SOURCE):
     fn.path = lib.flash_attention_bwd_path
     fn.path.argtypes = [c_int] * 3
     fn.path.restype = c_int
-    fn.scratch_floats = lib.flash_attention_bwd_scratch_floats
-    fn.scratch_floats.argtypes = [c_int] * 3
-    fn.scratch_floats.restype = ctypes.c_longlong
     return fn
+
+
+def scratch_floats(b: int, h: int, sq: int) -> int:
+    """Floats of scratch a backward call takes: lse * log2(e) and delta, each
+    (b, h, sq) padded to a multiple of 128 rows (the source's ``kRowPad``,
+    ``sq_padded``), as its C entry lays them out."""
+    return 2 * b * h * (-(-sq // 128) * 128)
+
+
+def _check_bwd(q, k, v, out, lse, dout, causal, dq, dk, dv) -> Tuple[str, bool]:
+    """The backward's checks, on real and fake tensors alike: ``(path, padded)``."""
+    tensors = (q, k, v, out, lse, dout)
+    if not all(on_card(x) for x in tensors):
+        raise ValueError("flash_attention_bwd launches a CUDA kernel: the tensors must be on the card")
+    if any(x.device != q.device for x in tensors):
+        raise ValueError(f"the tensors must lie on one card, got {[str(x.device) for x in tensors]}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    kvh, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape[0] != b or k.shape[3] != d or kvh == 0 or h % kvh != 0:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
+    if min(b, h, sq, sk) == 0:
+        raise ValueError("empty attention problem")
+    if k.dtype != q.dtype or v.dtype != q.dtype or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"q, k, v, out, dout must share float32 or bfloat16, got "
+                         f"{[x.dtype for x in (q, k, v, out, dout)]}")
+    path = kernel_bwd_path(q.dtype, d, d_v)
+    if causal and sq != sk:
+        raise ValueError(f"causal attention needs sq == sk, got {sq} and {sk}")
+    if out.shape != (b, h, sq, d_v) or dout.shape != out.shape:
+        raise ValueError(f"out and dout must be (b, h, sq, dv) = {(b, h, sq, d_v)}, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (b, h, sq) = {(b, h, sq)} float32, got {tuple(lse.shape)} {lse.dtype}")
+    padded = path == "wgmma" and bool(d % _ALIGN or d_v % _ALIGN)
+    for given, like, name in ((dq, q, "dq"), (dk, k, "dk"), (dv, v, "dv")):
+        if given is not None and (given.shape != like.shape or given.dtype != like.dtype
+                                  or given.device != like.device or not (padded or _in_place(given, path))):
+            raise ValueError(f"{name} must have the shape, type and device of its input, with rows its kernel "
+                             "writes in place")
+    return path, padded
 
 
 def flash_attention_bwd(
@@ -231,54 +368,65 @@ def flash_attention_bwd(
     with a zero stride (autograd's broadcast) is handed over as a copy.
     ``dq``, ``dk``, ``dv``, when given, are written in place.  One call is
     three device launches (delta, the dk/dv pass, the dq pass) and counts
-    one in ``flash_attention_bwd.launches``.
+    one in ``flash_attention_bwd.launches``.  The launch is the custom op
+    ``torch.ops.repro_torch.flash_attention_bwd``, which runs the checks.
     """
-    tensors = (q, k, v, out, lse, dout)
-    if not all(x.is_cuda for x in tensors):
-        raise ValueError("flash_attention_bwd launches a CUDA kernel: the tensors must be on the card")
-    if any(x.device != q.device for x in tensors):
-        raise ValueError(f"the tensors must lie on one card, got {[str(x.device) for x in tensors]}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    grads = [torch.empty(like.shape, dtype=like.dtype, device=like.device) if given is None else given
+             for given, like in zip((dq, dk, dv), (q, k, v))]
+    torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, dout, causal, *grads)
+    return tuple(grads)
+
+
+def _bwd(q, k, v, out, lse, dout, causal, dq, dk, dv, launch):
+    path, padded = _check_bwd(q, k, v, out, lse, dout, causal, dq, dk, dv)
+    d, d_v = q.shape[3], v.shape[3]
+    if padded:  # zero columns: the same P and dS, gradient columns cut off
+        wq, wv = _aligned(d), _aligned(d_v)
+        grads = _launch_bwd(_pad_to(q, wq), _pad_to(k, wq), _pad_to(v, wv), _pad_to(out, wv), lse,
+                            _pad_to(dout, wv), causal, d**-0.5, path, (None, None, None), launch)
+        for g, given, width in zip(grads, (dq, dk, dv), (d, d, d_v)):
+            given.copy_(g[..., :width])
+    else:
+        _launch_bwd(q, k, v, out, lse, dout, causal, d**-0.5, path, (dq, dk, dv), launch)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=("dq", "dk", "dv"))
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+            dout: torch.Tensor, causal: bool, dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor) -> None:
+    _bwd(q, k, v, out, lse, dout, causal, dq, dk, dv, launch=True)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, causal, dq, dk, dv):
+    _bwd(q, k, v, out, lse, dout, causal, dq, dk, dv, launch=False)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape, causal, *args, **kwargs) -> int:
+    """The function's five products, 2.5x the forward's (``costs.attention_bwd_bound``)."""
+    b, h, sq, d = q_shape
+    return int(2.5 * attention_flops(b, h, sq, k_shape[2], d, v_shape[3], causal))
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, scale, path, given_grads, launch):
     b, h, sq, d = q.shape
     kvh, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
-    if k.shape[0] != b or k.shape[3] != d or kvh == 0 or h % kvh != 0:
-        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
-    if min(b, h, sq, sk) == 0:
-        raise ValueError("empty attention problem")
-    if k.dtype != q.dtype or v.dtype != q.dtype or out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"q, k, v, out, dout must share float32 or bfloat16, got "
-                         f"{[x.dtype for x in (q, k, v, out, dout)]}")
-    path = kernel_bwd_path(q.dtype, d, d_v)
-    if causal and sq != sk:
-        raise ValueError(f"causal attention needs sq == sk, got {sq} and {sk}")
-    if out.shape != (b, h, sq, d_v) or dout.shape != out.shape:
-        raise ValueError(f"out and dout must be (b, h, sq, dv) = {(b, h, sq, d_v)}, got "
-                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
-    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be (b, h, sq) = {(b, h, sq)} float32, got {tuple(lse.shape)} {lse.dtype}")
-
     # TMA follows any stride that is a multiple of 16 bytes, but not a zero
     # one (a broadcast head, autograd's broadcast dout): such a tensor is
     # handed over as a copy, as the forward does
-    q, k, v, out, dout = (x if rows_aligned(x) and (path != "wgmma" or _no_broadcast(x)) else x.contiguous()
-                          for x in (q, k, v, out, dout))
+    q, k, v, out, dout = (x if _in_place(x, path) else x.contiguous() for x in (q, k, v, out, dout))
     lse = lse.contiguous()
-    grads = []
-    for given, like, name in ((dq, q, "dq"), (dk, k, "dk"), (dv, v, "dv")):
-        if given is None:
-            given = torch.empty(like.shape, dtype=like.dtype, device=like.device)
-        elif (given.shape != like.shape or given.dtype != like.dtype or given.device != like.device
-              or not rows_aligned(given)):
-            raise ValueError(f"{name} must have the shape, type and device of its input, with aligned rows")
-        grads.append(given)
+    grads = [torch.empty(like.shape, dtype=like.dtype, device=like.device) if given is None else given
+             for given, like in zip(given_grads, (q, k, v))]
+    scratch = torch.empty(scratch_floats(b, h, sq), dtype=torch.float32, device=q.device)
+    if not launch:
+        return grads
     fn = build_bwd()
-    scratch = torch.empty(fn.scratch_floats(b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(st for x in (q, k, v, out, dout, *grads) for st in x.stride()[:3]))
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                  *(x.data_ptr() for x in grads), scratch.data_ptr(), _DTYPES[q.dtype], b, h, kvh, sq, sk, d, d_v,
-                 strides, d**-0.5, int(causal), torch.cuda.current_stream().cuda_stream)  # fmt: skip
+                 strides, scale, int(causal), torch.cuda.current_stream().cuda_stream)  # fmt: skip
     if err != 0:
         why = _ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"flash_attention_bwd ({path} kernels): launch failed: {why}")

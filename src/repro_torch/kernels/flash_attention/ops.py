@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.compat import on_card
 from repro_torch.models.layers.flash_core import flash_attention_bwd
 from .kernel import flash_attention_bwd as kernel_bwd
 from .kernel import flash_attention_fwd
@@ -43,7 +44,7 @@ def flash_attention(
     causal: bool = True,
 ) -> torch.Tensor:
     """Returns ``(b, s, h, dv)`` in ``q.dtype``; the scores are scaled by ``dqk ** -0.5``."""
-    if q.is_cuda:
+    if on_card(q):
         return _FlashAttention.apply(q, k, v, causal)
     return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal).transpose(1, 2)
 

@@ -13,7 +13,10 @@ cluster of k CTAs that hand only the state on; k is ``scan_form``'s, a pure
 function of the shapes and of the card's cluster limit (``cluster_limit``):
 one CTA for mamba2's 4-sequence prefill, two for a single sequence.
 Float32 takes the full-precision kernel, one block per (batch, head).  No
-form falls back to another.
+form falls back to another.  The launch is a PyTorch custom op
+(``torch.ops.repro_torch.ssd_scan_fwd``, CUDA only) with a fake version for
+the dry run (the same checks and allocations; no build, no form, no launch)
+and a flop formula (``kernels/costs.py`` ``ssd_flops``).
 """
 
 from __future__ import annotations
@@ -24,8 +27,12 @@ from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.compat import on_card
 
 from .._build import load_library, rows_aligned
+from ..costs import ssd_flops
 
 __all__ = ["MAX_CHUNK", "SHAPES", "TILE", "ScanForm", "build", "cluster_limit", "scan_form", "ssd_scan_fwd"]
 
@@ -132,18 +139,42 @@ def ssd_scan_fwd(
     share float32 or bfloat16 and may be strided views with a contiguous last
     dim; ``dt`` and ``A`` are read as float32 (a bfloat16 ``dt`` is widened
     first, exactly).  ``chunk`` divides ``s`` and is at most ``MAX_CHUNK``.
-    The bf16 kernel takes the form ``scan_form`` gives these shapes.
+    The bf16 kernel takes the form ``scan_form`` gives these shapes.  The
+    launch is the custom op ``torch.ops.repro_torch.ssd_scan_fwd``, whose fake
+    version runs the same checks and allocations, asks the library nothing
+    and launches nothing.
     """
+    if not all(on_card(t) for t in (x, dt, A, B, C) + (() if initial_state is None else (initial_state,))):
+        raise ValueError("ssd_scan_fwd launches a CUDA kernel: the tensors must be on the card")
+    return torch.ops.repro_torch.ssd_scan_fwd(x, dt, A, B, C, chunk, initial_state)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=(), device_types="cuda")
+def _scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, chunk: int,
+             initial_state: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     return _scan(x, dt, A, B, C, chunk, initial_state, None)
 
 
-def _scan(x, dt, A, B, C, chunk, initial_state, cluster):
+@_scan_op.register_fake
+def _(x, dt, A, B, C, chunk, initial_state):
+    return _scan(x, dt, A, B, C, chunk, initial_state, None, launch=False)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk, *args, **kwargs) -> int:
+    b, s, h, p = x_shape
+    return ssd_flops(b, s, h, p, B_shape[2], chunk)
+
+
+def _scan(x, dt, A, B, C, chunk, initial_state, cluster, launch=True):
     """``ssd_scan_fwd`` in the bf16 kernel's form of ``cluster`` CTAs a
     (batch, head) (1 to ``min(MAX_CLUSTER, ceil(s / TILE))``), or in
     ``scan_form``'s where it is None.  A test or a benchmark holds one form
-    through it; nothing on the serving path names a form."""
+    through it; nothing on the serving path names a form.  Without
+    ``launch`` (the fake op) it checks and allocates what the launch would,
+    and picks no form: ``cluster_limit`` asks the library."""
     tensors = (x, dt, A, B, C) + (() if initial_state is None else (initial_state,))
-    if not all(t.is_cuda for t in tensors):
+    if not all(on_card(t) for t in tensors):
         raise ValueError("ssd_scan_fwd launches a CUDA kernel: the tensors must be on the card")
     if x.dim() != 4 or B.dim() != 3:
         raise ValueError(f"bad shapes x={tuple(x.shape)} B={tuple(B.shape)}: x is (b, s, h, p), B (b, s, n)")
@@ -169,7 +200,8 @@ def _scan(x, dt, A, B, C, chunk, initial_state, cluster):
             raise ValueError(f"the float32 kernel takes one block per (batch, head), not a cluster of {cluster}")
         cluster = 1
     elif cluster is None:
-        cluster = scan_form(b, h, s, chunk, p, n, cluster_limit(p, n, x.device.index)).cluster
+        if launch:
+            cluster = scan_form(b, h, s, chunk, p, n, cluster_limit(p, n, x.device.index)).cluster
     elif not 1 <= cluster <= min(MAX_CLUSTER, -(-s // TILE)):
         raise ValueError(f"cluster {cluster} must be between 1 and min({MAX_CLUSTER}, ceil(s / {TILE}))")
 
@@ -179,6 +211,8 @@ def _scan(x, dt, A, B, C, chunk, initial_state, cluster):
     init = None if initial_state is None else initial_state.float().contiguous()
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     final_state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if not launch:
+        return y, final_state
     strides = (ctypes.c_longlong * 13)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2], *y.stride()[:3]
     )

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.compat import on_card
 from repro_torch.models.layers.ssm import ssd_chunked
 from .kernel import ssd_scan_fwd
 from .ref import ssd_scan_ref
@@ -52,7 +53,7 @@ def ssd_scan(
             "the kernel (like the Pallas one) is single-group, and so are both SSD archs"
         )
     B, C = B[:, :, 0], C[:, :, 0]
-    if x.is_cuda:
+    if on_card(x):
         return _SSDScan.apply(x, dt, A, B, C, initial_state, chunk)
     return ssd_scan_ref(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
 

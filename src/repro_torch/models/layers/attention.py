@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.compat import on_card
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.parallel.sharding import Shards, enter, held, sub
@@ -225,7 +226,7 @@ def attention_apply(
     # does not divide a 16-way model axis: a tensor-parallel layout choice,
     # numerically neutral.  The port never expands: the kernel indexes the kv
     # head, and the plain versions group the q heads.
-    if x.is_cuda:
+    if on_card(x):
         o = flash_attention(q, k, v, causal=True)
     elif s <= 2048:
         o = naive_attention(q, k, v, causal=True)
@@ -315,7 +316,7 @@ def mla_apply(
 
     qq = torch.cat([q_nope, q_rope], dim=-1)
     kk = torch.cat([k_nope, k_r[:, :, None, :].expand(b, s, hl, m.qk_rope_dim)], dim=-1)
-    if x.is_cuda:
+    if on_card(x):
         o = flash_attention(qq, kk, v, causal=True)
     elif s <= 2048:
         o = _mla_core(qq, kk, v)

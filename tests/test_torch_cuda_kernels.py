@@ -187,18 +187,21 @@ def test_flash_path_table_is_the_sources(card):
     for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
         for d in HEAD_DIMS:
             assert PATHS[fn.path(code, d)] == kernel_path(dtype, d)
-        assert fn.path(code, 48) == -1
+        assert fn.path(code, 176) == -1
 
 
 def test_flash_pair_path_table_is_the_sources(card):
-    """``kernel_path`` and ``flash_attention_path_dqk_dv`` are one table: over
-    every (dtype, dqk, dv) of a grid around the built ones, the same path
-    where built (each built pair and equal dim among them), -1 and a
-    ``ValueError`` where not."""
+    """``kernel_path`` and ``flash_attention_path_dqk_dv`` are one table, and
+    ``kernel_instance`` and ``flash_attention_instance`` another: over every
+    (dtype, dqk, dv) of a grid around the built instances, the same path and
+    instance where taken, -1 (0) and a ``ValueError`` where not."""
     fn = flash_kernel.build()
-    dims = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
-    built = set(HEAD_DIM_PAIRS) | {(d, d) for d in HEAD_DIMS}
-    assert built <= {(dqk, dv) for dqk in dims for dv in dims}
+    dims = (8, 16, 24, 32, 48, 64, 80, 96, 128, 144, 160, 161, 176, 192, 193, 256)
+    built = {(dqk, dv) for dqk in dims for dv in dims if max(dqk, dv) <= 160 or (dqk <= 192 and dv <= 128)}
+    assert set(HEAD_DIM_PAIRS) | {(d, d) for d in HEAD_DIMS} <= built
+    for dqk in dims:
+        for dv in dims:
+            assert fn.instance(dqk, dv) == (flash_kernel.kernel_instance(dqk, dv)[0] if (dqk, dv) in built else 0)
     for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
         for dqk in dims:
             for dv in dims:
@@ -250,9 +253,9 @@ def test_flash_mla_pair_through_ops_on_the_models_layout(card):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):
-    q, k, v = _inputs(1, 2, 2, 32, 32, 48, torch.bfloat16, card)
-    with pytest.raises(ValueError):
-        flash_attention_fwd(q, k, v)  # head dim 48
+    q, k, v = _inputs(1, 2, 2, 32, 32, 176, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="not built"):
+        flash_attention_fwd(q, k, v)  # head dim 176: past the widest square, 160
     q, k, v = _inputs(1, 2, 2, 32, 64, 64, torch.bfloat16, card)
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k, v, causal=True)  # sq != sk
@@ -368,8 +371,8 @@ def test_flash_bwd_path_table_is_the_sources(card):
     table over a grid around the built head dims: the same family where
     built, -1 and a ``ValueError`` where not."""
     fn = flash_kernel.build_bwd()
-    dims = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
-    built = set(HEAD_DIM_PAIRS) | {(d, d) for d in HEAD_DIMS}
+    dims = (8, 16, 24, 32, 48, 64, 80, 96, 128, 144, 160, 161, 176, 192, 193, 256)
+    built = {(dqk, dv) for dqk in dims for dv in dims if max(dqk, dv) <= 160 or (dqk <= 192 and dv <= 128)}
     for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
         for dqk in dims:
             for dv in dims:

@@ -41,20 +41,11 @@ def no_build(monkeypatch):
 # the path table
 # ---------------------------------------------------------------------------
 
-# The backward's families: the Hopper passes for bf16 at every built dim (the
-# smoke configs' 16 padded to 32, as 80 to 96), the FMA passes for float32
-EXPECTED_BWD = {
-    (torch.bfloat16, 16, 16): "wgmma",
-    (torch.bfloat16, 64, 64): "wgmma",
-    (torch.bfloat16, 80, 80): "wgmma",
-    (torch.bfloat16, 128, 128): "wgmma",
-    (torch.bfloat16, 192, 128): "wgmma",
-    (torch.float32, 16, 16): "fma",
-    (torch.float32, 64, 64): "fma",
-    (torch.float32, 80, 80): "fma",
-    (torch.float32, 128, 128): "fma",
-    (torch.float32, 192, 128): "fma",
-}
+# The backward's families: the Hopper passes for bf16 at every built instance
+# (80's rows padded to 96), the FMA passes for float32
+EXPECTED_BWD = {(dtype, dqk, dv): path for dqk, dv in ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
+                                                        (160, 160), (192, 128))
+                for dtype, path in ((torch.bfloat16, "wgmma"), (torch.float32, "fma"))}
 
 # a grid around the built head dims, built and not
 GRID_DIMS = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
@@ -91,7 +82,7 @@ def test_backward_table_is_the_forwards(no_build, dtype):
                 assert kernel_bwd_path(dtype, dqk, dv) in BWD_PATHS
 
 
-@pytest.mark.parametrize("dqk,dv", [(8, 8), (48, 48), (96, 96), (256, 256), (192, 64), (128, 192)])
+@pytest.mark.parametrize("dqk,dv", [(161, 161), (176, 176), (192, 192), (256, 256), (193, 64), (128, 192)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_unbuilt_backward_raises_before_any_build(no_build, dtype, dqk, dv):
     with pytest.raises(ValueError, match="not built"):

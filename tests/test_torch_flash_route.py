@@ -13,19 +13,11 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIM_PAIRS, HEAD_DIMS, PATHS, kernel_path
 from repro_torch.models.layers import attention as ta
 
-# bf16 at the head dims of phi4, codeqwen, command-r, llava (128), musicgen
-# (64) and stablelm (80) goes to the Hopper kernel; the smoke configs' 16 to
-# the mma.sync kernel; float32 always to the full-precision one
-EXPECTED = {
-    (torch.bfloat16, 16): "mma_sync",
-    (torch.bfloat16, 64): "wgmma",
-    (torch.bfloat16, 80): "wgmma",
-    (torch.bfloat16, 128): "wgmma",
-    (torch.float32, 16): "f32",
-    (torch.float32, 64): "f32",
-    (torch.float32, 80): "f32",
-    (torch.float32, 128): "f32",
-}
+# bf16 at every built instance (phi4's, codeqwen's, command-r's, llava's 128,
+# musicgen's 64, stablelm's 80, and 32, 96 and 160) goes to the Hopper
+# kernel; float32 always to the full-precision one
+EXPECTED = {(dtype, d): path for d in (32, 64, 80, 96, 128, 160)
+            for dtype, path in ((torch.bfloat16, "wgmma"), (torch.float32, "f32"))}
 
 
 def test_every_built_head_dim_has_a_case():
@@ -48,7 +40,7 @@ def no_build(monkeypatch):
     monkeypatch.setattr(flash_kernel, "build", refuse)
 
 
-@pytest.mark.parametrize("d", [8, 48, 96, 256])
+@pytest.mark.parametrize("d", [161, 176, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_unbuilt_head_dim_raises_before_any_build(no_build, dtype, d):
     with pytest.raises(ValueError, match="not built"):
@@ -82,7 +74,7 @@ def test_kernel_path_of_equal_dims_is_the_one_dim_path(dtype, d):
     assert kernel_path(dtype, d, d) == kernel_path(dtype, d)
 
 
-@pytest.mark.parametrize("dqk,dv", [(192, 64), (128, 192), (256, 128), (192, 192), (128, 64), (24, 16)])
+@pytest.mark.parametrize("dqk,dv", [(193, 64), (128, 192), (256, 128), (192, 192), (192, 136), (176, 144)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_unbuilt_pair_raises_before_any_build(no_build, dtype, dqk, dv):
     with pytest.raises(ValueError, match="not built"):
@@ -145,7 +137,7 @@ def _to(tree, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dqk,dv", [(192, 64), (128, 192)])
+@pytest.mark.parametrize("dqk,dv", [(200, 64), (128, 192)])
 def test_an_unbuilt_pair_raises_on_the_card(card, dqk, dv):
     q = torch.zeros(1, 2, 16, dqk, device=card, dtype=torch.bfloat16)
     v = torch.zeros(1, 2, 16, dv, device=card, dtype=torch.bfloat16)

@@ -84,6 +84,13 @@ with tempfile.TemporaryDirectory() as rendezvous:
     _, _, step, metrics = step_fn(*state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
     assert int(step) == 1 and bool(torch.isfinite(metrics["loss"]))
     torch.distributed.destroy_process_group()
+import repro_torch.launch.dryrun, repro_torch.launch.dispatch_analysis, repro_torch.launch.roofline
+import repro_torch.kernels.costs, repro_torch.hardware
+from repro_torch.configs.base import ShapeConfig
+with tempfile.TemporaryDirectory() as out:
+    rec = repro_torch.launch.dryrun.run_cell("phi4-mini-3.8b", ShapeConfig("p", 16, 2, "prefill"),
+                                             {"data": 1, "model": 1}, out, smoke=True)
+    assert rec["status"] == "ok" and repro_torch.launch.roofline.analyze_record(rec)["bound_s"] > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 print("PROBE-OK")
@@ -107,7 +114,9 @@ def test_port_and_smoke_launcher_import_no_jax_and_no_repro():
 
 def test_no_import_statement_names_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from) (jax|repro|ml_dtypes)(\.|\s|$)", re.M)
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted((ROOT / "examples").glob("*_torch.py"))
+             + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"])
+    assert {"dryrun.py", "dispatch_analysis.py", "roofline.py", "costs.py", "hardware.py", "quickstart_torch.py"} <= {f.name for f in files}
     assert len(files) > 15
     for path in files:
         assert not pattern.search(path.read_text()), path
