@@ -280,6 +280,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -822,7 +823,17 @@ def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
         if not (torch.isfinite(g).all() and errs[which] <= tol * max(1.0, w.float().abs().max().item())):
             raise SystemExit(f"{tag} K1's backward kernel: {which} at b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} "
                              f"strays from its plain version by {errs[which]} (tol {tol:g} of the largest entry)")
-    del got, want
+    # a second call gives the same bits: dQ's shares are added in a fixed order
+    again = kernel()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise SystemExit(f"{tag} K1's backward kernel: two calls at b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} "
+                         "give other bits")
+    del got, want, again
+    # the device time of each launch of a call, by kernel (delta, then the
+    # one pass, or the dk/dv and dq passes)
+    _, _, _, profiled = _profiled(lambda: [kernel() for _ in range(3)])
+    launch_ms = {re.search(r"flash_bwd_\w+(<[^>]*>)?", name).group(0): ms / count
+                 for name, ms, count in profiled if "flash_bwd" in name}
     qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
     ref_out = None
     try:
@@ -847,6 +858,7 @@ def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
     ms = min(times["kernel"])
     row = {"b": b, "s": s, "h": h, "kvh": kvh, "head_dims": [dqk, dv],
            "path": kernel_bwd_path(torch.bfloat16, dqk, dv), "max_abs_err": max(errs.values()),
+           "two_calls_same_bits": True, "device_ms_by_launch": launch_ms,
            "max_abs_err_by_grad": errs, "ms": ms, "ms_turns": times["kernel"],
            "plain_ms": min(times["fa2"]), "plain_ms_turns": times["fa2"],
            "library_ms": min(times["sdpa"]) if times["sdpa"] else None, "library_ms_turns": times["sdpa"],
@@ -860,7 +872,8 @@ def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
           f"({flops / ms / 1e9:.1f} TFLOP/s counting 2.5x the forward's products, {bound_ms / ms * 100:.0f} % of "
           f"the bound's rate), PyTorch FA-2 backward {', '.join(f'{x:.3f}' for x in times['fa2'])} ms "
           f"(kernel {row['plain_ms'] / ms:.1f}x faster), SDPA's backward {sdpa_text}, bound {bound_ms:.3f} ms "
-          f"by {bound_by} (in turns)")
+          f"by {bound_by} (in turns); two calls the same bits; device a launch: "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in launch_ms.items()))
     del q, k, v, dout, qt, kt, vt, dt, out, lse, o, qs, ks, vs, ref_out
     torch.cuda.empty_cache()
     return row

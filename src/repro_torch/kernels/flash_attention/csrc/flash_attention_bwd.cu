@@ -20,71 +20,125 @@
 //   dK    = sum over the g q heads of dS^T Q
 //   dQ    = dS K
 //
-// dq, dk and dv come back in the types of q, k and v.  One call is three
-// launches, as the reference has its two passes: `flash_bwd_delta` writes
-// delta and lse * log2(e) into the caller's scratch, padded to a multiple of
-// 128 rows (+inf and 0 past sq, so that a row past sq reads P = 0 and never
-// exp of an out-of-range lse); then a dk/dv pass over key tiles and a dq pass
-// over q tiles.  Each output element is written once by one CTA: no atomics,
-// no reduction across CTAs, so two calls give the same bits.  That costs two
-// more products than an atomic dq (seven against five: S and dP are taken in
-// both passes) and keeps the gradients equal under every remat policy.
+// dq, dk and dv come back in the types of q, k and v.  P and dS are rounded
+// to bf16 as tensor-core operands, as FA-2 and FA-3 do and as the reference
+// rounds dq's dS; sums are f32.  `flash_bwd_delta` first writes delta and
+// lse * log2(e) into the caller's scratch, padded to a multiple of 128 rows
+// (+inf and 0 past sq, so that a row past sq reads P = 0).
 //
 // What bounds it on an H100.  At phi4's training shape (b=1, h=24, kvh=8,
 // s=4096, d=128, bf16, causal) the five products of the function are 2.5x
 // the forward's: 257.8 GFLOP, 0.261 ms at 989 TFLOP/s, against some 125 MB
 // of compulsory traffic (0.037 ms at 3.35 TB/s): the tensor cores bound it.
-// The two passes do 3.5x the forward's products.  Two kernel families, each
-// built at the forward's instances (DQK, DV) = 32, 64, 80, 96, 128 and 160
-// (square) and (192, 128); a call takes the smallest that holds both of its
-// head dims, so every width up to 160 is taken, and a qk width up to 192
-// beside a v width up to 128.  The true widths (`wqk`, `wv`) are the tensor
-// maps' extents and the columns stored:
+// Three of the products, S^T, dP^T and dQ, take both operands from shared
+// memory at 64 x 64 (and dQ 64 x DQK) a warpgroup, which reads 128 bytes a
+// clock of shared memory at the tensor cores' rate: what else passes
+// through shared memory (the TMA loads, dS^T, dQ's shares) slows them.
 //
-// - bf16: the Hopper passes (`flash_bwd_dkdv_hopper`,
-//   `flash_bwd_dq_hopper`).  Two warpgroups of 64 rows each run `wgmma` on
-//   operands in 128-byte-swizzled shared memory (64-byte at the instances
-//   32, 80, 96 and 160, whose rows are cut into 32-element boxes, as the
-//   forward cuts them; TMA's zero fill pads a row past its true width, and
-//   the pad columns of dQ, dK and dV are not stored), fed by TMA through a ring of stages with a full
-//   and an empty mbarrier each; 4-D tensor maps over the caller's strides, so
-//   the models' transposed (b, s, h, d) views go in with no copy.  Thread 0
-//   also issues every load: without a warp of its own for the loads, a CTA
-//   is eight warps, two on each of the SM's four schedulers, and ptxas gives
-//   a thread up to 255 registers.  The forward's layout (a third warpgroup
-//   that loads, `setmaxnreg` 24 / 240) read 168 registers a thread in ptxas
-//   whatever `setmaxnreg` asked, and at 168 the dk/dv pass spilled and ptxas
-//   serialised its `wgmma`s (C7512): 0.65 against 0.45 ms at phi4's dims,
-//   1.26 against 0.50 at (192, 128) (H100 at 700 W).
-//   * dk/dv pass: a CTA owns one (batch, kv head, tile of 128 keys), 64 keys
-//     a warpgroup.  K and V of the tile are loaded once; the g q heads' q
-//     tiles (Q, dout, and their rows' lse and delta by a 1-D bulk copy)
-//     stream through a ring of up to four stages.  FA-3's arrangement: S^T =
-//     K Q^T and dP^T = V dout^T are `wgmma` with both operands in shared
-//     memory, so that P^T and dS^T land in registers in the accumulator
-//     layout, which is the A fragment of the register-A `wgmma` for dV +=
-//     P^T dout and dK += dS^T Q (dout and Q read MN-major).  dK and dV stay
-//     in registers until the one store (227 registers a thread at d = 128).
-//     q tiles are 64 rows, 32 at (192, 128), where the dK accumulator is 192
-//     wide and 64-row S^T and dP^T tiles beside it fill all 255 registers.
-//   * dq pass: a CTA owns one (batch, q head, tile of 128 q rows), 64 a
-//     warpgroup; Q and dout are loaded once, K and V tiles of 64 keys stream
-//     through the ring.  S = Q K^T and dP = dout V^T from shared memory, P
-//     from each row's lse in registers, dS rounded to bf16 as the A fragment
-//     of dQ += dS K (K read MN-major).
-//   P and dS are rounded to bf16 as tensor-core operands, as FA-2 and FA-3
-//   do and as the reference rounds dq's dS; sums are f32.  Both passes
-//   number their CTAs heavy first under a causal mask (the first key tiles,
-//   the last q tiles) and skip tiles wholly above the diagonal.
-// - f32: `flash_bwd_dkdv_fma` and
-//   `flash_bwd_dq_fma`, full-precision FMAs on the CUDA cores (no TF32: the
-//   reference upcasts before its products, and a float32 train step is held
-//   to 2e-5); the same two passes with 16 x 16 threads over 64 x 64 tiles in
-//   shared memory.  A correctness path, not a fast one.
+// Paths, a static table by instance (`path_of`; kernel.py's
+// `kernel_bwd_path`).  Every family is built at the forward's instances
+// (DQK, DV) = 32, 64, 80, 96, 128 and 160 (square) and (192, 128); a call
+// takes the smallest that holds both of its head dims.  The true widths
+// (`wqk`, `wv`) are the tensor maps' extents and the columns stored (TMA's
+// zero fill pads a row; 80's rows pad to 96, cut into 32-element boxes with
+// 64-byte swizzle, as at 32 and 96; 64 and 128 take 64-element boxes with
+// 128-byte swizzle).  No path falls back to another: a tensor map that
+// cannot be encoded is an error code.
 //
-// `flash_attention_bwd_path(dtype, dqk, dv)` says which family takes a call;
-// the wrapper's `kernel_bwd_path` is the same table.  No path falls back to
-// another: a tensor map that cannot be encoded is an error code.
+// - "wgmma1", bf16 at 32, 64, 80, 96 and 128: the one pass,
+//   `flash_bwd_hopper`, then `flash_bwd_dq_convert`.
+//   * Work.  An item is one key tile (128 keys) of one (batch, kv head)
+//     against the q heads of one group of its g q heads and every q tile (64
+//     rows) the mask leaves.  Items are numbered heavy first: key tile 0
+//     (which meets every q row under a causal mask) of every (batch, kv
+//     head, group), then key tile 1, and so on.  A persistent grid of
+//     min(SMs, items) CTAs, one an SM (the shared memory admits no second),
+//     takes them in rounds of gridDim.x, every other round in reverse, and
+//     each CTA walks its items in increasing number.  The rule that sizes
+//     the items (`groups_of`): G, the groups a kv head's g q heads are split
+//     into, is the fewest (a divisor of g) for which the heaviest item is no
+//     heavier than the whole work spread evenly over 132 SMs.  phi4's
+//     training shape takes G = 1 (256 items, two a CTA, 192 q tiles each);
+//     a model = 2 rank's 12 / 4 heads take G = 3 (384 items of one head),
+//     where G = 1 left 128 items of up to 192 tiles for 132 SMs.
+//   * A CTA: a producer warpgroup and two consumer warpgroups
+//     (`setmaxnreg`: 24 and 240 registers a thread).  Thread 0 issues the
+//     TMA loads: an item's first q tiles, then K and V of its 128 keys once
+//     the item before is done with them, then the rest of its q tiles (Q,
+//     dout, and their rows' lse and delta by 1-D bulk copies) through a ring
+//     of stages (2 at 128, 3 at 80 and 96, 4 below).  Warps 1 and 2 write
+//     dQ (below).  Consumer wg holds keys [64 wg, 64 wg + 64) of the tile.
+//     A q tile: S^T = K Q^T and dP^T = V dout^T (`wgmma`, both operands in
+//     shared memory, 64 x 64), P^T and dS^T in registers in the
+//     accumulator layout, which is the A fragment of dV += P^T dout and dK
+//     += dS^T Q (register A, dout and Q read MN-major); dK and dV stay in
+//     registers over the item.  dS^T also goes to shared memory (two
+//     buffers of 128 keys x 64 rows, 128-byte swizzled); once both halves
+//     are in (a named barrier), the consumer of the tile's parity takes
+//     the tile's dQ share, dS (read MN-major) times all 128 keys of K, 64 x
+//     DQK in f32, and puts it in its own buffer, while the other consumer
+//     goes on to the next tile's S^T and dP^T: taking the shares in turns
+//     lets one consumer's exps run beside the other's products.  Below 128
+//     a consumer also issues the next tile's S^T and dP^T before its share
+//     (at 128 those 64 registers do not fit beside dK, dV and the share).
+//   * The order of dQ's adds.  Each (batch, q head, q tile) has an f32
+//     accumulator in the scratch and a counter, zeroed every call by
+//     `flash_bwd_delta`.  A tile's shares come from key tiles 0, 1, ..., in
+//     that order: the share of key tile k waits until the counter reads k,
+//     is stored (k = 0: the accumulator needs no memset) or added (a bulk
+//     reduce-add, `cp.reduce.async.bulk ... .add.f32`, from shared memory),
+//     and when the add is complete the counter moves to k + 1.  Warp 1 + w
+//     writes consumer w's shares.  Every add meets the same partial sum,
+//     so two calls give the same bits.  `flash_bwd_dq_convert` then writes
+//     dq in q's type.  (The last share could write dq itself, but it waits
+//     for every share before it, and at phi4's shape those waits held the
+//     consumers for 0.19 ms of a 0.80 ms call, where the convert launch
+//     takes 0.044 ms.)  Where G > 1, dK and dV of a key tile are summed
+//     over its G items in the order of their groups the same way, by the
+//     consumers, through a second accumulator and counter.
+//   * It cannot hang.  Every wait on another CTA is on an item with a
+//     smaller number: a tile's earlier key tiles, a key tile's earlier
+//     groups.  The CTAs are all resident at once (at most one an SM), each
+//     walks its items in increasing number, and nothing in a CTA waits on
+//     its own later items; so the unfinished item with the smallest number
+//     never waits, and the call ends.  A wait on a counter or a barrier that
+//     outlasts about 8 s traps, and the call fails where the caller
+//     synchronises, instead of hanging the card.
+//   * Registers (`nvcc -cubin -Xptxas -v`, sm_90a): 168 a thread at every
+//     instance, and 48 bytes of spill stores and loads, the same at each:
+//     the producer's, at 24.  ptxas prints the launch's share (65,536 /
+//     384, down to a multiple of 8) whatever `setmaxnreg` asks; the
+//     consumers' 240 show only as the absence of spills.  They hold only
+//     while ptxas can keep the warpgroups' code apart: a version whose dQ
+//     writers stopped on a value read from shared memory spilled 4,476
+//     bytes at 128 and 2,188 at 96, the consumers held to 168 as well.
+//     That is what the two-pass kernel met when it tried the forward's
+//     third warpgroup (168 and spills, C7512).  A wgmma, or a wait on one,
+//     in a branch on data makes ptxas serialise every wgmma of the kernel
+//     (C7518, C7520): the loop peels an item's last tile instead.
+// - "wgmma2", bf16 at 160 and (192, 128): the two passes,
+//   `flash_bwd_dkdv_hopper` then `flash_bwd_dq_hopper`, which take S and dP
+//   twice (seven products for five).  The one pass does not fit there: dK
+//   and dV alone are 160 registers a thread at both, S^T and dP^T 64 more,
+//   a dQ share 80 or 96 more; and K, V, dS^T, two dQ shares and two stages
+//   need about 274 KB of shared memory at 160, where a block may have 227; at
+//   (192, 128) the q tiles are 32 rows, which no 64-row dQ product takes.  Two warpgroups of 64 rows each run
+//   `wgmma` on operands in swizzled shared memory, fed by TMA through a
+//   ring with a full and an empty mbarrier a stage; thread 0 also issues
+//   every load (registers: up to 225 a thread, no spill, `__launch_bounds__`
+//   256).  The dk/dv pass: a CTA owns one (batch, kv head, tile of 128
+//   keys); S^T, dP^T, then dV += P^T dout and dK += dS^T Q as in the one
+//   pass.  The dq pass: a CTA owns one (batch, q head, tile of 128 rows);
+//   S = Q K^T, dP = dout V^T, dQ += dS K.  Every output element is written
+//   once, by one CTA.
+// - "fma", float32: `flash_bwd_dkdv_fma` and `flash_bwd_dq_fma`,
+//   full-precision FMAs on the CUDA cores (no TF32: the reference upcasts
+//   before its products, and a float32 train step is held to 2e-5); the
+//   same two passes with 16 x 16 threads over 64 x 64 tiles in shared
+//   memory.  A correctness path, not a fast one.
+//
+// 4-D tensor maps (d, s, head, batch) over the caller's strides, so the
+// models' transposed (b, s, h, d) views go in with no copy.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -122,6 +176,15 @@ struct BwdParams {
     long long dv_sb, dv_sh, dv_ss;
     float scale;
     int causal;
+    // the one pass (`flash_bwd_hopper`); the layout is `layout_of`'s
+    unsigned* ctr;       // every counter, zeroed by `flash_bwd_delta`: first dQ's, then dK/dV's
+    long long n_ctr;
+    unsigned* dkv_ctr;   // (b, kvh, n_kt), where G > 1
+    float* dq_acc;       // (b, h, n_qt) blocks of 64 x DQK f32, each in the consumers' fragment order
+    float* dkv_acc;      // (b, kvh, n_kt) blocks of 128 x (DQK + DV) f32, where G > 1
+    int n_qt, n_kt;      // q tiles of 64 rows, key tiles of 128
+    int groups, hpg;     // G groups of hpg q heads a kv head: an item's heads
+    int n_items;         // n_kt * b * kvh * G
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -143,6 +206,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta(const BwdParams p, int dv) {
+    // the one pass's counters start every call at 0: this launch runs on the
+    // stream before it every time, in a captured graph too
+    for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < p.n_ctr;
+         i += static_cast<long long>(gridDim.x) * 256) {
+        p.ctr[i] = 0u;
+    }
     const long long row_id = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (row_id >= static_cast<long long>(p.b) * p.h * p.sq_pad) return;
@@ -1140,6 +1209,621 @@ __global__ void __launch_bounds__(kHThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, one pass: `flash_bwd_hopper`
+// ---------------------------------------------------------------------------
+
+constexpr int kOThreads = 384;     // a producer warpgroup and two consumer warpgroups
+constexpr int kOBQ = 64;           // q rows a tile
+constexpr int kItemSMs = 132;      // the H100's SMs: the rule that sizes the items counts on them
+// registers a thread after setmaxnreg: 168 each at launch (384 threads);
+// 128 x 24 + 256 x 240 = 64,512, the CTA's 384 x 168
+constexpr int kOProducerRegs = 24;
+constexpr int kOConsumerRegs = 240;
+
+// The one pass's shared memory at (DQK, DV): K and V of 128 keys, a ring of
+// q tiles (Q, dout, their lse * log2(e) and delta), two buffers of dS^T
+// (128 keys x 64 q rows, bf16, 128-byte swizzle) and two of dQ shares (64 x
+// DQK f32, one a consumer warpgroup), then the barriers.
+template <int DQK, int DV>
+struct OneCfg {
+    using Base = BwdCfg<DQK, DV>;
+    static constexpr int kBox = Base::kBox;
+    static constexpr int kRowBytes = Base::kRowBytes;
+    static constexpr int kDQK = Base::kDQK;
+    static constexpr int kDV = Base::kDV;
+    static constexpr int kKVBytes = kHRows * (kDQK + kDV) * 2;
+    static constexpr int kQTileBytes = kOBQ * kDQK * 2;
+    static constexpr int kOTileBytes = kOBQ * kDV * 2;
+    static constexpr int kStatBytes = 2 * kOBQ * 4;
+    static constexpr int kStageBytes = kQTileBytes + kOTileBytes + kStatBytes;
+    static constexpr int kDSBytes = kHRows * kOBQ * 2;
+    static constexpr int kDQBytes = kOBQ * kDQK * 4;
+    static constexpr int kBarBytes = 8 * 16;
+    static constexpr int kDQBufs = 2;  // one a consumer warpgroup, each with a writer warp
+    // the next tile's S^T and dP^T issued before this tile's dQ share: at 128
+    // they would keep 64 registers live beside dK, dV and the share (256)
+    static constexpr bool kEarly = kDQK < 128;
+    static constexpr int kFixed = 1024 + kKVBytes + 2 * kDSBytes + kDQBufs * kDQBytes + kBarBytes;
+    static constexpr int kFit = (kSmemLimit - kFixed) / kStageBytes;
+    static constexpr int kStages = kFit >= 4 ? 4 : kFit;
+    static constexpr int kSmem = kFixed + kStages * kStageBytes;
+    static_assert(DQK == DV && DQK <= 128, "the one pass takes the square instances up to 128");
+    static_assert(kStages >= 2 && kSmem <= kSmemLimit, "the one pass's tiles do not fit shared memory");
+};
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// the two consumer warpgroups only (the producer's never takes part)
+__device__ __forceinline__ void consumers_sync(int id) {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_global() {
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* ptr) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(ptr) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void add_release(unsigned* ptr) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(ptr) : "memory");
+}
+
+// Waits until the counter reads at least `want`.  As with mbar_wait, a wait
+// that outlasts kWaitTrapCycles traps instead of hanging the card.
+__device__ __forceinline__ void wait_count(const unsigned* ptr, unsigned want) {
+    if (ld_acquire(ptr) >= want) return;
+    const long long start = clock64();
+    while (ld_acquire(ptr) < want) {
+        if (clock64() - start > kWaitTrapCycles) __trap();
+        __nanosleep(32);
+    }
+}
+
+// `bytes` of shared memory stored to, or added (f32) onto, global memory by
+// the bulk copy engine, as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void bulk_add_f32(void* dst, uint32_t src, uint32_t bytes) {
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+                 "r"(src), "r"(bytes)
+                 : "memory");
+}
+
+// d (64 x 32, f32) (+)= A (64 x 16, shared, MN-major) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, shared, MN-major) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 96, f32) (+)= A (64 x 16, shared, MN-major) * B (16 x 96, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[48], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, shared, MN-major) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// One work item: the key tile `kt` of (batch, kv head) against the q heads of
+// group `gi` (hpg heads) and every live q tile of theirs.
+struct OneItem {
+    int kt, batch, kvhead, gi, first, per_head, n_uses;
+};
+
+// Items are numbered heavy first: key tile 0 (which meets every q row under a
+// causal mask) of every (batch, kv head, group), then key tile 1, and so on;
+// the groups of one (batch, kv head, key tile) are neighbours.
+__device__ __forceinline__ OneItem one_item(const BwdParams& p, int r) {
+    OneItem it;
+    const int per_kt = p.b * p.kvh * p.groups;
+    it.kt = r / per_kt;
+    const int rem = r - it.kt * per_kt;
+    const int bkv = rem / p.groups;
+    it.gi = rem - bkv * p.groups;
+    it.batch = bkv / p.kvh;
+    it.kvhead = bkv - it.batch * p.kvh;
+    it.first = p.causal ? min(2 * it.kt, p.n_qt) : 0;  // q tiles before it lie wholly above the diagonal
+    it.per_head = p.n_qt - it.first;
+    it.n_uses = p.hpg * it.per_head;
+    return it;
+}
+
+// The u-th (q head, q tile) of an item: q tiles from the last down, the
+// item's heads inner, so that every item of a (batch, head group) reaches a
+// q tile at about the same time and the adds to it queue only briefly.
+__device__ __forceinline__ void one_walk(const BwdParams& p, const OneItem& it, int u, int& head, int& qt) {
+    const int jj = u / p.hpg;
+    qt = p.n_qt - 1 - jj;
+    head = it.kvhead * (p.h / p.kvh) + it.gi * p.hpg + (u - jj * p.hpg);
+}
+
+// The persistent grid's k-th item of this CTA: rounds of gridDim.x items, one
+// to a CTA, every other round in reverse, so the CTAs' loads even out.
+__device__ __forceinline__ int one_number(int k) {
+    return static_cast<int>(k * gridDim.x + ((k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x));
+}
+
+template <bool B>
+struct Flag {
+    static constexpr bool value = B;
+};
+
+struct OneSmem {
+    uint32_t sK, sV, sQ, sO, sDS, sDQ, stats, bars;
+    const float* stats_f;
+    float* dq_f;
+};
+
+// One consumer warpgroup (wg 0 or 1, warp-uniform: keys [64 wg, 64 wg + 64)
+// of a key tile).  The two take a tile's dQ share in turns: the warpgroup of
+// the share's parity multiplies dS (both halves) by K over the whole width
+// and hands the share on, while the other goes on to the next tile's S^T
+// and dP^T, so that the tensor cores have the one's products while the
+// other takes its exps.
+template <int DQK, int DV>
+__device__ __forceinline__ void one_consumer(const OneSmem& L, const BwdParams& p, int wg) {
+    using Cfg = OneCfg<DQK, DV>;
+    constexpr int STAGES = Cfg::kStages;
+    constexpr int NBUF = Cfg::kDQBufs;
+    constexpr int BK = kHRows;
+    constexpr int BQ = kOBQ;
+    constexpr int ROW = Cfg::kRowBytes;
+    const int t = threadIdx.x & 127;
+    const int ctid = threadIdx.x - 128;  // 0..255 over both consumers
+    const int lane = t & 31;
+    const int tq = lane & 3;                      // accumulator column pair within each 8
+    const int loc = (t >> 5) * 16 + (lane >> 2);  // accumulator row (and loc + 8) within 64
+    const uint32_t k_rows = L.sK + wg * 64 * ROW;
+    const uint32_t v_rows = L.sV + wg * 64 * ROW;
+    const float scale_log2 = p.scale * kLog2e;
+    auto full = [&](int s) { return L.bars + 8u * (2 + s); };
+    auto empty = [&](int s) { return L.bars + 8u * (2 + STAGES + s); };
+    auto dq_full = [&](int i) { return L.bars + 8u * (2 + 2 * STAGES + i); };
+    auto dq_empty = [&](int i) { return L.bars + 8u * (2 + 2 * STAGES + NBUF + i); };
+
+    float dva[Cfg::kDV / 2], dka[Cfg::kDQK / 2], dqa[Cfg::kDQK / 2];
+    float sacc[BQ / 2], dpacc[BQ / 2];
+    int use = 0;  // q tiles through the ring so far, and dQ shares handed on (one a tile)
+
+    for (int k = 0;; ++k) {
+        const int r = one_number(k);
+        if (r >= p.n_items) break;
+        const OneItem it = one_item(p, r);
+        const int wkey0 = it.kt * BK + wg * 64;
+        const int key_a = wkey0 + loc;  // and key_a + 8
+        const bool edge_keys = wkey0 + 63 >= p.sk;
+#pragma unroll
+        for (int i = 0; i < Cfg::kDV / 2; ++i) dva[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < Cfg::kDQK / 2; ++i) dka[i] = 0.f;
+        mbar_wait(L.bars, k & 1);  // K and V of this item
+
+        // S^T = K Q^T and dP^T = V dout^T of the u-th tile, a group each,
+        // issued whatever the mask: a warpgroup whose keys the mask takes
+        // wholly gets P = 0 below
+        auto issue_sdp = [&](int u) {
+            const int n = use + u;
+            const int s = n % STAGES;
+            mbar_wait(full(s), (n / STAGES) & 1);
+            wgmma_fence();
+            issue_ss<ROW, Cfg::kDQK / 16, BQ>(sacc, k_rows, BK * ROW, L.sQ + s * Cfg::kQTileBytes, BQ * ROW);
+            wgmma_commit();
+            issue_ss<ROW, Cfg::kDV / 16, BQ>(dpacc, v_rows, BK * ROW, L.sO + s * Cfg::kOTileBytes, BQ * ROW);
+            wgmma_commit();
+        };
+
+        // One tile.  Below 128 the next tile's S^T and dP^T are issued
+        // before this tile's dQ share (EARLY), so the tensor cores have them
+        // while the share is taken and handed on; the loop peels the last
+        // tile (LAST), which has none, so that no wgmma sits in a branch on
+        // data: ptxas then serialises every wgmma of the kernel (C7518,
+        // C7520).
+        auto tile = [&](int u, auto last_flag) {
+            constexpr bool LAST = decltype(last_flag)::value;
+            constexpr bool EARLY = Cfg::kEarly && !LAST;
+            const int n = use + u;  // this tile's number through the ring, and its dQ share's
+            const int s = n % STAGES;
+            int head, qt;
+            one_walk(p, it, u, head, qt);
+            const int q0 = qt * BQ;
+            const uint32_t q_tile = L.sQ + s * Cfg::kQTileBytes;
+            const uint32_t o_tile = L.sO + s * Cfg::kOTileBytes;
+            const uint32_t ds = L.sDS + (n & 1) * Cfg::kDSBytes;
+            const float* lse2 = L.stats_f + s * 2 * BQ;
+            const float* delta = lse2 + BQ;
+
+            if constexpr (!Cfg::kEarly) issue_sdp(u);
+            wgmma_wait<1>();  // dP^T runs while the exps of S^T are taken
+            fence_regs(sacc);
+            {
+                // keys past sk, or (causal) keys past a row of the tile: mask
+                const bool masked = edge_keys || (p.causal && wkey0 + 63 > q0);
+#pragma unroll
+                for (int i = 0; i < BQ / 2; ++i) {
+                    const int c = (i / 4) * 8 + tq * 2 + (i & 1);  // the q row, from q0
+                    float pv = ex2(fmaf(sacc[i], scale_log2, -lse2[c]));
+                    if (masked) {
+                        const int key = key_a + ((i & 2) ? 8 : 0);
+                        if (key >= p.sk || (p.causal && key > q0 + c)) pv = 0.f;
+                    }
+                    sacc[i] = pv;
+                }
+            }
+            wgmma_wait<0>();
+            fence_regs(dpacc);
+#pragma unroll
+            for (int i = 0; i < BQ / 2; ++i) {
+                const int c = (i / 4) * 8 + tq * 2 + (i & 1);
+                dpacc[i] = sacc[i] * (dpacc[i] - delta[c]) * p.scale;
+            }
+            uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+            pack_a(pf, sacc);
+            pack_a(df, dpacc);
+            // dS^T into this warpgroup's 64 rows of the buffer, 128-byte
+            // swizzled as a wgmma operand: row r's 16-byte chunk c at c ^ (r & 7)
+            {
+                const uint32_t row_a = ds + (wg * 64 + loc) * 128;
+                const uint32_t sw = static_cast<uint32_t>(loc & 7);
+#pragma unroll
+                for (int ks = 0; ks < BQ / 16; ++ks) {
+                    const uint32_t c0 = ((2 * ks) ^ sw) * 16 + tq * 4;
+                    const uint32_t c1 = ((2 * ks + 1) ^ sw) * 16 + tq * 4;
+                    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row_a + c0), "r"(df[ks][0]) : "memory");
+                    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row_a + 8 * 128 + c0), "r"(df[ks][1]) : "memory");
+                    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row_a + c1), "r"(df[ks][2]) : "memory");
+                    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row_a + 8 * 128 + c1), "r"(df[ks][3]) : "memory");
+                }
+            }
+            fence_async_shared();
+            wgmma_fence();
+            issue_rs<ROW>(dva, pf, o_tile, BQ * ROW);  // dV += P^T dout
+            issue_rs<ROW>(dka, df, q_tile, BQ * ROW);  // dK += dS^T Q
+            wgmma_commit();
+            consumers_sync(1);  // both halves of dS^T are in the buffer
+            wgmma_wait<0>();
+            fence_regs(dva);
+            fence_regs(dka);
+            fence_regs(pf);
+            fence_regs(df);
+            if (lane == 0) mbar_arrive(empty(s));  // dV and dK are done with the stage
+            if ((n & 1) != wg) {
+                if constexpr (EARLY) issue_sdp(u + 1);
+            } else {
+                // the tile's dQ share: dS (64 x 128 keys, the buffer read
+                // MN-major) times K (MN-major, boxes BK * ROW apart), then to
+                // this warpgroup's buffer for its writer to store or add in turn
+                wgmma_fence();
+#pragma unroll
+                for (int ks = 0; ks < BK / 16; ++ks) {
+                    wgmma_ss_tt(dqa, swizzled_desc<128>(ds + ks * 16 * 128, BK * 128),
+                                swizzled_desc<ROW>(L.sK + ks * 16 * ROW, BK * ROW), ks > 0);
+                }
+                wgmma_commit();
+                if constexpr (EARLY) {
+                    issue_sdp(u + 1);
+                    wgmma_wait<2>();  // the share is done; the next S^T and dP^T may still run
+                } else {
+                    wgmma_wait<0>();
+                }
+                fence_regs(dqa);
+                const int sh = n >> 1;  // this warpgroup's share number
+                if (sh >= 1) mbar_wait(dq_empty(wg), (sh - 1) & 1);
+                float4* dst = reinterpret_cast<float4*>(L.dq_f + wg * BQ * Cfg::kDQK);
+#pragma unroll
+                for (int f = 0; f < Cfg::kDQK / 8; ++f) {
+                    dst[f * 128 + t] = make_float4(dqa[4 * f], dqa[4 * f + 1], dqa[4 * f + 2], dqa[4 * f + 3]);
+                }
+                fence_async_shared();
+                __syncwarp();
+                if (lane == 0) mbar_arrive(dq_full(wg));
+            }
+            if (LAST && lane == 0) mbar_arrive(L.bars + 8);  // done with K and V
+        };
+        if constexpr (Cfg::kEarly) issue_sdp(0);
+        for (int u = 0; u + 1 < it.n_uses; ++u) tile(u, Flag<false>{});
+        tile(it.n_uses - 1, Flag<true>{});
+        use += it.n_uses;
+
+        // dK and dV of the item: stored, or, where a kv head's q heads are
+        // split over G items, summed over them in the order of their groups
+        __nv_bfloat16* gdk = static_cast<__nv_bfloat16*>(p.dk) + it.batch * p.dk_sb + it.kvhead * p.dk_sh;
+        __nv_bfloat16* gdv = static_cast<__nv_bfloat16*>(p.dv) + it.batch * p.dv_sb + it.kvhead * p.dv_sh;
+        if (p.groups > 1) {
+            const long long kv = (static_cast<long long>(it.batch) * p.kvh + it.kvhead) * p.n_kt + it.kt;
+            float4* acc = reinterpret_cast<float4*>(p.dkv_acc + kv * BK * (Cfg::kDQK + Cfg::kDV));
+            float4* acc_v = acc + BK * Cfg::kDQK / 4;
+            if (it.gi > 0) {
+                if (lane == 0) wait_count(p.dkv_ctr + kv, static_cast<unsigned>(it.gi));
+                __syncwarp();
+#pragma unroll
+                for (int f = 0; f < Cfg::kDQK / 8; ++f) {
+                    const float4 a = __ldcg(acc + f * 256 + ctid);
+                    dka[4 * f] += a.x;
+                    dka[4 * f + 1] += a.y;
+                    dka[4 * f + 2] += a.z;
+                    dka[4 * f + 3] += a.w;
+                }
+#pragma unroll
+                for (int f = 0; f < Cfg::kDV / 8; ++f) {
+                    const float4 a = __ldcg(acc_v + f * 256 + ctid);
+                    dva[4 * f] += a.x;
+                    dva[4 * f + 1] += a.y;
+                    dva[4 * f + 2] += a.z;
+                    dva[4 * f + 3] += a.w;
+                }
+            }
+            if (it.gi < p.groups - 1) {
+#pragma unroll
+                for (int f = 0; f < Cfg::kDQK / 8; ++f) {
+                    __stcg(acc + f * 256 + ctid, make_float4(dka[4 * f], dka[4 * f + 1], dka[4 * f + 2], dka[4 * f + 3]));
+                }
+#pragma unroll
+                for (int f = 0; f < Cfg::kDV / 8; ++f) {
+                    __stcg(acc_v + f * 256 + ctid, make_float4(dva[4 * f], dva[4 * f + 1], dva[4 * f + 2], dva[4 * f + 3]));
+                }
+                __threadfence();
+                consumers_sync(2);
+                if (ctid == 0) add_release(p.dkv_ctr + kv);
+                continue;
+            }
+        }
+        store_rows(gdk, p.dk_ss, dka, key_a, p.sk, tq, p.wqk);
+        store_rows(gdv, p.dv_ss, dva, key_a, p.sk, tq, p.wv);
+    }
+}
+
+// dQ, dK and dV in one pass over key tiles: a persistent grid of at most one
+// CTA an SM, each walking its items (`one_number`) in increasing number.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kOThreads, 1)
+    flash_bwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                     const BwdParams p) {
+    using Cfg = OneCfg<DQK, DV>;
+    constexpr int STAGES = Cfg::kStages;
+    constexpr int NBUF = Cfg::kDQBufs;
+    constexpr int BK = kHRows;
+    constexpr int BQ = kOBQ;
+    constexpr int BOX = Cfg::kBox;
+    constexpr int ROW = Cfg::kRowBytes;
+    constexpr int QK_BOXES = Cfg::kDQK / BOX;
+    constexpr int V_BOXES = Cfg::kDV / BOX;
+
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+    OneSmem L;
+    L.sK = smem_u32(smem);
+    L.sV = L.sK + BK * Cfg::kDQK * 2;
+    L.sQ = L.sV + BK * Cfg::kDV * 2;               // stage s at sQ + s * kQTileBytes
+    L.sO = L.sQ + STAGES * Cfg::kQTileBytes;       // dout, stage s at sO + s * kOTileBytes
+    L.sDS = L.sO + STAGES * Cfg::kOTileBytes;      // two dS^T buffers
+    L.sDQ = L.sDS + 2 * Cfg::kDSBytes;             // NBUF dQ shares
+    L.stats = L.sDQ + NBUF * Cfg::kDQBytes;        // stage s: BQ lse * log2(e), then BQ delta
+    L.bars = L.stats + STAGES * Cfg::kStatBytes;
+    L.stats_f = reinterpret_cast<const float*>(smem + (L.stats - L.sK));
+    L.dq_f = reinterpret_cast<float*>(smem + (L.sDQ - L.sK));
+    // barriers: K/V full and empty, the stages' full and empty, the dQ buffers' full and empty
+    const uint32_t full_kv = L.bars, empty_kv = L.bars + 8;
+    auto full = [&](int s) { return L.bars + 8u * (2 + s); };
+    auto empty = [&](int s) { return L.bars + 8u * (2 + STAGES + s); };
+    auto dq_full = [&](int i) { return L.bars + 8u * (2 + 2 * STAGES + i); };
+    auto dq_empty = [&](int i) { return L.bars + 8u * (2 + 2 * STAGES + NBUF + i); };
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_kv, 1);
+        mbar_init(empty_kv, 8);  // one arrival from each consumer warp
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), 8);
+        }
+        for (int i = 0; i < NBUF; ++i) {
+            mbar_init(dq_full(i), 4);  // the warps of the share's consumer
+            mbar_init(dq_empty(i), 1);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // one role a warpgroup, warp-uniform as setmaxnreg needs it; the branches
+    // never meet again
+    const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    if (role == 0) {
+        setmaxnreg_dec<kOProducerRegs>();
+        if (threadIdx.x == 0) {
+            // ---- loads: per item its first stages, K and V, the other stages
+            tma_prefetch(&tm_q);
+            tma_prefetch(&tm_k);
+            tma_prefetch(&tm_v);
+            tma_prefetch(&tm_do);
+            int use = 0;
+            for (int k = 0;; ++k) {
+                const int r = one_number(k);
+                if (r >= p.n_items) break;
+                const OneItem it = one_item(p, r);
+                auto load_tile = [&](int u) {
+                    const int s = (use + u) % STAGES;
+                    int head, qt;
+                    one_walk(p, it, u, head, qt);
+                    const int q0 = qt * BQ;
+                    mbar_wait(empty(s), (((use + u) / STAGES) & 1) ^ 1);
+                    // a box's columns past the head dim are zero-filled and counted
+                    mbar_expect_tx(full(s), Cfg::kStageBytes);
+#pragma unroll
+                    for (int x = 0; x < QK_BOXES; ++x) {
+                        tma_load_4d(L.sQ + s * Cfg::kQTileBytes + x * BQ * ROW, &tm_q, full(s), x * BOX, q0, head,
+                                    it.batch);
+                    }
+#pragma unroll
+                    for (int x = 0; x < V_BOXES; ++x) {
+                        tma_load_4d(L.sO + s * Cfg::kOTileBytes + x * BQ * ROW, &tm_do, full(s), x * BOX, q0, head,
+                                    it.batch);
+                    }
+                    const long long row0 = (static_cast<long long>(it.batch) * p.h + head) * p.sq_pad + q0;
+                    bulk_load(L.stats + s * Cfg::kStatBytes, p.lse2 + row0, BQ * 4, full(s));
+                    bulk_load(L.stats + s * Cfg::kStatBytes + BQ * 4, p.delta + row0, BQ * 4, full(s));
+                };
+                const int early = min(STAGES, it.n_uses);
+                for (int u = 0; u < early; ++u) load_tile(u);
+                mbar_wait(empty_kv, (k & 1) ^ 1);  // the item before is done with K and V
+                mbar_expect_tx(full_kv, Cfg::kKVBytes);
+#pragma unroll
+                for (int x = 0; x < QK_BOXES; ++x) {
+                    tma_load_4d(L.sK + x * BK * ROW, &tm_k, full_kv, x * BOX, it.kt * BK, it.kvhead, it.batch);
+                }
+#pragma unroll
+                for (int x = 0; x < V_BOXES; ++x) {
+                    tma_load_4d(L.sV + x * BK * ROW, &tm_v, full_kv, x * BOX, it.kt * BK, it.kvhead, it.batch);
+                }
+                for (int u = early; u < it.n_uses; ++u) load_tile(u);
+                use += it.n_uses;
+            }
+        } else if ((threadIdx.x & 31) == 0 && threadIdx.x / 32 <= NBUF) {
+            // ---- dQ: warp 1 + w writes consumer w's shares (every tile of
+            // this CTA's walk whose number has w's parity), from buffer w.  A
+            // share is stored (key tile 0's) or added onto its q tile's
+            // accumulator once the tile's counter reads its key tile; when
+            // the add is complete the counter moves on.
+            const int w = threadIdx.x / 32 - 1;
+            int sh = 0;
+            for (int k = 0;; ++k) {
+                const int r = one_number(k);
+                if (r >= p.n_items) break;
+                const OneItem it = one_item(p, r);
+                for (int u = 0; u < it.n_uses; ++u) {
+                    int head, qt;
+                    one_walk(p, it, u, head, qt);
+                    if (sh++ % NBUF != w) continue;
+                    const int n = (sh - 1) / NBUF;
+                    const long long tile = (static_cast<long long>(it.batch) * p.h + head) * p.n_qt + qt;
+                    float* acc = p.dq_acc + tile * BQ * Cfg::kDQK;
+                    const uint32_t src = L.sDQ + w * Cfg::kDQBytes;
+                    if (it.kt > 0) wait_count(p.ctr + tile, static_cast<unsigned>(it.kt));
+                    mbar_wait(dq_full(w), n & 1);
+                    if (it.kt > 0) {
+                        fence_async_global();
+                        bulk_add_f32(acc, src, Cfg::kDQBytes);
+                    } else {
+                        bulk_store(acc, src, Cfg::kDQBytes);
+                    }
+                    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+                    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+                    mbar_arrive(dq_empty(w));
+                    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+                    fence_async_global();
+                    add_release(p.ctr + tile);
+                }
+            }
+        }
+    } else {
+        setmaxnreg_inc<kOConsumerRegs>();
+        one_consumer<DQK, DV>(L, p, role - 1);
+    }
+}
+
+// dq of one (batch, q head, tile of 64 rows) in q's type, from the tile's
+// accumulator, which is in the consumers' fragment order (thread t's float4
+// f: rows (t / 32) 16 + (t % 32) / 4 and 8 below, columns 8 f + 2 (t % 4) and
+// the next).  The tile goes through shared memory, so that both the reads
+// and the writes (8 columns, 16 bytes, a thread) are whole rows.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(128) flash_bwd_dq_convert(const BwdParams p) {
+    using Cfg = OneCfg<DQK, DV>;
+    constexpr int F = Cfg::kDQK / 8;  // float4s a thread, and 8-column chunks a row
+    __shared__ float4 frag[F * 128];
+    const long long tile = blockIdx.x;
+    const int qt = static_cast<int>(tile % p.n_qt);
+    const long long bh = tile / p.n_qt;
+    const int batch = static_cast<int>(bh / p.h);
+    const int head = static_cast<int>(bh - static_cast<long long>(batch) * p.h);
+    const float4* acc = reinterpret_cast<const float4*>(p.dq_acc + tile * kOBQ * Cfg::kDQK);
+#pragma unroll
+    for (int f = 0; f < F; ++f) frag[f * 128 + threadIdx.x] = __ldcs(acc + f * 128 + threadIdx.x);
+    __syncthreads();
+    __nv_bfloat16* gdq = static_cast<__nv_bfloat16*>(p.dq) + batch * p.dq_sb + head * p.dq_sh;
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i) {
+        const int chunk = i * 128 + threadIdx.x;
+        const int r = chunk / F, f = chunk - r * F;  // row r of the tile, columns 8 f ..
+        const int row = qt * kOBQ + r;
+        if (row >= p.sq || f * 8 >= p.wqk) continue;
+        const int owner = (r / 16) * 32 + (r % 8) * 4;  // the thread that held the row, at column pair 0
+        const bool lower = (r % 16) >= 8;
+        uint32_t packed[4];
+#pragma unroll
+        for (int pair = 0; pair < 4; ++pair) {
+            const float4 v = frag[f * 128 + owner + pair];
+            packed[pair] = lower ? pack_bf16(v.z, v.w) : pack_bf16(v.x, v.y);
+        }
+        *reinterpret_cast<uint4*>(gdq + (long long)row * p.dq_ss + f * 8) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1163,13 +1847,67 @@ int instance_of(int dqk, int dv) {
     return (dqk <= 192 && dv <= 128) ? 192 : 0;
 }
 
-// Path ids, as kernel.py names them: 0 "fma", 1 "wgmma".
+// Path ids, as kernel.py names them: 0 "fma", 1 "wgmma1" (the one pass), 2
+// "wgmma2" (the two passes: 160 and (192, 128), where dK, dV and a dQ share
+// do not fit the registers and the tiles not shared memory).
 int path_of(int dtype, int dqk, int dv) {
-    if (instance_of(dqk, dv) == 0 || (dtype != 0 && dtype != 1)) return kErrNotBuilt;
-    return dtype;
+    const int inst = instance_of(dqk, dv);
+    if (inst == 0 || (dtype != 0 && dtype != 1)) return kErrNotBuilt;
+    if (dtype == 0) return 0;
+    return inst <= 128 ? 1 : 2;
 }
 
 int sq_padded(int sq) { return (sq + kRowPad - 1) / kRowPad * kRowPad; }
+
+// The one pass's padded row width at an instance (80's rows pad to 96)
+int padded_width(int inst) { return inst == 80 ? 96 : inst; }
+
+// G, the groups a kv head's g q heads are split into: the fewest (a divisor
+// of g) such that the heaviest item (key tile 0's, which meets every q tile
+// of its heads under a causal mask) is no heavier than the work over
+// kItemSMs SMs evens out to.  Over 132 SMs phi4's training shape (b=1, 24 / 8
+// heads, 4096 tokens) takes G = 1, a model = 2 rank's (12 / 4 heads) G = 3.
+int groups_of(int b, int kvh, int g, int n_qt, int n_kt, int causal) {
+    long long per_head = 0;  // q tiles met by the key tiles of one head
+    for (int kt = 0; kt < n_kt; ++kt) per_head += causal ? n_qt - 2 * kt : n_qt;
+    const long long total = per_head * b * kvh * g;
+    for (int G = 1; G < g; ++G) {
+        if (g % G == 0 && static_cast<long long>(g / G) * n_qt * kItemSMs <= total) return G;
+    }
+    return g;
+}
+
+// The scratch a call takes, in floats, and where each part lies: lse * log2(e)
+// and delta ((b, h, sq_pad) each); for the one pass also the counters (dQ's
+// (b, h, n_qt), then dK/dV's (b, kvh, n_kt) where G > 1; padded to 4
+// floats), dQ's accumulator (b h n_qt blocks of 64 x the padded dqk) and,
+// where G > 1, dK/dV's (b kvh n_kt blocks of 128 x twice the padded width).
+// kernel.py's `scratch_floats` is the same sum.
+struct Layout {
+    long long delta, ctr, n_ctr, dkv_ctr, dq_acc, dkv_acc, total;
+    int n_qt, n_kt, groups;
+};
+
+Layout layout_of(int path, int b, int h, int kvh, int sq, int sk, int dqk, int dv, int causal) {
+    Layout L{};
+    const long long rows = static_cast<long long>(b) * h * sq_padded(sq);
+    L.delta = rows;
+    L.total = 2 * rows;
+    if (path != 1) return L;
+    const int w = padded_width(instance_of(dqk, dv));
+    L.n_qt = (sq + kOBQ - 1) / kOBQ;
+    L.n_kt = (sk + kHRows - 1) / kHRows;
+    L.groups = groups_of(b, kvh, h / kvh, L.n_qt, L.n_kt, causal);
+    const long long dq_ctr = static_cast<long long>(b) * h * L.n_qt;
+    const long long dkv_n = L.groups > 1 ? static_cast<long long>(b) * kvh * L.n_kt : 0;
+    L.ctr = L.total;
+    L.n_ctr = dq_ctr + dkv_n;
+    L.dkv_ctr = L.ctr + dq_ctr;
+    L.dq_acc = L.ctr + (L.n_ctr + 3) / 4 * 4;
+    L.dkv_acc = L.dq_acc + dq_ctr * kOBQ * w;
+    L.total = L.dkv_acc + dkv_n * kHRows * 2 * w;
+    return L;
+}
 
 cudaError_t set_smem(const void* kernel, int smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
@@ -1265,12 +2003,52 @@ int launch_hopper(const BwdParams& p, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
+// The one pass: flash_bwd_hopper over a persistent grid of at most one CTA
+// an SM (its shared memory admits no second), K and V tiles of 128 keys, Q
+// and dout tiles of 64 rows
+template <int DQK, int DV>
+int launch_one(const BwdParams& p, cudaStream_t stream) {
+    using Cfg = OneCfg<DQK, DV>;
+    const EncodeTiled encode = encoder();
+    if (encode == nullptr) return kErrNoEncoder;
+    constexpr int box = Cfg::kBox;
+    CUtensorMap tq, tk, tv, tdo;
+    const bool ok =
+        encode_map(encode, &tq, p.q, p.wqk, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, kOBQ) &&
+        encode_map(encode, &tk, p.k, p.wqk, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, kHRows) &&
+        encode_map(encode, &tv, p.v, p.wv, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, kHRows) &&
+        encode_map(encode, &tdo, p.dout, p.wv, p.sq, p.h, p.b, p.do_ss, p.do_sh, p.do_sb, box, kOBQ);
+    if (!ok) return kErrTensorMap;
+    cudaError_t err = set_smem(reinterpret_cast<const void*>(flash_bwd_hopper<DQK, DV>), Cfg::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, n_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int grid = p.n_items < n_sm ? p.n_items : n_sm;
+    flash_bwd_hopper<DQK, DV><<<grid, kOThreads, Cfg::kSmem, stream>>>(tq, tk, tv, tdo, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_convert<DQK, DV><<<p.b * p.h * p.n_qt, 128, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Which family takes (dtype, qk head dim, v head dim): 0 the FMA passes, 1
-// the wgmma passes, -1 none.  kernel.py's `kernel_bwd_path` is the same
-// table; a card test holds the two together.
+// Which path takes (dtype, qk head dim, v head dim): 0 the FMA passes, 1
+// the one pass, 2 the two wgmma passes, -1 none.  kernel.py's
+// `kernel_bwd_path` is the same table; a card test holds the two together.
 extern "C" int flash_attention_bwd_path(int dtype, int dqk, int dv) { return path_of(dtype, dqk, dv); }
+
+// The floats of scratch a call takes (`layout_of`), -1 for what is not
+// built; kernel.py's `scratch_floats` is the same sum, and a card test holds
+// the two together.
+extern "C" long long flash_attention_bwd_scratch_floats(int dtype, int b, int h, int kvh, int sq, int sk, int dqk,
+                                                        int dv, int causal) {
+    const int path = path_of(dtype, dqk, dv);
+    if (path < 0 || b < 1 || kvh < 1 || h % kvh != 0) return -1;
+    return layout_of(path, b, h, kvh, sq, sk, dqk, dv, causal).total;
+}
 
 // Returns a cudaError_t as int (0 on success), -1 for head dims or a type
 // that this file does not build, -2 when libcuda has no tensor-map
@@ -1279,17 +2057,18 @@ extern "C" int flash_attention_bwd_path(int dtype, int dqk, int dv) { return pat
 // `dqk` wide, v, out, dout and dv rows `dv` wide.  Strides are in elements,
 // (batch, head, seq) of q, k, v, out, dout, dq, dk, dv in that order; the
 // head dim must be contiguous, and for bf16 every row must start on a
-// 16-byte boundary.  `lse` is (b, h, sq) contiguous; `scratch` holds 2 b h
-// sq_pad floats (lse * log2(e) and delta, sq padded to a multiple of 128;
-// kernel.py's `scratch_floats`).  Three launches go
-// onto `stream`; nothing is allocated and nothing synchronises.
+// 16-byte boundary.  `lse` is (b, h, sq) contiguous; `scratch` holds
+// `flash_attention_bwd_scratch_floats` floats (kernel.py's
+// `scratch_floats`), 16-byte aligned.  Three launches go onto `stream`
+// (delta, then the one pass and dq's convert, or the two passes); nothing
+// is allocated and nothing synchronises.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                    const float* lse, void* dq, void* dk, void* dv, float* scratch, int dtype,
                                    int b, int h, int kvh, int sq, int sk, int dqk, int dv_dim,
                                    const long long* strides, float scale, int causal, void* stream) {
     const int path = path_of(dtype, dqk, dv_dim);
     if (path < 0) return kErrNotBuilt;
-    if (path == 1 && (dqk % 8 != 0 || dv_dim % 8 != 0)) return kErrWidth;
+    if (path >= 1 && (dqk % 8 != 0 || dv_dim % 8 != 0)) return kErrWidth;
     BwdParams p;
     p.q = q;
     p.k = k;
@@ -1308,8 +2087,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     p.sq_pad = sq_padded(sq);
     p.wqk = dqk;
     p.wv = dv_dim;
+    const Layout lay = layout_of(path, b, h, kvh, sq, sk, dqk, dv_dim, causal);
     p.lse2 = scratch;
-    p.delta = scratch + static_cast<long long>(b) * h * p.sq_pad;
+    p.delta = scratch + lay.delta;
+    p.ctr = reinterpret_cast<unsigned*>(scratch + lay.ctr);
+    p.n_ctr = lay.n_ctr;
+    p.dkv_ctr = reinterpret_cast<unsigned*>(scratch + lay.dkv_ctr);
+    p.dq_acc = scratch + lay.dq_acc;
+    p.dkv_acc = scratch + lay.dkv_acc;
+    p.n_qt = lay.n_qt;
+    p.n_kt = lay.n_kt;
+    p.groups = lay.groups;
+    p.hpg = lay.groups > 0 ? h / kvh / lay.groups : 0;
+    p.n_items = lay.n_kt * b * kvh * lay.groups;
     long long* fields[24] = {&p.q_sb,  &p.q_sh,  &p.q_ss,  &p.k_sb,  &p.k_sh,  &p.k_ss,  &p.v_sb,  &p.v_sh,
                              &p.v_ss,  &p.o_sb,  &p.o_sh,  &p.o_ss,  &p.do_sb, &p.do_sh, &p.do_ss, &p.dq_sb,
                              &p.dq_sh, &p.dq_ss, &p.dk_sb, &p.dk_sh, &p.dk_ss, &p.dv_sb, &p.dv_sh, &p.dv_ss};
@@ -1330,14 +2120,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 
     if (path == 1) {
         switch (instance_of(dqk, dv_dim)) {
-            case 32: return launch_hopper<32, 32>(p, s);
-            case 64: return launch_hopper<64, 64>(p, s);
-            case 80: return launch_hopper<80, 80>(p, s);
-            case 96: return launch_hopper<96, 96>(p, s);
-            case 128: return launch_hopper<128, 128>(p, s);
-            case 160: return launch_hopper<160, 160>(p, s);
-            default: return launch_hopper<192, 128>(p, s);
+            case 32: return launch_one<32, 32>(p, s);
+            case 64: return launch_one<64, 64>(p, s);
+            case 80: return launch_one<80, 80>(p, s);
+            case 96: return launch_one<96, 96>(p, s);
+            default: return launch_one<128, 128>(p, s);
         }
+    }
+    if (path == 2) {
+        if (instance_of(dqk, dv_dim) == 160) return launch_hopper<160, 160>(p, s);
+        return launch_hopper<192, 128>(p, s);
     }
     switch (instance_of(dqk, dv_dim)) {
         case 32: return launch_fma<32, 32>(p, s);

@@ -26,8 +26,15 @@ The backward is ``csrc/flash_attention_bwd.cu``, a library of its own (the
 forward's object code does not move with it): ``flash_attention_bwd``
 launches it on CUDA tensors or raises, and counts its calls in
 ``flash_attention_bwd.launches``.  ``kernel_bwd_path(dtype, dqk, dv)`` says
-which of its families takes a call: bf16 the Hopper passes (``wgmma``, TMA),
-float32 the FMA passes, at the forward's instances and widths.
+which of its paths takes a call, a static table by instance: bf16 at the
+instances up to 128 the one pass (``"wgmma1"``: dQ, dK and dV in one walk
+over key tiles, dQ's shares added in a fixed order onto a float32
+accumulator in the scratch, so two calls give the same bits), bf16 at 160
+and (192, 128) the two passes (``"wgmma2"``: registers cannot hold dK, dV
+and a dQ share there), float32 the FMA passes (``"fma"``), at the forward's
+instances and widths.  ``scratch_floats`` is the scratch a call takes, as
+the C entry lays it out; ``bwd_groups`` is the source's rule that splits a
+kv head's q heads over the one pass's items.
 
 Both launches are PyTorch custom ops (``torch.ops.repro_torch.
 flash_attention_fwd`` and ``flash_attention_bwd``, CUDA only), each with a
@@ -57,14 +64,17 @@ __all__ = [
     "BWD_PATHS",
     "HEAD_DIMS",
     "HEAD_DIM_PAIRS",
+    "ONE_PASS_WIDTHS",
     "PATHS",
     "build",
     "build_bwd",
+    "bwd_groups",
     "flash_attention_bwd",
     "flash_attention_fwd",
     "kernel_bwd_path",
     "kernel_instance",
     "kernel_path",
+    "scratch_floats",
 ]
 
 HEAD_DIMS = (32, 64, 80, 96, 128, 160)  # the square instances (dqk == dv) that both CUDA sources build
@@ -76,8 +86,10 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 _BWD_SOURCE = _SOURCE.with_name("flash_attention_bwd.cu")
 # the source's kernels, by the id that its `flash_attention_path` returns
 PATHS = ("f32", "wgmma")
-# the backward source's kernel families, by the id that `flash_attention_bwd_path` returns
-BWD_PATHS = ("fma", "wgmma")
+# the backward source's paths, by the id that `flash_attention_bwd_path` returns
+BWD_PATHS = ("fma", "wgmma1", "wgmma2")
+ONE_PASS_WIDTHS = {32: 32, 64: 64, 80: 96, 96: 96, 128: 128}  # the one pass's instances and their padded rows
+_ITEM_SMS = 132  # the H100's SMs, which the source's rule that sizes the one pass's items counts on
 # what the C entry returns besides a cudaError_t
 _ERRORS = {
     -1: "this (dtype, head dim) is not built",
@@ -120,12 +132,17 @@ def kernel_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
 
 
 def kernel_bwd_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
-    """The backward's kernel family for ``(dtype, dqk, dv)``: ``"wgmma"``
-    (bf16) or ``"fma"`` (float32).  Raises, before any build, for what
-    ``kernel_path`` refuses: the two sources build the same instances.  The
-    C entry's ``flash_attention_bwd_path`` is the same table."""
+    """The backward's path for ``(dtype, dqk, dv)``: ``"wgmma1"`` (bf16 at
+    the instances up to 128: the one pass), ``"wgmma2"`` (bf16 at 160 and
+    (192, 128): the two passes, where ptxas cannot keep dK, dV and a dQ share
+    in registers and the tiles do not fit shared memory) or ``"fma"``
+    (float32).  Raises, before any build, for what ``kernel_path`` refuses:
+    the two sources build the same instances.  The C entry's
+    ``flash_attention_bwd_path`` is the same table."""
     kernel_path(dtype, dqk, dv)
-    return "fma" if dtype == torch.float32 else "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma1" if kernel_instance(dqk, dv)[0] in ONE_PASS_WIDTHS else "wgmma2"
 
 
 def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -168,7 +185,7 @@ def _in_place(x: torch.Tensor, path: str) -> bool:
     """Whether ``path``'s kernels read or write ``x`` where it lies: the
     float32 ones need only a contiguous head dim; TMA and the bf16 stores also
     need rows on 16-byte boundaries and no zero stride."""
-    return (rows_aligned(x) and _no_broadcast(x)) if path == "wgmma" else x.stride(-1) == 1
+    return (rows_aligned(x) and _no_broadcast(x)) if path.startswith("wgmma") else x.stride(-1) == 1
 
 
 def _check_fwd(q, k, v, causal, out) -> Tuple[str, bool]:
@@ -299,14 +316,46 @@ def build_bwd(source: Path = _BWD_SOURCE):
     fn.path = lib.flash_attention_bwd_path
     fn.path.argtypes = [c_int] * 3
     fn.path.restype = c_int
+    # an earlier source (benchmarked with --other) may not export it
+    fn.scratch = getattr(lib, "flash_attention_bwd_scratch_floats", None)
+    if fn.scratch is not None:
+        fn.scratch.argtypes = [c_int] * 9  # dtype b h kvh sq sk dqk dv causal
+        fn.scratch.restype = ctypes.c_longlong
     return fn
 
 
-def scratch_floats(b: int, h: int, sq: int) -> int:
-    """Floats of scratch a backward call takes: lse * log2(e) and delta, each
-    (b, h, sq) padded to a multiple of 128 rows (the source's ``kRowPad``,
-    ``sq_padded``), as its C entry lays them out."""
-    return 2 * b * h * (-(-sq // 128) * 128)
+def bwd_groups(b: int, kvh: int, g: int, n_qt: int, n_kt: int, causal: bool) -> int:
+    """G, the groups into which the one pass splits a kv head's ``g`` q heads
+    (the source's ``groups_of``): the fewest, a divisor of ``g``, such that
+    the heaviest item (key tile 0's, ``g / G`` heads of ``n_qt`` q tiles) is
+    no heavier than the work spread evenly over the H100's 132 SMs."""
+    per_head = sum(n_qt - 2 * kt if causal else n_qt for kt in range(n_kt))
+    total = per_head * b * kvh * g
+    for groups in range(1, g):
+        if g % groups == 0 and (g // groups) * n_qt * _ITEM_SMS <= total:
+            return groups
+    return g
+
+
+def scratch_floats(path: str, b: int, h: int, kvh: int, sq: int, sk: int, dqk: int, dv: int, causal: bool) -> int:
+    """Floats of scratch a backward call takes, as its C entry lays them out
+    (the source's ``layout_of``): lse * log2(e) and delta, each (b, h, sq)
+    padded to a multiple of 128 rows; for the one pass (``"wgmma1"``) also
+    the counters (one a (batch, q head, q tile of 64), then, where G > 1, one
+    a (batch, kv head, key tile of 128); padded to 4), dQ's float32
+    accumulator (b h n_qt blocks of 64 rows x the instance's padded qk width)
+    and, where G > 1, dK's and dV's (b kvh n_kt blocks of 128 rows x twice
+    that width).  ``dqk`` and ``dv`` are the widths the C entry is given
+    (multiples of 8)."""
+    total = 2 * b * h * (-(-sq // 128) * 128)
+    if path != "wgmma1":
+        return total
+    width = ONE_PASS_WIDTHS[kernel_instance(dqk, dv)[0]]
+    n_qt, n_kt = -(-sq // 64), -(-sk // 128)
+    groups = bwd_groups(b, kvh, h // kvh, n_qt, n_kt, causal)
+    dq_ctr = b * h * n_qt
+    dkv_n = b * kvh * n_kt if groups > 1 else 0
+    return total + -(-(dq_ctr + dkv_n) // 4) * 4 + dq_ctr * 64 * width + dkv_n * 128 * 2 * width
 
 
 def _check_bwd(q, k, v, out, lse, dout, causal, dq, dk, dv) -> Tuple[str, bool]:
@@ -335,7 +384,7 @@ def _check_bwd(q, k, v, out, lse, dout, causal, dq, dk, dv) -> Tuple[str, bool]:
                          f"{tuple(out.shape)} and {tuple(dout.shape)}")
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be (b, h, sq) = {(b, h, sq)} float32, got {tuple(lse.shape)} {lse.dtype}")
-    padded = path == "wgmma" and bool(d % _ALIGN or d_v % _ALIGN)
+    padded = path.startswith("wgmma") and bool(d % _ALIGN or d_v % _ALIGN)
     for given, like, name in ((dq, q, "dq"), (dk, k, "dk"), (dv, v, "dv")):
         if given is not None and (given.shape != like.shape or given.dtype != like.dtype
                                   or given.device != like.device or not (padded or _in_place(given, path))):
@@ -367,8 +416,9 @@ def flash_attention_bwd(
     transposed ``(b, s, h, d)`` tensors go in with no copy); a ``dout``
     with a zero stride (autograd's broadcast) is handed over as a copy.
     ``dq``, ``dk``, ``dv``, when given, are written in place.  One call is
-    three device launches (delta, the dk/dv pass, the dq pass) and counts
-    one in ``flash_attention_bwd.launches``.  The launch is the custom op
+    three device launches (delta, then the one pass and dq's convert, or
+    the dk/dv and dq passes) and counts one in
+    ``flash_attention_bwd.launches``.  The launch is the custom op
     ``torch.ops.repro_torch.flash_attention_bwd``, which runs the checks.
     """
     grads = [torch.empty(like.shape, dtype=like.dtype, device=like.device) if given is None else given
@@ -418,7 +468,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, scale, path, given_grads, launc
     lse = lse.contiguous()
     grads = [torch.empty(like.shape, dtype=like.dtype, device=like.device) if given is None else given
              for given, like in zip(given_grads, (q, k, v))]
-    scratch = torch.empty(scratch_floats(b, h, sq), dtype=torch.float32, device=q.device)
+    scratch = _scratch(scratch_floats(path, b, h, kvh, sq, sk, d, d_v, causal), q.device)
     if not launch:
         return grads
     fn = build_bwd()
@@ -435,6 +485,11 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, scale, path, given_grads, launc
 
 
 flash_attention_bwd.launches = 0
+
+
+def _scratch(n_floats: int, device: torch.device) -> torch.Tensor:
+    """The backward's scratch, uninitialised: its C entry writes every float it reads."""
+    return torch.empty(n_floats, dtype=torch.float32, device=device)
 
 
 def _no_broadcast(x: torch.Tensor) -> bool:

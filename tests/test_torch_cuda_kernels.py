@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd,
     flash_attention_fwd,
     kernel_bwd_path,
+    kernel_instance,
     kernel_path,
 )
 from repro_torch.kernels.scu_barrier import ops as scu_ops
@@ -281,6 +282,24 @@ BWD_SHAPES = [
     (2, 16, 16, 513, 192, 128),
     (1, 16, 16, 200, 192, 128),
 ]
+# The one pass's corners: ragged lengths (1, 63, 65, 127, 129, 1000), g = 1,
+# 2, 3, 4 and 8 q heads a kv head (heads split over items where the rule
+# asks it), fewer and more items than the card's 132 SMs (b kvh = 1, 4 and
+# 64), and every instance (32, 64, 80, 96, 128; 160 and (192, 128) on the
+# two passes)
+BWD_ONE_PASS_SHAPES = [
+    (1, 2, 1, 1, 128, 128),
+    (1, 4, 2, 63, 64, 64),
+    (1, 3, 1, 65, 128, 128),
+    (2, 4, 1, 127, 96, 96),
+    (1, 8, 2, 129, 32, 32),
+    (1, 6, 2, 1000, 128, 128),
+    (1, 8, 1, 1000, 80, 80),
+    (2, 4, 4, 300, 128, 128),
+    (4, 32, 16, 512, 64, 64),
+    (1, 12, 4, 1024, 128, 128),
+    (1, 6, 2, 333, 160, 160),
+]
 # The kernel against its plain version (``ops.attention_bwd``, float32
 # products) on the same q, k, v, out, lse and dout, each gradient within tol
 # of its largest entry.  float32 2e-5: the same f32 arithmetic in another
@@ -316,12 +335,14 @@ def _hold_bwd_to_plain(q, k, v, out, lse, dout, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", BWD_SHAPES)
+@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", BWD_SHAPES + BWD_ONE_PASS_SHAPES)
 def test_flash_bwd_kernel_matches_plain(card, b, h, kvh, s, dqk, dv, causal, dtype):
-    """Every shape of the forward's card checks, causal and not; not causal
-    with fewer keys than queries (sk = 2 s / 3 + 5)."""
+    """Every shape of the forward's card checks and the one pass's corners,
+    causal and not; not causal with other key counts than queries (sk = 2 s
+    / 3 + 5)."""
     sk = s if causal else 2 * s // 3 + 5
-    assert kernel_bwd_path(dtype, dqk, dv) == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    bf16_path = "wgmma1" if kernel_instance(dqk, dv)[0] <= 128 else "wgmma2"
+    assert kernel_bwd_path(dtype, dqk, dv) == (bf16_path if dtype == torch.bfloat16 else "fma")
     _hold_bwd_to_plain(*_bwd_case(b, h, kvh, s, sk, dqk, dv, dtype, causal, card), causal)
 
 
@@ -354,16 +375,57 @@ def test_flash_bwd_strided_views_and_broadcast_dout_through_ops(card, d, dtype):
     assert err <= BWD_TOL[dtype] * max(1.0, want.float().abs().max().item()), err
 
 
-@pytest.mark.parametrize("dtype,dqk,dv", [(torch.bfloat16, 128, 128), (torch.bfloat16, 192, 128),
-                                          (torch.bfloat16, 80, 80), (torch.float32, 128, 128)])
-def test_flash_bwd_two_calls_are_bitwise_equal(card, dtype, dqk, dv):
-    """No atomics: every output element is written once, by one CTA."""
-    q, k, v, out, lse, dout = _bwd_case(2, 6, 2, 333, 333, dqk, dv, dtype, True, card)
+@pytest.mark.parametrize("dtype,dqk,dv,b,h,kvh,s", [
+    (torch.bfloat16, 128, 128, 2, 6, 2, 333), (torch.bfloat16, 192, 128, 2, 6, 2, 333),
+    (torch.bfloat16, 80, 80, 2, 6, 2, 333), (torch.float32, 128, 128, 2, 6, 2, 333),
+    (torch.bfloat16, 128, 128, 1, 24, 8, 4096),  # phi4's training shape
+    (torch.bfloat16, 128, 128, 1, 12, 4, 4096),  # a model = 2 rank's: heads split over items
+])  # fmt: skip
+def test_flash_bwd_two_calls_are_bitwise_equal(card, dtype, dqk, dv, b, h, kvh, s):
+    """No add whose order varies: the two passes write every element once,
+    from one CTA; the one pass adds dQ's shares (and dK's and dV's where a
+    kv head's q heads are split) in a fixed order."""
+    q, k, v, out, lse, dout = _bwd_case(b, h, kvh, s, s, dqk, dv, dtype, True, card)
     args = (*(x.transpose(1, 2) for x in (q, k, v, out)), lse, dout.transpose(1, 2))
     first = flash_attention_bwd(*args, causal=True)
     second = flash_attention_bwd(*args, causal=True)
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
+
+
+_FIFTY_CALLS = """
+import hashlib, sys
+import numpy as np, torch
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
+rng = np.random.default_rng(3)
+mk = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", torch.bfloat16)
+b, h, kvh, sq, sk, d = 1, 8, 2, 256, 4096, 128
+q, k, v, dout = mk(b, h, sq, d), mk(b, kvh, sk, d), mk(b, kvh, sk, d), mk(b, h, sq, d)
+out, lse = flash_attention_fwd(q, k, v, causal=False)
+digests = set()
+for _ in range(50):
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    torch.cuda.synchronize()
+    digests.add(hashlib.sha256(b"".join(g.view(torch.int16).cpu().numpy().tobytes() for g in grads)).hexdigest())
+print("digests", len(digests))
+sys.exit(0 if len(digests) == 1 else 3)
+"""
+
+
+def test_flash_bwd_fifty_calls_give_the_same_bits_in_their_own_process(card):
+    """50 calls where 32 key tiles add to every q tile's dQ (not causal, 4096
+    keys, 256 queries; 4 q heads a kv head, split over items), in a child
+    process with a time limit of its own, so that a call that hangs fails
+    this test instead of stalling the suite.  Every call gives the same bits."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-c", _FIFTY_CALLS], env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "digests 1" in proc.stdout, (proc.returncode, proc.stdout, proc.stderr[-2000:])
 
 
 def test_flash_bwd_path_table_is_the_sources(card):
@@ -383,6 +445,20 @@ def test_flash_bwd_path_table_is_the_sources(card):
                     with pytest.raises(ValueError, match="not built"):
                         kernel_bwd_path(dtype, dqk, dv)
     assert fn.path(2, 128, 128) == -1  # float16: not built
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,causal", [(1, 24, 8, 4096, 4096, True), (1, 12, 4, 4096, 4096, True),
+                                                  (2, 4, 2, 300, 300, True), (1, 4, 2, 129, 1000, False),
+                                                  (1, 8, 1, 1, 5, False), (4, 24, 8, 4096, 4096, True)])
+def test_flash_bwd_scratch_is_the_sources(card, b, h, kvh, sq, sk, causal):
+    """``scratch_floats`` and the source's ``flash_attention_bwd_scratch_floats``
+    are one layout, at every instance and both types."""
+    fn = flash_kernel.build_bwd()
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for dqk, dv in [(d, d) for d in HEAD_DIMS] + list(HEAD_DIM_PAIRS) + [(16, 16), (24, 16), (96, 64)]:
+            path = kernel_bwd_path(dtype, dqk, dv)
+            want = flash_kernel.scratch_floats(path, b, h, kvh, sq, sk, dqk, dv, causal)
+            assert fn.scratch(code, b, h, kvh, sq, sk, dqk, dv, int(causal)) == want, (dtype, dqk, dv)
 
 
 def test_flash_bwd_kernel_refuses_what_it_does_not_take(card):

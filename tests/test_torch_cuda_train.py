@@ -136,11 +136,14 @@ def test_flash_bwd_kernel_matches_plain_backward(card, b, h, kvh, s, dqk, dv, ca
 
 # K1's backward at the heads one process of model = 2 hands it in training
 # (phi4-mini: 12 of 24 q heads and 4 of 8 kv heads of 128; deepseek-v2-lite's
-# MLA: 8 of 16 heads at (192, 128)), against its plain version as above.
+# MLA: 8 of 16 heads at (192, 128)), against its plain version as above; at
+# 512 tokens, at the training shape's 4096 (phi4's 12 / 4 heads take one q
+# head an item there) and at a ragged 1000.
+@pytest.mark.parametrize("s", [512, 4096, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "deepseek-v2-lite-16b"])
-def test_flash_bwd_kernel_at_a_model_rank_head_count(card, arch, dtype):
-    cfg, model, b, s = get_config(arch), 2, 1, 512
+def test_flash_bwd_kernel_at_a_model_rank_head_count(card, arch, dtype, s):
+    cfg, model, b = get_config(arch), 2, 1
     if cfg.mla is not None:
         h = kvh = cfg.n_heads // model
         dqk, dv = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim, cfg.mla.v_head_dim
@@ -161,11 +164,13 @@ def test_flash_bwd_kernel_at_a_model_rank_head_count(card, arch, dtype):
     _assert_grads_within([g.transpose(1, 2) for g in got], plain_grads, [r.float() for r in ref], (q, k, v), dtype)
 
 
-# What K1 does not build raises on CUDA tensors before any launch: head dims
-# around the built ones, a pair other than MLA's, and float16.
+# What K1 does not build raises on CUDA tensors before any launch: widths
+# past the widest square (160) and past MLA's pair (qk 192, v 128), and
+# float16.  (Every width up to those is built: 48, say, takes the 64
+# instance.)
 @pytest.mark.parametrize(
     "dtype,dqk,dv",
-    [(torch.bfloat16, 48, 48), (torch.float32, 96, 96), (torch.bfloat16, 256, 256), (torch.bfloat16, 192, 64),
+    [(torch.bfloat16, 176, 176), (torch.float32, 200, 200), (torch.bfloat16, 256, 256), (torch.bfloat16, 192, 160),
      (torch.float32, 128, 192), (torch.float16, 128, 128)],
 )
 def test_flash_bwd_kernel_raises_on_what_is_not_built(card, dtype, dqk, dv):

@@ -17,7 +17,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref
 pytestmark = pytest.mark.cuda
 
 WIDTHS = [(16, 16), (24, 24), (20, 20), (32, 32), (48, 48), (72, 72), (96, 96), (112, 112), (160, 160),
-          (24, 16), (96, 64), (40, 88), (170, 100)]
+          (24, 16), (96, 64), (40, 88), (170, 100),
+          # every instance at its own width, the backward's one pass (up to 128) and two passes
+          (64, 64), (80, 80), (128, 128), (144, 144), (192, 128), (8, 8)]
 # f32 2e-5: the same f32 arithmetic in another order.  bf16 2e-2 (output) and
 # 3e-2 of the largest gradient: both sides round p, dS and the output to bf16
 # at different places, as in test_torch_cuda_kernels.py

@@ -82,6 +82,41 @@ def test_k1_backward_fake_matches_the_plain_outputs(no_build, b, h, kvh, s, dqk,
     assert fc.get_total_flops() == int(2.5 * attention_flops(b, h, s, s, dqk, dv, True))
 
 
+# The fake backward allocates the real call's scratch: lse * log2(e) and
+# delta, and on the one pass (bf16 up to 128) the counters and dQ's float32
+# accumulator (with dK's and dV's where a kv head's q heads are split over
+# items), sized as the C entry lays them out (``scratch_floats``, the
+# source's ``layout_of``); (20, 20) reaches the kernel padded to 24.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", ATTENTION + [(1, 24, 8, 4096, 128, 128)])
+def test_k1_backward_fake_allocates_the_c_entrys_scratch(no_build, monkeypatch, b, h, kvh, s, dqk, dv, dtype):
+    sizes = []
+
+    def spy(n, device):
+        sizes.append(n)
+        return torch.empty(n, dtype=torch.float32, device=device)
+
+    monkeypatch.setattr(flash_kernel, "_scratch", spy)
+    with FakeTensorMode(), card_stand_in():
+        q, out = torch.empty(b, h, s, dqk, dtype=dtype), torch.empty(b, h, s, dv, dtype=dtype)
+        k, v = torch.empty(b, kvh, s, dqk, dtype=dtype), torch.empty(b, kvh, s, dv, dtype=dtype)
+        flash_kernel.flash_attention_bwd(q, k, v, out, torch.empty(b, h, s), out, causal=True)
+    path = flash_kernel.kernel_bwd_path(dtype, dqk, dv)
+    rows = 2 * b * h * (-(-s // 128) * 128)
+    if path == "wgmma1":
+        width = flash_kernel.ONE_PASS_WIDTHS[flash_kernel.kernel_instance(dqk, dv)[0]]
+        n_qt, n_kt = -(-s // 64), -(-s // 128)
+        groups = flash_kernel.bwd_groups(b, kvh, h // kvh, n_qt, n_kt, True)
+        split = groups > 1
+        counters = b * h * n_qt + split * b * kvh * n_kt
+        want = rows + -(-counters // 4) * 4 + b * h * n_qt * 64 * width + split * b * kvh * n_kt * 128 * 2 * width
+    else:
+        want = rows
+    aligned = -(-dqk // 8) * 8 if dtype == torch.bfloat16 else dqk
+    aligned_v = -(-dv // 8) * 8 if dtype == torch.bfloat16 else dv
+    assert sizes == [want] == [flash_kernel.scratch_floats(path, b, h, kvh, s, s, aligned, aligned_v, True)]
+
+
 @pytest.mark.parametrize("b,h,kvh,s,dqk,dv", ATTENTION)
 def test_k1_through_the_autograd_function_on_fake_tensors(no_build, b, h, kvh, s, dqk, dv):
     """The layers' call: (b, s, h, d) in, (b, s, h, dv) out and gradients of
