@@ -41,13 +41,14 @@ non-zero exit if it fails:
             form it takes at the sweep's shape (measured in the same run).
             The autograd Functions around K1 and K2: each gradient against
             PyTorch's autograd of the plain version on the card (K1 at phi4's,
-            deepseek's MLA and stablelm's head dims in bf16 and phi4's in
-            float32, 1024 tokens, one launch of K1's backward kernel a
-            gradient; K2 at mamba2's dims in the sequential and a cluster
-            form).  K1's backward kernel against its plain version
-            (``ops.attention_bwd``) at b=1, 4096 tokens at phi4's, MLA's and
-            head dim 80's dims, and timed there in turns with SDPA's
-            backward and the PyTorch FA-2 backward it replaced; K2's
+            deepseek's MLA and stablelm's head dims and phi4's heads of
+            160 in bf16 and phi4's in float32, 1024 tokens, one launch of
+            K1's backward kernel a gradient; K2 at mamba2's dims in the
+            sequential and a cluster form).  K1's backward kernel against
+            its plain version (``ops.attention_bwd``) at b=1, 4096 tokens at
+            phi4's, MLA's and head dim 80's dims and at b=4 at phi4's heads
+            of 160, two calls the same bits, and timed there in turns with
+            SDPA's backward and the PyTorch FA-2 backward it replaced; K2's
             backward timed at the serving shape.  K1 and its backward at
             every width the reference takes (``WIDTHS``: 16, 24, 32, 48, 96,
             the widest square 160, (24, 16) and (96, 64), each in the
@@ -401,6 +402,9 @@ BWD_TOL = 2e-2
 # the backward's timing in turns: rounds of (kernel, SDPA, PyTorch FA-2) then
 # the reverse; iterations of each (the FA-2 backward takes some 25 ms)
 BWD_ROUNDS, BWD_ITERS, FA2_ITERS = 2, 20, 2
+# K1's backward at the widest square instance besides the models' head dims:
+# phi4's 24 / 8 heads of 160 at b=4, held and timed as the models' shapes are
+WIDE_BWD_DIMS, WIDE_BWD_BATCH = (160, 160), 4
 # K2's Function recomputes the plain version itself: its gradients are the
 # plain version's at the same inputs, 1e-5 of the largest entry
 SSD_GRAD_TOL = 1e-5
@@ -829,8 +833,8 @@ def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
         raise SystemExit(f"{tag} K1's backward kernel: two calls at b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} "
                          "give other bits")
     del got, want, again
-    # the device time of each launch of a call, by kernel (delta, then the
-    # one pass, or the dk/dv and dq passes)
+    # the device time of each launch of a call, by kernel (delta, the one
+    # pass, dq's convert)
     _, _, _, profiled = _profiled(lambda: [kernel() for _ in range(3)])
     launch_ms = {re.search(r"flash_bwd_\w+(<[^>]*>)?", name).group(0): ms / count
                  for name, ms, count in profiled if "flash_bwd" in name}
@@ -885,13 +889,15 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
     autograd of the plain version on the card, at ``GRAD_LEN`` tokens,
     causal, one backward launch a gradient: bf16 at ``cfg``'s (phi4: 24 / 8
     heads of 128), ``mla_cfg``'s (qk 192, v 128) and ``d80_cfg``'s (32
-    heads of 80) head dims, and phi4's in float32.  Then, at b=1,
-    ``PROMPT_LEN`` tokens (the training shape) and each of those head dims,
-    the kernel against its plain version (``ops.attention_bwd``) on the same
-    inputs, and timed in turns with SDPA's backward (a yardstick only) and
-    the PyTorch FA-2 backward (``ops.attention_bwd``, the route it
-    replaced; :func:`attention_bwd_at_shape`).  Returns the kernel's entry
-    for the kernels line."""
+    heads of 80) head dims and at ``cfg``'s heads of ``WIDE_BWD_DIMS`` (160,
+    the widest square instance), and phi4's in float32.  Then, at b=1 (b =
+    ``WIDE_BWD_BATCH`` at 160), ``PROMPT_LEN`` tokens (the training shape)
+    and each of those head dims, the kernel against its plain version
+    (``ops.attention_bwd``) on the same inputs, two calls the same bits,
+    and timed in turns with SDPA's backward (a yardstick only) and the
+    PyTorch FA-2 backward (``ops.attention_bwd``, the route it replaced;
+    :func:`attention_bwd_at_shape`).  Returns the kernel's entry for the
+    kernels line."""
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, kernel_bwd_path
@@ -903,7 +909,9 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
     m = mla_cfg.mla
     dims = {"phi4": (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.resolved_head_dim),
             "mla": (mla_cfg.n_heads, mla_cfg.n_kv_heads, m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim),
-            "d80": (d80_cfg.n_heads, d80_cfg.n_kv_heads, d80_cfg.resolved_head_dim, d80_cfg.resolved_head_dim)}
+            "d80": (d80_cfg.n_heads, d80_cfg.n_kv_heads, d80_cfg.resolved_head_dim, d80_cfg.resolved_head_dim),
+            "d160": (cfg.n_heads, cfg.n_kv_heads) + WIDE_BWD_DIMS}
+    timed_batch = {"d160": WIDE_BWD_BATCH}
 
     def draw(b, s, h, kvh, dqk, dv, dtype):
         shapes = ((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv), (b, s, h, dv))
@@ -956,7 +964,8 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
 
     for name in dims:
         h, kvh, dqk, dv = dims[name]
-        entry["timed"].append({"dims": name, **attention_bwd_at_shape(gen, 1, PROMPT_LEN, h, kvh, dqk, dv)})
+        b = timed_batch.get(name, 1)
+        entry["timed"].append({"dims": name, **attention_bwd_at_shape(gen, b, PROMPT_LEN, h, kvh, dqk, dv)})
     # the entry's own figures are the main path's shape: phi4's
     phi4 = entry["timed"][0]
     for key in ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):

@@ -12,8 +12,11 @@ k rows are ``--head-dim`` wide, v rows ``--v-head-dim`` (default: the same).  Wi
 version of the kernel, say) is built too, checked against the same plain
 version, and timed in turns with the checkout's: other, this, this, other,
 ``--rounds`` times over (each build's median too where that is more than
-once).  Each time is printed with its rate and its share of the bound's rate.  To
-hold the kernel against an earlier commit's source:
+once).  Each build's error against the plain version is printed as its
+largest absolute error and as the error's norm over the plain version's
+(``rel``), an output at a time.  Each time is printed with its rate and its
+share of the bound's rate.  To hold the kernel against an earlier commit's
+source:
 
     git show <commit>:src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu > build/k1_old.cu
     PYTHONPATH=src python3 scripts/bench_flash_attention.py --other build/k1_old.cu
@@ -25,9 +28,10 @@ At deepseek-v2-lite's MLA prefill (qk 192, v 128) and stablelm-3b's (d = 80):
 
 ``--backward`` does the same for the backward kernel (``flash_attention_bwd.cu``;
 ``--other`` then names a backward source): checked against its plain
-version (``ops.attention_bwd``), timed beside SDPA's backward and its bound
-(the function's five products, 2.5x the forward's), with the device time of
-each of its launches from the profiler.  phi4's training shape:
+version (``ops.attention_bwd``), timed in turns with SDPA's backward (which
+joins the turns as one more build) beside its bound (the function's five
+products, 2.5x the forward's), with the device time of each of its
+launches from the profiler.  phi4's training shape:
 
     PYTHONPATH=src python3 scripts/bench_flash_attention.py --backward --batch 1 --other build/k1b_old.cu
 """
@@ -109,7 +113,8 @@ def main() -> None:
     this_build = getattr(flash_kernel, attr)
     builds = {"this": this_build}
     if args.other is not None:
-        builds["other"] = lambda: this_build(args.other.resolve())
+        other = args.other.resolve()  # once: no file system call a launch
+        builds["other"] = lambda: this_build(other)
 
     def run(which):
         setattr(flash_kernel, attr, builds[which])  # the binding looks its build up at each call
@@ -121,45 +126,51 @@ def main() -> None:
     for which in builds:
         for got, ref in zip(run(which), refs):
             err = (got.float() - ref).abs().max().item()
-            print(f"{which:5s}: max_abs_err {err:.3e} against the plain version")
+            rel = ((got.float() - ref).norm() / ref.norm()).item()
+            print(f"{which:5s}: max_abs_err {err:.3e} rel {rel:.3e} against the plain version")
             if err > 2e-2 * max(1.0, ref.abs().max().item()):
                 raise SystemExit("the kernel disagrees with its plain version")
 
-    order = ["other", "this", "this", "other"] if args.other is not None else ["this", "this"]
+    timed = {which: (lambda which=which: run(which)) for which in builds}
+    if args.backward:
+        # SDPA's backward, the yardstick, takes its turns beside the builds
+        leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
+        try:
+            ref_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+            timed["sdpa"] = lambda: torch.autograd.grad(ref_out, leaves, dout.transpose(1, 2), retain_graph=True)
+        except RuntimeError as refused:
+            print(f"library: SDPA refuses this backward: {str(refused).splitlines()[0]}")
+    names = [n for n in timed if n != "this"]
+    order = names + ["this", "this"] + names[::-1] if names else ["this", "this"]
+
     def report(name, ms):
         print(f"{name}: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s  {bound_ms / ms * 100:.1f} % of the bound's rate")
 
-    times = {which: [] for which in builds}
+    times = {which: [] for which in timed}
     for _ in range(args.rounds):
         for which in order:
-            times[which].append(time_ms(lambda: run(which)))
+            times[which].append(time_ms(timed[which]))
             report(f"{which:5s}", times[which][-1])
     if args.rounds > 1:
         for which, got in times.items():
             report(f"{which:5s} median of {len(got)}", statistics.median(got))
     if args.backward:
-        # the device time of each of the checkout's kernels, a launch
+        # the device time of each build's kernels, a launch (free of the host's share of a call)
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                run("this")
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                print(f"  device {e.self_device_time_total / 1e3 / e.count:.3f} ms a launch, x{e.count}: {e.key[:100]}")
+        for which in builds:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    run(which)
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA:
+                    print(f"  {which:5s} device {e.self_device_time_total / 1e3 / e.count:.3f} ms a launch, "
+                          f"x{e.count}: {e.key[:100]}")
     if not args.backward:
         report("library (one SDPA call)",
                time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)))
-        return
-    leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
-    try:
-        ref_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-        report("library (SDPA's backward)", time_ms(
-            lambda: torch.autograd.grad(ref_out, leaves, dout.transpose(1, 2), retain_graph=True)))
-    except RuntimeError as refused:
-        print(f"library: SDPA refuses this backward: {str(refused).splitlines()[0]}")
 
 
 if __name__ == "__main__":

@@ -31,10 +31,8 @@ def attention_flops(b, h, sq, sk, d, dv, causal) -> int:
 def attention_bwd_bound(b, h, kvh, s, d, dv, dtype_name):
     """K1's backward, causal, sq = sk = s.  Bytes: q, k, v, out, dout and lse
     read once, dq, dk, dv written once.  Operations: the function's five
-    products (S again, dP, dV, dK, dQ), 2.5x the forward's.  The bf16 one
-    pass takes exactly these; the two passes that the widest instances keep
-    (160, (192, 128)) take S and dP twice, 3.5x, which the bound does not
-    count."""
+    products (S again, dP, dV, dK, dQ), 2.5x the forward's, which the bf16
+    one pass takes exactly, at every instance."""
     size = 2 if dtype_name == "bfloat16" else 4
     nbytes = size * (2 * d * (b * h * s + b * kvh * s) + dv * (b * kvh * s + 2 * b * h * s) + dv * b * kvh * s)
     nbytes += 4 * b * h * s

@@ -22,9 +22,9 @@
 //
 // dq, dk and dv come back in the types of q, k and v.  P and dS are rounded
 // to bf16 as tensor-core operands, as FA-2 and FA-3 do and as the reference
-// rounds dq's dS; sums are f32.  `flash_bwd_delta` first writes delta and
-// lse * log2(e) into the caller's scratch, padded to a multiple of 128 rows
-// (+inf and 0 past sq, so that a row past sq reads P = 0).
+// rounds dq's dS (once, at every instance); sums are f32.  `flash_bwd_delta`
+// first writes delta and lse * log2(e) into the caller's scratch, padded to a
+// multiple of 128 rows (+inf and 0 past sq, so that a row past sq reads P = 0).
 //
 // What bounds it on an H100.  At phi4's training shape (b=1, h=24, kvh=8,
 // s=4096, d=128, bf16, causal) the five products of the function are 2.5x
@@ -36,17 +36,17 @@
 // through shared memory (the TMA loads, dS^T, dQ's shares) slows them.
 //
 // Paths, a static table by instance (`path_of`; kernel.py's
-// `kernel_bwd_path`).  Every family is built at the forward's instances
+// `kernel_bwd_path`).  Both families are built at the forward's instances
 // (DQK, DV) = 32, 64, 80, 96, 128 and 160 (square) and (192, 128); a call
 // takes the smallest that holds both of its head dims.  The true widths
 // (`wqk`, `wv`) are the tensor maps' extents and the columns stored (TMA's
 // zero fill pads a row; 80's rows pad to 96, cut into 32-element boxes with
-// 64-byte swizzle, as at 32 and 96; 64 and 128 take 64-element boxes with
-// 128-byte swizzle).  No path falls back to another: a tensor map that
-// cannot be encoded is an error code.
+// 64-byte swizzle, as at 32, 96 and 160; 64, 128 and (192, 128) take
+// 64-element boxes with 128-byte swizzle).  No path falls back to another:
+// a tensor map that cannot be encoded is an error code.
 //
-// - "wgmma1", bf16 at 32, 64, 80, 96 and 128: the one pass,
-//   `flash_bwd_hopper`, then `flash_bwd_dq_convert`.
+// - "wgmma1", bf16 at every instance: the one pass, `flash_bwd_hopper`,
+//   then `flash_bwd_dq_convert`.
 //   * Work.  An item is one key tile (128 keys) of one (batch, kv head)
 //     against the q heads of one group of its g q heads and every q tile (64
 //     rows) the mask leaves.  Items are numbered heavy first: key tile 0
@@ -60,77 +60,90 @@
 //     heavier than the whole work spread evenly over 132 SMs.  phi4's
 //     training shape takes G = 1 (256 items, two a CTA, 192 q tiles each);
 //     a model = 2 rank's 12 / 4 heads take G = 3 (384 items of one head),
-//     where G = 1 left 128 items of up to 192 tiles for 132 SMs.
+//     where G = 1 left 128 items of up to 192 tiles for 132 SMs.  MLA's 16
+//     heads (g = 1) take 512 items of one head, 128 q tiles a CTA.
 //   * A CTA: a producer warpgroup and two consumer warpgroups
 //     (`setmaxnreg`: 24 and 240 registers a thread).  Thread 0 issues the
 //     TMA loads: an item's first q tiles, then K and V of its 128 keys once
 //     the item before is done with them, then the rest of its q tiles (Q,
 //     dout, and their rows' lse and delta by 1-D bulk copies) through a ring
-//     of stages (2 at 128, 3 at 80 and 96, 4 below).  Warps 1 and 2 write
-//     dQ (below).  Consumer wg holds keys [64 wg, 64 wg + 64) of the tile.
-//     A q tile: S^T = K Q^T and dP^T = V dout^T (`wgmma`, both operands in
-//     shared memory, 64 x 64), P^T and dS^T in registers in the
-//     accumulator layout, which is the A fragment of dV += P^T dout and dK
-//     += dS^T Q (register A, dout and Q read MN-major); dK and dV stay in
-//     registers over the item.  dS^T also goes to shared memory (two
-//     buffers of 128 keys x 64 rows, 128-byte swizzled); once both halves
-//     are in (a named barrier), the consumer of the tile's parity takes
-//     the tile's dQ share, dS (read MN-major) times all 128 keys of K, 64 x
-//     DQK in f32, and puts it in its own buffer, while the other consumer
-//     goes on to the next tile's S^T and dP^T: taking the shares in turns
-//     lets one consumer's exps run beside the other's products.  Below 128
-//     a consumer also issues the next tile's S^T and dP^T before its share
-//     (at 128 those 64 registers do not fit beside dK, dV and the share).
-//   * The order of dQ's adds.  Each (batch, q head, q tile) has an f32
-//     accumulator in the scratch and a counter, zeroed every call by
-//     `flash_bwd_delta`.  A tile's shares come from key tiles 0, 1, ..., in
-//     that order: the share of key tile k waits until the counter reads k,
-//     is stored (k = 0: the accumulator needs no memset) or added (a bulk
+//     of stages (2 at 128, 160 and (192, 128), 3 at 80 and 96, 4 below).
+//     Warps 1 and 2 write dQ (below).  Consumer wg holds keys [64 wg, 64 wg
+//     + 64) of the tile.  A q tile: S^T = K Q^T and dP^T = V dout^T
+//     (`wgmma`, both operands in shared memory, 64 x 64), P^T and dS^T in
+//     registers in the accumulator layout, which is the A fragment of dV +=
+//     P^T dout and dK += dS^T Q (register A, dout and Q read MN-major); dK
+//     and dV stay in registers over the item.  dS^T also goes to shared
+//     memory (two buffers of 128 keys x 64 rows, 128-byte swizzled); once
+//     both halves are in (a named barrier), the consumer of the tile's
+//     parity takes the tile's dQ share, dS (read MN-major) times all 128
+//     keys of K, 64 x DQK in f32, and hands it on (below), while the other
+//     consumer goes on to the next tile's S^T and dP^T: taking the shares in
+//     turns lets one consumer's exps run beside the other's products.  Below
+//     128 a consumer also issues the next tile's S^T and dP^T before its
+//     share (at 128 those 64 registers do not fit beside dK, dV and the
+//     share).
+//   * Above 128 (160 and (192, 128)).  dK and dV are 160 registers a thread
+//     at both, so the tile keeps that and no more: (1) S^T is taken whole
+//     and dP^T in two halves of 32 q rows (an m64n32 product, 16 registers
+//     each), the first issued with S^T and each running while the exps of
+//     its half of S^T are taken; each half of dS is P (f32) times dP - delta
+//     (f32), rounded once, as below 128.  So at most 160 + 32 + 16 are live
+//     where S^T and dP^T together (224) left ptxas too few of 240 for the
+//     wgmma pipeline (C7512: every wgmma serialised, and 956 bytes of
+//     spills).  Rounding dP - delta to bf16 pairs instead, which frees as
+//     many registers, put a second rounding into dS and 2.6x the relative
+//     error into dq (PERF.md).  (2) The share is taken in slices of 64
+//     columns (32 registers; 160's last slice 32 columns), each handed on
+//     as it is done, through two buffers of 64 rows x 64 columns (16 KB
+//     each, where two shares of the whole width would need 80 or 96 KB).
+//     Shared memory, of 232,448 bytes a block: K and V 81,920, two stages
+//     of 41,472, dS^T 32,768, the dQ buffers 32,768, barriers and
+//     alignment: 231,552 at both (and at 128).  A third dQ buffer in place
+//     of the second dS^T buffer spilled more and ran slower (PERF.md).
+//   * The hand-over and the order of dQ's adds.  A share is one slice below
+//     128 and 3 above; slice m of a CTA's walk (tile n's slice j is n S + j)
+//     goes to buffer m % 2, once that buffer's writer has read slice m - 2
+//     out of it, so that the consumer writing the next slice waits on the
+//     slice before the last and not on the last (a buffer a consumer, as
+//     below 128, left each slice waiting on the bulk copy's read of the one
+//     before).  Below 128 buffer m % 2 is the consumer's own.  Warp 1 + w
+//     writes buffer w's slices.  Each (batch, q head, q tile, slice) has an
+//     f32 accumulator in the scratch and a counter, zeroed every call by
+//     `flash_bwd_delta`.  A slice's shares come from key tiles 0, 1, ...,
+//     in that order: the share of key tile k waits until its counter reads
+//     k, is stored (k = 0: the accumulator needs no memset) or added (a bulk
 //     reduce-add, `cp.reduce.async.bulk ... .add.f32`, from shared memory),
-//     and when the add is complete the counter moves to k + 1.  Warp 1 + w
-//     writes consumer w's shares.  Every add meets the same partial sum,
-//     so two calls give the same bits.  `flash_bwd_dq_convert` then writes
-//     dq in q's type.  (The last share could write dq itself, but it waits
-//     for every share before it, and at phi4's shape those waits held the
-//     consumers for 0.19 ms of a 0.80 ms call, where the convert launch
-//     takes 0.044 ms.)  Where G > 1, dK and dV of a key tile are summed
-//     over its G items in the order of their groups the same way, by the
-//     consumers, through a second accumulator and counter.
+//     and when the add is complete the counter moves to k + 1.  Every add meets the same
+//     partial sum, so two calls give the same bits.  `flash_bwd_dq_convert`
+//     then writes dq in q's type.  (The last share could write dq itself,
+//     but it waits for every share before it, and at phi4's shape those
+//     waits held the consumers for 0.19 ms of a 0.80 ms call, where the
+//     convert launch takes 0.044 ms.)  Where G > 1, dK and dV of a key tile
+//     are summed over its G items in the order of their groups the same
+//     way, by the consumers, through a second accumulator and counter.
 //   * It cannot hang.  Every wait on another CTA is on an item with a
-//     smaller number: a tile's earlier key tiles, a key tile's earlier
+//     smaller number: a slice's earlier key tiles, a key tile's earlier
 //     groups.  The CTAs are all resident at once (at most one an SM), each
 //     walks its items in increasing number, and nothing in a CTA waits on
-//     its own later items; so the unfinished item with the smallest number
-//     never waits, and the call ends.  A wait on a counter or a barrier that
-//     outlasts about 8 s traps, and the call fails where the caller
-//     synchronises, instead of hanging the card.
+//     its own later items (a consumer waits only on a buffer's earlier
+//     slices, each written out by its writer after earlier key tiles' adds);
+//     so the unfinished item with the smallest number never waits, and the
+//     call ends.  A wait on a counter or a barrier that outlasts about 8 s
+//     traps, and the call fails where the caller synchronises, instead of
+//     hanging the card.
 //   * Registers (`nvcc -cubin -Xptxas -v`, sm_90a): 168 a thread at every
-//     instance, and 48 bytes of spill stores and loads, the same at each:
-//     the producer's, at 24.  ptxas prints the launch's share (65,536 /
-//     384, down to a multiple of 8) whatever `setmaxnreg` asks; the
-//     consumers' 240 show only as the absence of spills.  They hold only
+//     instance (ptxas prints the launch's share, 65,536 / 384, down to a
+//     multiple of 8, whatever `setmaxnreg` asks; the consumers' 240 show
+//     only as the absence of spills).  Spill stores and loads: 36 bytes at
+//     32, 64, 80 and 96, 44 at 128 (the producer's, at 24), 84 and 108-120
+//     at 160 and (192, 128), and no C75xx note.  The registers hold only
 //     while ptxas can keep the warpgroups' code apart: a version whose dQ
-//     writers stopped on a value read from shared memory spilled 4,476
-//     bytes at 128 and 2,188 at 96, the consumers held to 168 as well.
-//     That is what the two-pass kernel met when it tried the forward's
-//     third warpgroup (168 and spills, C7512).  A wgmma, or a wait on one,
-//     in a branch on data makes ptxas serialise every wgmma of the kernel
+//     writers stopped on a
+//     value read from shared memory spilled 4,476 bytes at 128 and 2,188 at
+//     96, the consumers held to 168 as well.  A wgmma, or a wait on one, in
+//     a branch on data makes ptxas serialise every wgmma of the kernel
 //     (C7518, C7520): the loop peels an item's last tile instead.
-// - "wgmma2", bf16 at 160 and (192, 128): the two passes,
-//   `flash_bwd_dkdv_hopper` then `flash_bwd_dq_hopper`, which take S and dP
-//   twice (seven products for five).  The one pass does not fit there: dK
-//   and dV alone are 160 registers a thread at both, S^T and dP^T 64 more,
-//   a dQ share 80 or 96 more; and K, V, dS^T, two dQ shares and two stages
-//   need about 274 KB of shared memory at 160, where a block may have 227; at
-//   (192, 128) the q tiles are 32 rows, which no 64-row dQ product takes.  Two warpgroups of 64 rows each run
-//   `wgmma` on operands in swizzled shared memory, fed by TMA through a
-//   ring with a full and an empty mbarrier a stage; thread 0 also issues
-//   every load (registers: up to 225 a thread, no spill, `__launch_bounds__`
-//   256).  The dk/dv pass: a CTA owns one (batch, kv head, tile of 128
-//   keys); S^T, dP^T, then dV += P^T dout and dK += dS^T Q as in the one
-//   pass.  The dq pass: a CTA owns one (batch, q head, tile of 128 rows);
-//   S = Q K^T, dP = dout V^T, dQ += dS K.  Every output element is written
-//   once, by one CTA.
 // - "fma", float32: `flash_bwd_dkdv_fma` and `flash_bwd_dq_fma`,
 //   full-precision FMAs on the CUDA cores (no TF32: the reference upcasts
 //   before its products, and a float32 train step is held to 2e-5); the
@@ -536,54 +549,15 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_fma(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the Hopper passes.
+// bf16: the Hopper one pass.
 // Most helpers below are copies of flash_attention_fwd.cu's: the two
 // sources are built apart, so that the forward's object code does not move
 // with this file (its time moves with code that never runs).
 // ---------------------------------------------------------------------------
 
-constexpr int kHThreads = 256;      // two warpgroups; thread 0 also issues every TMA load
-constexpr int kHRows = 128;         // keys (dk/dv pass) or q rows (dq pass) a CTA: 64 a warpgroup
+constexpr int kHRows = 128;         // keys a key tile: 64 a consumer warpgroup
 constexpr int kSmemLimit = 232448;  // shared memory a block may have on an H100
 constexpr long long kWaitTrapCycles = 1LL << 34;  // ~8 s at 2 GHz: a lost barrier traps, not hangs
-
-// The shared-memory layout of both passes at (DQK, DV).  Every tile is cut
-// into boxes of kBox elements a row, one TMA load each, with the swizzle of
-// that span: 64-element boxes with 128-byte swizzle where both head dims are
-// multiples of 64, else 32-element boxes with 64-byte swizzle; the row pads
-// to 80's 96 (the tensor map's extent stays the true width, and TMA fills
-// the rest with zeros).
-template <int DQK, int DV>
-struct BwdCfg {
-    static constexpr int kBox = (DQK % 64 == 0 && DV % 64 == 0) ? 64 : 32;
-    static constexpr int kRowBytes = 2 * kBox;
-    static constexpr int kDQK = (DQK + kBox - 1) / kBox * kBox;  // padded widths
-    static constexpr int kDV = (DV + kBox - 1) / kBox * kBox;
-    // dk/dv pass: K and V of 128 keys once, then q tiles of kBQ rows (Q, dout,
-    // and their lse and delta) through a ring.  32 rows where dK is wider
-    // than 128: the accumulators must fit 240 registers.
-    static constexpr int kBQ = kDQK > 128 ? 32 : 64;
-    static constexpr int kKVBytes = kHRows * (kDQK + kDV) * 2;
-    static constexpr int kQTileBytes = kBQ * kDQK * 2;
-    static constexpr int kOTileBytes = kBQ * kDV * 2;
-    static constexpr int kKVFit =
-        (kSmemLimit - 1024 - kKVBytes - 8 * (1 + 2 * 4)) / (kQTileBytes + kOTileBytes + 2 * kBQ * 4);
-    static constexpr int kKVStages = kKVFit >= 4 ? 4 : kKVFit;
-    static constexpr int kKVSmem =
-        1024 + kKVBytes + kKVStages * (kQTileBytes + kOTileBytes + 2 * kBQ * 4) + 8 * (1 + 2 * kKVStages);
-    // dq pass: Q and dout of 128 rows once, then key tiles of kBN keys (K, V)
-    // through a ring
-    static constexpr int kBN = 64;
-    static constexpr int kQOBytes = kHRows * (kDQK + kDV) * 2;
-    static constexpr int kKTileBytes = kBN * kDQK * 2;
-    static constexpr int kVTileBytes = kBN * kDV * 2;
-    static constexpr int kQFit = (kSmemLimit - 1024 - kQOBytes - 8 * (1 + 2 * 4)) / (kKTileBytes + kVTileBytes);
-    static constexpr int kQStages = kQFit >= 4 ? 4 : kQFit;
-    static constexpr int kQSmem = 1024 + kQOBytes + kQStages * (kKTileBytes + kVTileBytes) + 8 * (1 + 2 * kQStages);
-    static_assert(kKVStages >= 2 && kKVSmem <= kSmemLimit, "the dk/dv pass's tiles do not fit shared memory");
-    static_assert(kQStages >= 2 && kQSmem <= kSmemLimit, "the dq pass's tiles do not fit shared memory");
-    static_assert(kDQK % 16 == 0 && kDV % 16 == 0 && kBox % 16 == 0, "k-steps of 16");
-};
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -710,18 +684,6 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[KS][4], const float (&s)[KS
     }
 }
 
-// d (64 x 32, f32) (+)= A (64 x 16, shared, K-major) * B (32 x 16, shared, K-major)^T
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
 // d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)^T
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -733,6 +695,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 32, f32) (+)= A (64 x 16, shared, K-major) * B (32 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -890,324 +864,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ss, co
     }
 }
 
-// dK and dV of one (batch, kv head, tile of 128 keys)
-template <int DQK, int DV>
-__global__ void __launch_bounds__(kHThreads, 1)
-    flash_bwd_dkdv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                          const BwdParams p) {
-    using Cfg = BwdCfg<DQK, DV>;
-    constexpr int STAGES = Cfg::kKVStages;
-    constexpr int BK = kHRows;
-    constexpr int BQ = Cfg::kBQ;
-    constexpr int BOX = Cfg::kBox;
-    constexpr int ROW = Cfg::kRowBytes;
-    constexpr int QK_BOXES = Cfg::kDQK / BOX;
-    constexpr int V_BOXES = Cfg::kDV / BOX;
-
-    extern __shared__ unsigned char smem_raw[];
-    unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-    const uint32_t sK = smem_u32(smem);
-    const uint32_t sV = sK + BK * Cfg::kDQK * 2;
-    const uint32_t sQ = sV + BK * Cfg::kDV * 2;       // stage s at sQ + s * kQTileBytes
-    const uint32_t sO = sQ + STAGES * Cfg::kQTileBytes;  // dout, stage s at sO + s * kOTileBytes
-    const uint32_t stats = sO + STAGES * Cfg::kOTileBytes;  // stage s: BQ lse * log2(e), then BQ delta
-    const float* stats_f = reinterpret_cast<const float*>(smem + (stats - sK));
-    const uint32_t bars = stats + STAGES * 2 * BQ * 4;
-    const uint32_t full_kv = bars;
-    auto full = [&](int s) { return bars + 8u * (1 + s); };
-    auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
-
-    const int bkv = p.b * p.kvh;
-    const int k0 = (static_cast<int>(blockIdx.x) / bkv) * BK;  // tile 0 meets every q row under a causal mask: the heaviest first
-    const int batch = (static_cast<int>(blockIdx.x) % bkv) / p.kvh;
-    const int kvhead = (static_cast<int>(blockIdx.x) % bkv) - batch * p.kvh;
-    const int g = p.h / p.kvh;
-    const int n_qt = (p.sq + BQ - 1) / BQ;
-    const int first = p.causal ? k0 / BQ : 0;  // q tiles before it lie wholly above the diagonal
-    const int per_head = n_qt - first;
-    const int n_uses = g * per_head;  // (q head, q tile) pairs through the ring
-
-    if (threadIdx.x == 0) {
-        mbar_init(full_kv, 1);
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(full(s), 1);
-            mbar_init(empty(s), 8);  // one arrival from each warp
-        }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-
-    // Thread 0 also issues every TMA load: K and V once, the first STAGES q
-    // tiles, then at the top of tile u the tile u - 1 + STAGES into the stage
-    // that tile u - 1 freed.  A tile late, so that the other warpgroup has
-    // most likely freed it and the wait seldom holds this one back (a thread
-    // that loaded every free stage without waiting, at the top of each tile,
-    // read 0.93 against 0.79 ms at phi4's dims, H100 at 700 W).
-    auto load_tile = [&](int u) {
-        const int s = u % STAGES;
-        const int head = kvhead * g + u / per_head;
-        const int q0 = (first + u % per_head) * BQ;
-        // a box's columns past the head dim are zero-filled and counted
-        mbar_expect_tx(full(s), Cfg::kQTileBytes + Cfg::kOTileBytes + 2 * BQ * 4);
-#pragma unroll
-        for (int x = 0; x < QK_BOXES; ++x) {
-            tma_load_4d(sQ + s * Cfg::kQTileBytes + x * BQ * ROW, &tm_q, full(s), x * BOX, q0, head, batch);
-        }
-#pragma unroll
-        for (int x = 0; x < V_BOXES; ++x) {
-            tma_load_4d(sO + s * Cfg::kOTileBytes + x * BQ * ROW, &tm_do, full(s), x * BOX, q0, head, batch);
-        }
-        const long long row0 = (static_cast<long long>(batch) * p.h + head) * p.sq_pad + q0;
-        bulk_load(stats + s * 2 * BQ * 4, p.lse2 + row0, BQ * 4, full(s));
-        bulk_load(stats + s * 2 * BQ * 4 + BQ * 4, p.delta + row0, BQ * 4, full(s));
-    };
-    if (threadIdx.x == 0) {
-        tma_prefetch(&tm_q);
-        tma_prefetch(&tm_k);
-        tma_prefetch(&tm_v);
-        tma_prefetch(&tm_do);
-        mbar_expect_tx(full_kv, Cfg::kKVBytes);
-#pragma unroll
-        for (int x = 0; x < QK_BOXES; ++x) tma_load_4d(sK + x * BK * ROW, &tm_k, full_kv, x * BOX, k0, kvhead, batch);
-#pragma unroll
-        for (int x = 0; x < V_BOXES; ++x) tma_load_4d(sV + x * BK * ROW, &tm_v, full_kv, x * BOX, k0, kvhead, batch);
-        for (int u = 0; u < min(STAGES, n_uses); ++u) load_tile(u);
-    }
-
-    {
-        const int wg = threadIdx.x / 128;  // keys [k0 + 64 wg, k0 + 64 wg + 64)
-        const int t = threadIdx.x & 127;
-        const int lane = t & 31;
-        const int tq = lane & 3;  // accumulator column pair within each 8
-        const int wkey0 = k0 + wg * 64;
-        const int key_a = wkey0 + (t >> 5) * 16 + (lane >> 2);  // and key_a + 8
-        const uint32_t k_rows = sK + wg * 64 * ROW;
-        const uint32_t v_rows = sV + wg * 64 * ROW;
-        const float scale_log2 = p.scale * kLog2e;
-        // keys past sk, or (causal) keys past a row of the tile: mask
-        const bool edge_keys = wkey0 + 63 >= p.sk;
-
-        float dva[Cfg::kDV / 2], dka[Cfg::kDQK / 2];
-#pragma unroll
-        for (int i = 0; i < Cfg::kDV / 2; ++i) dva[i] = 0.f;
-#pragma unroll
-        for (int i = 0; i < Cfg::kDQK / 2; ++i) dka[i] = 0.f;
-
-        mbar_wait(full_kv, 0);
-        for (int u = 0; u < n_uses; ++u) {
-            if (threadIdx.x == 0 && u >= 1 && u - 1 + STAGES < n_uses) {
-                mbar_wait(empty((u - 1) % STAGES), ((u - 1) / STAGES) & 1);
-                load_tile(u - 1 + STAGES);
-            }
-            const int s = u % STAGES;
-            const int q0 = (first + u % per_head) * BQ;
-            mbar_wait(full(s), (u / STAGES) & 1);
-            // every key of this warpgroup past sk, or past every row of the tile: P is 0
-            if (wkey0 >= p.sk || (p.causal && wkey0 > q0 + BQ - 1)) {
-                if (lane == 0) mbar_arrive(empty(s));
-                continue;
-            }
-            const uint32_t q_tile = sQ + s * Cfg::kQTileBytes;
-            const uint32_t o_tile = sO + s * Cfg::kOTileBytes;
-            const float* lse2 = stats_f + s * 2 * BQ;
-            const float* delta = lse2 + BQ;
-
-            float sacc[BQ / 2], dpacc[BQ / 2];
-            wgmma_fence();
-            issue_ss<ROW, Cfg::kDQK / 16, BQ>(sacc, k_rows, BK * ROW, q_tile, BQ * ROW);  // S^T = K Q^T
-            wgmma_commit();
-            issue_ss<ROW, Cfg::kDV / 16, BQ>(dpacc, v_rows, BK * ROW, o_tile, BQ * ROW);  // dP^T = V dout^T
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_regs(sacc);
-            const bool masked = edge_keys || (p.causal && wkey0 + 63 > q0);
-#pragma unroll
-            for (int i = 0; i < BQ / 2; ++i) {
-                const int c = (i / 4) * 8 + tq * 2 + (i & 1);  // the q row, from q0
-                float pv = ex2(fmaf(sacc[i], scale_log2, -lse2[c]));
-                if (masked) {
-                    const int key = key_a + ((i & 2) ? 8 : 0);
-                    if (key >= p.sk || (p.causal && key > q0 + c)) pv = 0.f;
-                }
-                sacc[i] = pv;
-            }
-            wgmma_wait<0>();
-            fence_regs(dpacc);
-#pragma unroll
-            for (int i = 0; i < BQ / 2; ++i) {
-                const int c = (i / 4) * 8 + tq * 2 + (i & 1);
-                dpacc[i] = sacc[i] * (dpacc[i] - delta[c]) * p.scale;
-            }
-            uint32_t pf[BQ / 16][4], df[BQ / 16][4];
-            pack_a(pf, sacc);
-            pack_a(df, dpacc);
-            wgmma_fence();
-            issue_rs<ROW>(dva, pf, o_tile, BQ * ROW);  // dV += P^T dout
-            issue_rs<ROW>(dka, df, q_tile, BQ * ROW);  // dK += dS^T Q
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(dva);
-            fence_regs(dka);
-            fence_regs(pf);
-            fence_regs(df);
-            if (lane == 0) mbar_arrive(empty(s));
-        }
-
-        __nv_bfloat16* gdk = static_cast<__nv_bfloat16*>(p.dk) + batch * p.dk_sb + kvhead * p.dk_sh;
-        __nv_bfloat16* gdv = static_cast<__nv_bfloat16*>(p.dv) + batch * p.dv_sb + kvhead * p.dv_sh;
-        store_rows(gdk, p.dk_ss, dka, key_a, p.sk, tq, p.wqk);
-        store_rows(gdv, p.dv_ss, dva, key_a, p.sk, tq, p.wv);
-    }
-}
-
-// dQ of one (batch, q head, tile of 128 q rows)
-template <int DQK, int DV>
-__global__ void __launch_bounds__(kHThreads, 1)
-    flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                        const BwdParams p) {
-    using Cfg = BwdCfg<DQK, DV>;
-    constexpr int STAGES = Cfg::kQStages;
-    constexpr int BM = kHRows;
-    constexpr int BN = Cfg::kBN;
-    constexpr int BOX = Cfg::kBox;
-    constexpr int ROW = Cfg::kRowBytes;
-    constexpr int QK_BOXES = Cfg::kDQK / BOX;
-    constexpr int V_BOXES = Cfg::kDV / BOX;
-
-    extern __shared__ unsigned char smem_raw[];
-    const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-    const uint32_t sO = sQ + BM * Cfg::kDQK * 2;          // dout
-    const uint32_t sK = sO + BM * Cfg::kDV * 2;           // stage s at sK + s * kKTileBytes
-    const uint32_t sV = sK + STAGES * Cfg::kKTileBytes;   // stage s at sV + s * kVTileBytes
-    const uint32_t bars = sV + STAGES * Cfg::kVTileBytes;
-    const uint32_t full_q = bars;
-    auto full = [&](int s) { return bars + 8u * (1 + s); };
-    auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
-
-    const int bhs = p.b * p.h;
-    const int n_qt = (p.sq + BM - 1) / BM;
-    const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / bhs) * BM;  // the last q tiles see the most keys: first
-    const int batch = (static_cast<int>(blockIdx.x) % bhs) / p.h;
-    const int head = (static_cast<int>(blockIdx.x) % bhs) - batch * p.h;
-    const int kvhead = head / (p.h / p.kvh);
-    int n_kt = (p.sk + BN - 1) / BN;
-    if (p.causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);  // none wholly above the diagonal
-
-    if (threadIdx.x == 0) {
-        mbar_init(full_q, 1);
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(full(s), 1);
-            mbar_init(empty(s), 8);
-        }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-
-    // Thread 0 also issues every TMA load, as in the dk/dv pass: Q and dout
-    // once, the first STAGES key tiles, then a tile late into each freed stage.
-    auto load_tile = [&](int j) {
-        const int s = j % STAGES;
-        mbar_expect_tx(full(s), Cfg::kKTileBytes + Cfg::kVTileBytes);
-#pragma unroll
-        for (int x = 0; x < QK_BOXES; ++x) {
-            tma_load_4d(sK + s * Cfg::kKTileBytes + x * BN * ROW, &tm_k, full(s), x * BOX, j * BN, kvhead, batch);
-        }
-#pragma unroll
-        for (int x = 0; x < V_BOXES; ++x) {
-            tma_load_4d(sV + s * Cfg::kVTileBytes + x * BN * ROW, &tm_v, full(s), x * BOX, j * BN, kvhead, batch);
-        }
-    };
-    if (threadIdx.x == 0) {
-        tma_prefetch(&tm_q);
-        tma_prefetch(&tm_k);
-        tma_prefetch(&tm_v);
-        tma_prefetch(&tm_do);
-        mbar_expect_tx(full_q, Cfg::kQOBytes);
-#pragma unroll
-        for (int x = 0; x < QK_BOXES; ++x) tma_load_4d(sQ + x * BM * ROW, &tm_q, full_q, x * BOX, q0, head, batch);
-#pragma unroll
-        for (int x = 0; x < V_BOXES; ++x) tma_load_4d(sO + x * BM * ROW, &tm_do, full_q, x * BOX, q0, head, batch);
-        for (int j = 0; j < min(STAGES, n_kt); ++j) load_tile(j);
-    }
-
-    {
-        const int wg = threadIdx.x / 128;  // q rows [q0 + 64 wg, q0 + 64 wg + 64)
-        const int t = threadIdx.x & 127;
-        const int lane = t & 31;
-        const int tq = lane & 3;
-        const int wrow0 = q0 + wg * 64;
-        const int row_a = wrow0 + (t >> 5) * 16 + (lane >> 2);  // and row_a + 8
-        const uint32_t q_rows = sQ + wg * 64 * ROW;
-        const uint32_t o_rows = sO + wg * 64 * ROW;
-        const float scale_log2 = p.scale * kLog2e;
-        // the scratch is padded past sq: +inf and 0 there, so those rows read P = 0
-        const long long bh = static_cast<long long>(batch) * p.h + head;
-        const float l_a = p.lse2[bh * p.sq_pad + row_a], l_b = p.lse2[bh * p.sq_pad + row_a + 8];
-        const float d_a = p.delta[bh * p.sq_pad + row_a], d_b = p.delta[bh * p.sq_pad + row_a + 8];
-
-        float dqa[Cfg::kDQK / 2];
-#pragma unroll
-        for (int i = 0; i < Cfg::kDQK / 2; ++i) dqa[i] = 0.f;
-
-        mbar_wait(full_q, 0);
-        for (int j = 0; j < n_kt; ++j) {
-            if (threadIdx.x == 0 && j >= 1 && j - 1 + STAGES < n_kt) {
-                mbar_wait(empty((j - 1) % STAGES), ((j - 1) / STAGES) & 1);
-                load_tile(j - 1 + STAGES);
-            }
-            const int s = j % STAGES;
-            const int k0 = j * BN;
-            mbar_wait(full(s), (j / STAGES) & 1);
-            // every row of this warpgroup past sq, or before every key of the tile: P is 0
-            if (wrow0 >= p.sq || (p.causal && k0 > wrow0 + 63)) {
-                if (lane == 0) mbar_arrive(empty(s));
-                continue;
-            }
-            const uint32_t k_tile = sK + s * Cfg::kKTileBytes;
-            const uint32_t v_tile = sV + s * Cfg::kVTileBytes;
-
-            float sacc[BN / 2], dpacc[BN / 2];
-            wgmma_fence();
-            issue_ss<ROW, Cfg::kDQK / 16, BN>(sacc, q_rows, BM * ROW, k_tile, BN * ROW);  // S = Q K^T
-            wgmma_commit();
-            issue_ss<ROW, Cfg::kDV / 16, BN>(dpacc, o_rows, BM * ROW, v_tile, BN * ROW);  // dP = dout V^T
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_regs(sacc);
-            const bool masked = k0 + BN > p.sk || (p.causal && k0 + BN - 1 > wrow0);
-#pragma unroll
-            for (int i = 0; i < BN / 2; ++i) {
-                const bool lower = (i & 2) != 0;
-                float pv = ex2(fmaf(sacc[i], scale_log2, -(lower ? l_b : l_a)));
-                if (masked) {
-                    const int key = k0 + (i / 4) * 8 + tq * 2 + (i & 1);
-                    const int row = row_a + (lower ? 8 : 0);
-                    if (key >= p.sk || (p.causal && key > row)) pv = 0.f;
-                }
-                sacc[i] = pv;
-            }
-            wgmma_wait<0>();
-            fence_regs(dpacc);
-#pragma unroll
-            for (int i = 0; i < BN / 2; ++i) dpacc[i] = sacc[i] * (dpacc[i] - ((i & 2) ? d_b : d_a)) * p.scale;
-            uint32_t df[BN / 16][4];
-            pack_a(df, dpacc);
-            wgmma_fence();
-            issue_rs<ROW>(dqa, df, k_tile, BN * ROW);  // dQ += dS K
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(dqa);
-            fence_regs(df);
-            if (lane == 0) mbar_arrive(empty(s));
-        }
-
-        __nv_bfloat16* gdq = static_cast<__nv_bfloat16*>(p.dq) + batch * p.dq_sb + head * p.dq_sh;
-        store_rows(gdq, p.dq_ss, dqa, row_a, p.sq, tq, p.wqk);
-    }
-}
-
 // ---------------------------------------------------------------------------
 // bf16, one pass: `flash_bwd_hopper`
 // ---------------------------------------------------------------------------
@@ -1220,34 +876,48 @@ constexpr int kItemSMs = 132;      // the H100's SMs: the rule that sizes the it
 constexpr int kOProducerRegs = 24;
 constexpr int kOConsumerRegs = 240;
 
-// The one pass's shared memory at (DQK, DV): K and V of 128 keys, a ring of
-// q tiles (Q, dout, their lse * log2(e) and delta), two buffers of dS^T
-// (128 keys x 64 q rows, bf16, 128-byte swizzle) and two of dQ shares (64 x
-// DQK f32, one a consumer warpgroup), then the barriers.
+// The one pass's shared memory at (DQK, DV).  Every tile is cut into boxes of
+// kBox elements a row, one TMA load each, with the swizzle of that span:
+// 64-element boxes with 128-byte swizzle where both head dims are multiples
+// of 64, else 32-element boxes with 64-byte swizzle; the row pads to 80's 96
+// (the tensor map's extent stays the true width, and TMA fills the rest with
+// zeros).  K and V of 128 keys, a ring of q tiles (Q, dout, their lse *
+// log2(e) and delta), two buffers of dS^T (128 keys x 64 q rows, bf16,
+// 128-byte swizzle) and two of dQ slices (64 rows x kDQS columns f32, filled
+// in turns; up to 128 one a consumer warpgroup), then the barriers.  A dQ share is taken in kSlices
+// slices: one of the whole width up to 128, slices of 64 columns above it,
+// where a share of the whole width fits neither the registers beside dK and
+// dV nor, twice, the shared memory.
 template <int DQK, int DV>
 struct OneCfg {
-    using Base = BwdCfg<DQK, DV>;
-    static constexpr int kBox = Base::kBox;
-    static constexpr int kRowBytes = Base::kRowBytes;
-    static constexpr int kDQK = Base::kDQK;
-    static constexpr int kDV = Base::kDV;
+    static constexpr int kBox = (DQK % 64 == 0 && DV % 64 == 0) ? 64 : 32;
+    static constexpr int kRowBytes = 2 * kBox;
+    static constexpr int kDQK = (DQK + kBox - 1) / kBox * kBox;  // padded widths
+    static constexpr int kDV = (DV + kBox - 1) / kBox * kBox;
     static constexpr int kKVBytes = kHRows * (kDQK + kDV) * 2;
     static constexpr int kQTileBytes = kOBQ * kDQK * 2;
     static constexpr int kOTileBytes = kOBQ * kDV * 2;
     static constexpr int kStatBytes = 2 * kOBQ * 4;
     static constexpr int kStageBytes = kQTileBytes + kOTileBytes + kStatBytes;
     static constexpr int kDSBytes = kHRows * kOBQ * 2;
-    static constexpr int kDQBytes = kOBQ * kDQK * 4;
+    static constexpr int kDQS = kDQK > 128 ? 64 : kDQK;  // a dQ slice's columns
+    static constexpr int kSlices = (kDQK + kDQS - 1) / kDQS;
+    static constexpr int kDQBytes = kOBQ * kDQS * 4;
     static constexpr int kBarBytes = 8 * 16;
     static constexpr int kDQBufs = 2;  // one a consumer warpgroup, each with a writer warp
     // the next tile's S^T and dP^T issued before this tile's dQ share: at 128
     // they would keep 64 registers live beside dK, dV and the share (256)
     static constexpr bool kEarly = kDQK < 128;
+    // S^T, then dP^T in halves: above 128 dK and dV hold (kDQK + kDV) / 2
+    // = 160 registers, and both products' 64 beside them left ptxas too few
+    // of 240 for the wgmma pipeline (C7512, 956 bytes of spills)
+    static constexpr bool kSerialSdP = kDQK + kDV > 256;
     static constexpr int kFixed = 1024 + kKVBytes + 2 * kDSBytes + kDQBufs * kDQBytes + kBarBytes;
     static constexpr int kFit = (kSmemLimit - kFixed) / kStageBytes;
     static constexpr int kStages = kFit >= 4 ? 4 : kFit;
     static constexpr int kSmem = kFixed + kStages * kStageBytes;
-    static_assert(DQK == DV && DQK <= 128, "the one pass takes the square instances up to 128");
+    static_assert(kDQK % 16 == 0 && kDV % 16 == 0 && kDQS % kBox == 0, "k-steps of 16, slices of whole boxes");
+    static_assert(kSlices <= 3 && (kSlices == 1 || !kEarly), "one to three slices, the early issue on one");
     static_assert(kStages >= 2 && kSmem <= kSmemLimit, "the one pass's tiles do not fit shared memory");
 };
 
@@ -1412,6 +1082,11 @@ struct Flag {
     static constexpr bool value = B;
 };
 
+template <int J>
+struct Index {
+    static constexpr int value = J;
+};
+
 struct OneSmem {
     uint32_t sK, sV, sQ, sO, sDS, sDQ, stats, bars;
     const float* stats_f;
@@ -1420,10 +1095,10 @@ struct OneSmem {
 
 // One consumer warpgroup (wg 0 or 1, warp-uniform: keys [64 wg, 64 wg + 64)
 // of a key tile).  The two take a tile's dQ share in turns: the warpgroup of
-// the share's parity multiplies dS (both halves) by K over the whole width
-// and hands the share on, while the other goes on to the next tile's S^T
-// and dP^T, so that the tensor cores have the one's products while the
-// other takes its exps.
+// the share's parity multiplies dS (both halves) by K, a slice of columns at
+// a time, and hands each slice on, while the other goes on to the next
+// tile's S^T and dP^T, so that the tensor cores have the one's products
+// while the other takes its exps.
 template <int DQK, int DV>
 __device__ __forceinline__ void one_consumer(const OneSmem& L, const BwdParams& p, int wg) {
     using Cfg = OneCfg<DQK, DV>;
@@ -1445,7 +1120,7 @@ __device__ __forceinline__ void one_consumer(const OneSmem& L, const BwdParams& 
     auto dq_full = [&](int i) { return L.bars + 8u * (2 + 2 * STAGES + i); };
     auto dq_empty = [&](int i) { return L.bars + 8u * (2 + 2 * STAGES + NBUF + i); };
 
-    float dva[Cfg::kDV / 2], dka[Cfg::kDQK / 2], dqa[Cfg::kDQK / 2];
+    float dva[Cfg::kDV / 2], dka[Cfg::kDQK / 2];
     float sacc[BQ / 2], dpacc[BQ / 2];
     int use = 0;  // q tiles through the ring so far, and dQ shares handed on (one a tile)
 
@@ -1496,14 +1171,12 @@ __device__ __forceinline__ void one_consumer(const OneSmem& L, const BwdParams& 
             const float* lse2 = L.stats_f + s * 2 * BQ;
             const float* delta = lse2 + BQ;
 
-            if constexpr (!Cfg::kEarly) issue_sdp(u);
-            wgmma_wait<1>();  // dP^T runs while the exps of S^T are taken
-            fence_regs(sacc);
-            {
-                // keys past sk, or (causal) keys past a row of the tile: mask
-                const bool masked = edge_keys || (p.causal && wkey0 + 63 > q0);
+            uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+            // keys past sk, or (causal) keys past a row of the tile: mask
+            const bool masked = edge_keys || (p.causal && wkey0 + 63 > q0);
+            auto take_p = [&](auto lo, auto hi) {  // P in sacc[lo, hi)
 #pragma unroll
-                for (int i = 0; i < BQ / 2; ++i) {
+                for (int i = decltype(lo)::value; i < decltype(hi)::value; ++i) {
                     const int c = (i / 4) * 8 + tq * 2 + (i & 1);  // the q row, from q0
                     float pv = ex2(fmaf(sacc[i], scale_log2, -lse2[c]));
                     if (masked) {
@@ -1512,17 +1185,55 @@ __device__ __forceinline__ void one_consumer(const OneSmem& L, const BwdParams& 
                     }
                     sacc[i] = pv;
                 }
-            }
-            wgmma_wait<0>();
-            fence_regs(dpacc);
+            };
+            if constexpr (Cfg::kSerialSdP) {
+                // S^T, then dP^T in two halves of BQ / 2 q rows (16 registers
+                // each), each running while the exps of its half of S^T are
+                // taken: P meets each half of dP - delta in f32, as below 128
+                float dph[BQ / 4];
+                mbar_wait(full(s), (n / STAGES) & 1);
+                wgmma_fence();
+                issue_ss<ROW, Cfg::kDQK / 16, BQ>(sacc, k_rows, BK * ROW, q_tile, BQ * ROW);
+                wgmma_commit();
+                issue_ss<ROW, Cfg::kDV / 16, BQ / 2>(dph, v_rows, BK * ROW, o_tile, BQ * ROW);
+                wgmma_commit();
+                wgmma_wait<1>();
+                fence_regs(sacc);
+                take_p(Index<0>{}, Index<BQ / 4>{});
+                auto half = [&](auto index) {
+                    constexpr int HF = decltype(index)::value;
+                    wgmma_wait<0>();
+                    fence_regs(dph);
 #pragma unroll
-            for (int i = 0; i < BQ / 2; ++i) {
-                const int c = (i / 4) * 8 + tq * 2 + (i & 1);
-                dpacc[i] = sacc[i] * (dpacc[i] - delta[c]) * p.scale;
+                    for (int j = 0; j < BQ / 8; ++j) {
+                        const int i = HF * (BQ / 8) + j;  // the pair's number in the tile's accumulator
+                        const int c = (i / 2) * 8 + tq * 2;
+                        pf[i / 4][i % 4] = pack_bf16(sacc[2 * i], sacc[2 * i + 1]);
+                        df[i / 4][i % 4] = pack_bf16(sacc[2 * i] * (dph[2 * j] - delta[c]) * p.scale,
+                                                     sacc[2 * i + 1] * (dph[2 * j + 1] - delta[c + 1]) * p.scale);
+                    }
+                };
+                half(Index<0>{});
+                wgmma_fence();
+                issue_ss<ROW, Cfg::kDV / 16, BQ / 2>(dph, v_rows, BK * ROW, o_tile + (BQ / 2) * ROW, BQ * ROW);
+                wgmma_commit();
+                take_p(Index<BQ / 4>{}, Index<BQ / 2>{});
+                half(Index<1>{});
+            } else {
+                if constexpr (!Cfg::kEarly) issue_sdp(u);
+                wgmma_wait<1>();  // dP^T runs while the exps of S^T are taken
+                fence_regs(sacc);
+                take_p(Index<0>{}, Index<BQ / 2>{});
+                wgmma_wait<0>();
+                fence_regs(dpacc);
+#pragma unroll
+                for (int i = 0; i < BQ / 2; ++i) {
+                    const int c = (i / 4) * 8 + tq * 2 + (i & 1);
+                    dpacc[i] = sacc[i] * (dpacc[i] - delta[c]) * p.scale;
+                }
+                pack_a(pf, sacc);
+                pack_a(df, dpacc);
             }
-            uint32_t pf[BQ / 16][4], df[BQ / 16][4];
-            pack_a(pf, sacc);
-            pack_a(df, dpacc);
             // dS^T into this warpgroup's 64 rows of the buffer, 128-byte
             // swizzled as a wgmma operand: row r's 16-byte chunk c at c ^ (r & 7)
             {
@@ -1553,33 +1264,46 @@ __device__ __forceinline__ void one_consumer(const OneSmem& L, const BwdParams& 
             if ((n & 1) != wg) {
                 if constexpr (EARLY) issue_sdp(u + 1);
             } else {
-                // the tile's dQ share: dS (64 x 128 keys, the buffer read
-                // MN-major) times K (MN-major, boxes BK * ROW apart), then to
-                // this warpgroup's buffer for its writer to store or add in turn
-                wgmma_fence();
+                // the tile's dQ share, in kSlices slices of kDQS columns: dS
+                // (64 x 128 keys, the buffer read MN-major) times K's columns
+                // (MN-major, boxes BK * ROW apart), each to the next buffer
+                // in turn (slice m of the CTA's walk to buffer m % NBUF) for
+                // that buffer's writer to store or add
+                auto slice = [&](auto index) {
+                    constexpr int J = decltype(index)::value;
+                    constexpr int C0 = J * Cfg::kDQS;
+                    constexpr int W = Cfg::kDQK - C0 < Cfg::kDQS ? Cfg::kDQK - C0 : Cfg::kDQS;
+                    float dqa[W / 2];
+                    wgmma_fence();
 #pragma unroll
-                for (int ks = 0; ks < BK / 16; ++ks) {
-                    wgmma_ss_tt(dqa, swizzled_desc<128>(ds + ks * 16 * 128, BK * 128),
-                                swizzled_desc<ROW>(L.sK + ks * 16 * ROW, BK * ROW), ks > 0);
-                }
-                wgmma_commit();
-                if constexpr (EARLY) {
-                    issue_sdp(u + 1);
-                    wgmma_wait<2>();  // the share is done; the next S^T and dP^T may still run
-                } else {
-                    wgmma_wait<0>();
-                }
-                fence_regs(dqa);
-                const int sh = n >> 1;  // this warpgroup's share number
-                if (sh >= 1) mbar_wait(dq_empty(wg), (sh - 1) & 1);
-                float4* dst = reinterpret_cast<float4*>(L.dq_f + wg * BQ * Cfg::kDQK);
+                    for (int ks = 0; ks < BK / 16; ++ks) {
+                        wgmma_ss_tt(dqa, swizzled_desc<128>(ds + ks * 16 * 128, BK * 128),
+                                    swizzled_desc<ROW>(L.sK + (C0 / Cfg::kBox) * BK * ROW + ks * 16 * ROW, BK * ROW),
+                                    ks > 0);
+                    }
+                    wgmma_commit();
+                    if constexpr (EARLY) {
+                        issue_sdp(u + 1);
+                        wgmma_wait<2>();  // the share is done; the next S^T and dP^T may still run
+                    } else {
+                        wgmma_wait<0>();
+                    }
+                    fence_regs(dqa);
+                    const int m = n * Cfg::kSlices + J;  // the slice's number in the CTA's walk
+                    const int buf = m % NBUF;            // below 128: this warpgroup's, wg
+                    if (m >= NBUF) mbar_wait(dq_empty(buf), (m / NBUF - 1) & 1);
+                    float4* dst = reinterpret_cast<float4*>(L.dq_f + buf * BQ * Cfg::kDQS);
 #pragma unroll
-                for (int f = 0; f < Cfg::kDQK / 8; ++f) {
-                    dst[f * 128 + t] = make_float4(dqa[4 * f], dqa[4 * f + 1], dqa[4 * f + 2], dqa[4 * f + 3]);
-                }
-                fence_async_shared();
-                __syncwarp();
-                if (lane == 0) mbar_arrive(dq_full(wg));
+                    for (int f = 0; f < W / 8; ++f) {
+                        dst[f * 128 + t] = make_float4(dqa[4 * f], dqa[4 * f + 1], dqa[4 * f + 2], dqa[4 * f + 3]);
+                    }
+                    fence_async_shared();
+                    __syncwarp();
+                    if (lane == 0) mbar_arrive(dq_full(buf));
+                };
+                slice(Index<0>{});
+                if constexpr (Cfg::kSlices > 1) slice(Index<1>{});
+                if constexpr (Cfg::kSlices > 2) slice(Index<2>{});
             }
             if (LAST && lane == 0) mbar_arrive(L.bars + 8);  // done with K and V
         };
@@ -1681,7 +1405,7 @@ __global__ void __launch_bounds__(kOThreads, 1)
             mbar_init(empty(s), 8);
         }
         for (int i = 0; i < NBUF; ++i) {
-            mbar_init(dq_full(i), 4);  // the warps of the share's consumer
+            mbar_init(dq_full(i), 4);  // the warps of the consumer that wrote the slice
             mbar_init(dq_empty(i), 1);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1742,13 +1466,13 @@ __global__ void __launch_bounds__(kOThreads, 1)
                 use += it.n_uses;
             }
         } else if ((threadIdx.x & 31) == 0 && threadIdx.x / 32 <= NBUF) {
-            // ---- dQ: warp 1 + w writes consumer w's shares (every tile of
-            // this CTA's walk whose number has w's parity), from buffer w.  A
-            // share is stored (key tile 0's) or added onto its q tile's
-            // accumulator once the tile's counter reads its key tile; when
-            // the add is complete the counter moves on.
+            // ---- dQ: warp 1 + w writes buffer w's slices (slice m of this
+            // CTA's walk where m % NBUF is w; below 128 a slice is a share,
+            // and buffer w consumer w's).  A slice is stored (key tile 0's)
+            // or added onto its accumulator once its counter reads its key
+            // tile; when the add is complete the counter moves on.
             const int w = threadIdx.x / 32 - 1;
-            int sh = 0;
+            int m = 0;  // dQ slices of this CTA's walk so far
             for (int k = 0;; ++k) {
                 const int r = one_number(k);
                 if (r >= p.n_items) break;
@@ -1756,25 +1480,31 @@ __global__ void __launch_bounds__(kOThreads, 1)
                 for (int u = 0; u < it.n_uses; ++u) {
                     int head, qt;
                     one_walk(p, it, u, head, qt);
-                    if (sh++ % NBUF != w) continue;
-                    const int n = (sh - 1) / NBUF;
                     const long long tile = (static_cast<long long>(it.batch) * p.h + head) * p.n_qt + qt;
-                    float* acc = p.dq_acc + tile * BQ * Cfg::kDQK;
-                    const uint32_t src = L.sDQ + w * Cfg::kDQBytes;
-                    if (it.kt > 0) wait_count(p.ctr + tile, static_cast<unsigned>(it.kt));
-                    mbar_wait(dq_full(w), n & 1);
-                    if (it.kt > 0) {
+#pragma unroll
+                    for (int j = 0; j < Cfg::kSlices; ++j, ++m) {
+                        if (m % NBUF != w) continue;
+                        // slice j: the float4s [j kDQS / 8, ...) of the tile's block, which
+                        // is in the consumers' fragment order, 8 columns a float4
+                        unsigned* ctr = p.ctr + tile * Cfg::kSlices + j;
+                        float* acc = p.dq_acc + tile * BQ * Cfg::kDQK + j * BQ * Cfg::kDQS;
+                        const uint32_t src = L.sDQ + w * Cfg::kDQBytes;
+                        const uint32_t bytes = BQ * min(Cfg::kDQS, Cfg::kDQK - j * Cfg::kDQS) * 4;
+                        if (it.kt > 0) wait_count(ctr, static_cast<unsigned>(it.kt));
+                        mbar_wait(dq_full(w), (m / NBUF) & 1);
+                        if (it.kt > 0) {
+                            fence_async_global();
+                            bulk_add_f32(acc, src, bytes);
+                        } else {
+                            bulk_store(acc, src, bytes);
+                        }
+                        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+                        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+                        mbar_arrive(dq_empty(w));
+                        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
                         fence_async_global();
-                        bulk_add_f32(acc, src, Cfg::kDQBytes);
-                    } else {
-                        bulk_store(acc, src, Cfg::kDQBytes);
+                        add_release(ctr);
                     }
-                    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-                    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-                    mbar_arrive(dq_empty(w));
-                    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-                    fence_async_global();
-                    add_release(p.ctr + tile);
                 }
             }
         }
@@ -1847,20 +1577,22 @@ int instance_of(int dqk, int dv) {
     return (dqk <= 192 && dv <= 128) ? 192 : 0;
 }
 
-// Path ids, as kernel.py names them: 0 "fma", 1 "wgmma1" (the one pass), 2
-// "wgmma2" (the two passes: 160 and (192, 128), where dK, dV and a dQ share
-// do not fit the registers and the tiles not shared memory).
+// Path ids, as kernel.py names them: 0 "fma", 1 "wgmma1" (the one pass, at
+// every instance).
 int path_of(int dtype, int dqk, int dv) {
     const int inst = instance_of(dqk, dv);
     if (inst == 0 || (dtype != 0 && dtype != 1)) return kErrNotBuilt;
-    if (dtype == 0) return 0;
-    return inst <= 128 ? 1 : 2;
+    return dtype == 0 ? 0 : 1;
 }
 
 int sq_padded(int sq) { return (sq + kRowPad - 1) / kRowPad * kRowPad; }
 
 // The one pass's padded row width at an instance (80's rows pad to 96)
 int padded_width(int inst) { return inst == 80 ? 96 : inst; }
+
+// The dQ slices of a share at that width (OneCfg's kSlices): one up to 128,
+// slices of 64 columns above
+int slices_of(int width) { return width > 128 ? (width + 63) / 64 : 1; }
 
 // G, the groups a kv head's g q heads are split into: the fewest (a divisor
 // of g) such that the heaviest item (key tile 0's, which meets every q tile
@@ -1879,7 +1611,7 @@ int groups_of(int b, int kvh, int g, int n_qt, int n_kt, int causal) {
 
 // The scratch a call takes, in floats, and where each part lies: lse * log2(e)
 // and delta ((b, h, sq_pad) each); for the one pass also the counters (dQ's
-// (b, h, n_qt), then dK/dV's (b, kvh, n_kt) where G > 1; padded to 4
+// (b, h, n_qt, slices), then dK/dV's (b, kvh, n_kt) where G > 1; padded to 4
 // floats), dQ's accumulator (b h n_qt blocks of 64 x the padded dqk) and,
 // where G > 1, dK/dV's (b kvh n_kt blocks of 128 x twice the padded width).
 // kernel.py's `scratch_floats` is the same sum.
@@ -1898,13 +1630,14 @@ Layout layout_of(int path, int b, int h, int kvh, int sq, int sk, int dqk, int d
     L.n_qt = (sq + kOBQ - 1) / kOBQ;
     L.n_kt = (sk + kHRows - 1) / kHRows;
     L.groups = groups_of(b, kvh, h / kvh, L.n_qt, L.n_kt, causal);
-    const long long dq_ctr = static_cast<long long>(b) * h * L.n_qt;
+    const long long dq_blocks = static_cast<long long>(b) * h * L.n_qt;
+    const long long dq_ctr = dq_blocks * slices_of(w);
     const long long dkv_n = L.groups > 1 ? static_cast<long long>(b) * kvh * L.n_kt : 0;
     L.ctr = L.total;
     L.n_ctr = dq_ctr + dkv_n;
     L.dkv_ctr = L.ctr + dq_ctr;
     L.dq_acc = L.ctr + (L.n_ctr + 3) / 4 * 4;
-    L.dkv_acc = L.dq_acc + dq_ctr * kOBQ * w;
+    L.dkv_acc = L.dq_acc + dq_blocks * kOBQ * w;
     L.total = L.dkv_acc + dkv_n * kHRows * 2 * w;
     return L;
 }
@@ -1972,37 +1705,6 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, i
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DQK, int DV>
-int launch_hopper(const BwdParams& p, cudaStream_t stream) {
-    using Cfg = BwdCfg<DQK, DV>;
-    const EncodeTiled encode = encoder();
-    if (encode == nullptr) return kErrNoEncoder;
-    constexpr int box = Cfg::kBox;
-    // the dk/dv pass: K and V tiles of 128 keys, Q and dout tiles of kBQ rows;
-    // the dq pass: Q and dout tiles of 128 rows, K and V tiles of kBN keys
-    CUtensorMap kv_q, kv_k, kv_v, kv_do, q_q, q_k, q_v, q_do;
-    const bool ok =
-        encode_map(encode, &kv_q, p.q, p.wqk, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, Cfg::kBQ) &&
-        encode_map(encode, &kv_k, p.k, p.wqk, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, kHRows) &&
-        encode_map(encode, &kv_v, p.v, p.wv, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, kHRows) &&
-        encode_map(encode, &kv_do, p.dout, p.wv, p.sq, p.h, p.b, p.do_ss, p.do_sh, p.do_sb, box, Cfg::kBQ) &&
-        encode_map(encode, &q_q, p.q, p.wqk, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, box, kHRows) &&
-        encode_map(encode, &q_k, p.k, p.wqk, p.sk, p.kvh, p.b, p.k_ss, p.k_sh, p.k_sb, box, Cfg::kBN) &&
-        encode_map(encode, &q_v, p.v, p.wv, p.sk, p.kvh, p.b, p.v_ss, p.v_sh, p.v_sb, box, Cfg::kBN) &&
-        encode_map(encode, &q_do, p.dout, p.wv, p.sq, p.h, p.b, p.do_ss, p.do_sh, p.do_sb, box, kHRows);
-    if (!ok) return kErrTensorMap;
-    cudaError_t err = set_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_hopper<DQK, DV>), Cfg::kKVSmem);
-    if (err == cudaSuccess) err = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_hopper<DQK, DV>), Cfg::kQSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int n_kt = (p.sk + kHRows - 1) / kHRows;
-    flash_bwd_dkdv_hopper<DQK, DV><<<n_kt * p.b * p.kvh, kHThreads, Cfg::kKVSmem, stream>>>(kv_q, kv_k, kv_v, kv_do, p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int n_qt = (p.sq + kHRows - 1) / kHRows;
-    flash_bwd_dq_hopper<DQK, DV><<<n_qt * p.b * p.h, kHThreads, Cfg::kQSmem, stream>>>(q_q, q_k, q_v, q_do, p);
-    return static_cast<int>(cudaGetLastError());
-}
-
 // The one pass: flash_bwd_hopper over a persistent grid of at most one CTA
 // an SM (its shared memory admits no second), K and V tiles of 128 keys, Q
 // and dout tiles of 64 rows
@@ -2036,7 +1738,7 @@ int launch_one(const BwdParams& p, cudaStream_t stream) {
 }  // namespace
 
 // Which path takes (dtype, qk head dim, v head dim): 0 the FMA passes, 1
-// the one pass, 2 the two wgmma passes, -1 none.  kernel.py's
+// the one pass, -1 none.  kernel.py's
 // `kernel_bwd_path` is the same table; a card test holds the two together.
 extern "C" int flash_attention_bwd_path(int dtype, int dqk, int dv) { return path_of(dtype, dqk, dv); }
 
@@ -2060,15 +1762,15 @@ extern "C" long long flash_attention_bwd_scratch_floats(int dtype, int b, int h,
 // 16-byte boundary.  `lse` is (b, h, sq) contiguous; `scratch` holds
 // `flash_attention_bwd_scratch_floats` floats (kernel.py's
 // `scratch_floats`), 16-byte aligned.  Three launches go onto `stream`
-// (delta, then the one pass and dq's convert, or the two passes); nothing
-// is allocated and nothing synchronises.
+// (delta, then the one pass and dq's convert, or the two FMA passes);
+// nothing is allocated and nothing synchronises.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                    const float* lse, void* dq, void* dk, void* dv, float* scratch, int dtype,
                                    int b, int h, int kvh, int sq, int sk, int dqk, int dv_dim,
                                    const long long* strides, float scale, int causal, void* stream) {
     const int path = path_of(dtype, dqk, dv_dim);
     if (path < 0) return kErrNotBuilt;
-    if (path >= 1 && (dqk % 8 != 0 || dv_dim % 8 != 0)) return kErrWidth;
+    if (path == 1 && (dqk % 8 != 0 || dv_dim % 8 != 0)) return kErrWidth;
     BwdParams p;
     p.q = q;
     p.k = k;
@@ -2124,12 +1826,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
             case 64: return launch_one<64, 64>(p, s);
             case 80: return launch_one<80, 80>(p, s);
             case 96: return launch_one<96, 96>(p, s);
-            default: return launch_one<128, 128>(p, s);
+            case 128: return launch_one<128, 128>(p, s);
+            case 160: return launch_one<160, 160>(p, s);
+            default: return launch_one<192, 128>(p, s);
         }
-    }
-    if (path == 2) {
-        if (instance_of(dqk, dv_dim) == 160) return launch_hopper<160, 160>(p, s);
-        return launch_hopper<192, 128>(p, s);
     }
     switch (instance_of(dqk, dv_dim)) {
         case 32: return launch_fma<32, 32>(p, s);

@@ -26,13 +26,12 @@ The backward is ``csrc/flash_attention_bwd.cu``, a library of its own (the
 forward's object code does not move with it): ``flash_attention_bwd``
 launches it on CUDA tensors or raises, and counts its calls in
 ``flash_attention_bwd.launches``.  ``kernel_bwd_path(dtype, dqk, dv)`` says
-which of its paths takes a call, a static table by instance: bf16 at the
-instances up to 128 the one pass (``"wgmma1"``: dQ, dK and dV in one walk
-over key tiles, dQ's shares added in a fixed order onto a float32
-accumulator in the scratch, so two calls give the same bits), bf16 at 160
-and (192, 128) the two passes (``"wgmma2"``: registers cannot hold dK, dV
-and a dQ share there), float32 the FMA passes (``"fma"``), at the forward's
-instances and widths.  ``scratch_floats`` is the scratch a call takes, as
+which of its paths takes a call, a static table by instance: bf16 the one
+pass (``"wgmma1"``: dQ, dK and dV in one walk over key tiles, dQ's shares
+added in a fixed order onto a float32 accumulator in the scratch, so two
+calls give the same bits; above 128 a share is taken in slices of 64
+columns), float32 the FMA passes (``"fma"``), at the forward's instances
+and widths.  ``scratch_floats`` is the scratch a call takes, as
 the C entry lays it out; ``bwd_groups`` is the source's rule that splits a
 kv head's q heads over the one pass's items.
 
@@ -69,6 +68,7 @@ __all__ = [
     "build",
     "build_bwd",
     "bwd_groups",
+    "dq_slices",
     "flash_attention_bwd",
     "flash_attention_fwd",
     "kernel_bwd_path",
@@ -87,8 +87,9 @@ _BWD_SOURCE = _SOURCE.with_name("flash_attention_bwd.cu")
 # the source's kernels, by the id that its `flash_attention_path` returns
 PATHS = ("f32", "wgmma")
 # the backward source's paths, by the id that `flash_attention_bwd_path` returns
-BWD_PATHS = ("fma", "wgmma1", "wgmma2")
-ONE_PASS_WIDTHS = {32: 32, 64: 64, 80: 96, 96: 96, 128: 128}  # the one pass's instances and their padded rows
+BWD_PATHS = ("fma", "wgmma1")
+# the one pass's instances (by qk width) and their padded rows
+ONE_PASS_WIDTHS = {32: 32, 64: 64, 80: 96, 96: 96, 128: 128, 160: 160, 192: 192}
 _ITEM_SMS = 132  # the H100's SMs, which the source's rule that sizes the one pass's items counts on
 # what the C entry returns besides a cudaError_t
 _ERRORS = {
@@ -132,17 +133,13 @@ def kernel_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
 
 
 def kernel_bwd_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
-    """The backward's path for ``(dtype, dqk, dv)``: ``"wgmma1"`` (bf16 at
-    the instances up to 128: the one pass), ``"wgmma2"`` (bf16 at 160 and
-    (192, 128): the two passes, where ptxas cannot keep dK, dV and a dQ share
-    in registers and the tiles do not fit shared memory) or ``"fma"``
-    (float32).  Raises, before any build, for what ``kernel_path`` refuses:
-    the two sources build the same instances.  The C entry's
-    ``flash_attention_bwd_path`` is the same table."""
+    """The backward's path for ``(dtype, dqk, dv)``: ``"wgmma1"`` (bf16, at
+    every instance: the one pass) or ``"fma"`` (float32).  Raises, before
+    any build, for what ``kernel_path`` refuses: the two sources build the
+    same instances.  The C entry's ``flash_attention_bwd_path`` is the same
+    table."""
     kernel_path(dtype, dqk, dv)
-    if dtype == torch.float32:
-        return "fma"
-    return "wgmma1" if kernel_instance(dqk, dv)[0] in ONE_PASS_WIDTHS else "wgmma2"
+    return "fma" if dtype == torch.float32 else "wgmma1"
 
 
 def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -341,11 +338,11 @@ def scratch_floats(path: str, b: int, h: int, kvh: int, sq: int, sk: int, dqk: i
     """Floats of scratch a backward call takes, as its C entry lays them out
     (the source's ``layout_of``): lse * log2(e) and delta, each (b, h, sq)
     padded to a multiple of 128 rows; for the one pass (``"wgmma1"``) also
-    the counters (one a (batch, q head, q tile of 64), then, where G > 1, one
-    a (batch, kv head, key tile of 128); padded to 4), dQ's float32
-    accumulator (b h n_qt blocks of 64 rows x the instance's padded qk width)
-    and, where G > 1, dK's and dV's (b kvh n_kt blocks of 128 rows x twice
-    that width).  ``dqk`` and ``dv`` are the widths the C entry is given
+    the counters (one a (batch, q head, q tile of 64) and dQ slice, then,
+    where G > 1, one a (batch, kv head, key tile of 128); padded to 4), dQ's
+    float32 accumulator (b h n_qt blocks of 64 rows x the instance's padded
+    qk width) and, where G > 1, dK's and dV's (b kvh n_kt blocks of 128 rows
+    x twice that width).  ``dqk`` and ``dv`` are the widths the C entry is given
     (multiples of 8)."""
     total = 2 * b * h * (-(-sq // 128) * 128)
     if path != "wgmma1":
@@ -353,9 +350,17 @@ def scratch_floats(path: str, b: int, h: int, kvh: int, sq: int, sk: int, dqk: i
     width = ONE_PASS_WIDTHS[kernel_instance(dqk, dv)[0]]
     n_qt, n_kt = -(-sq // 64), -(-sk // 128)
     groups = bwd_groups(b, kvh, h // kvh, n_qt, n_kt, causal)
-    dq_ctr = b * h * n_qt
+    dq_blocks = b * h * n_qt
+    dq_ctr = dq_blocks * dq_slices(width)
     dkv_n = b * kvh * n_kt if groups > 1 else 0
-    return total + -(-(dq_ctr + dkv_n) // 4) * 4 + dq_ctr * 64 * width + dkv_n * 128 * 2 * width
+    return total + -(-(dq_ctr + dkv_n) // 4) * 4 + dq_blocks * 64 * width + dkv_n * 128 * 2 * width
+
+
+def dq_slices(width: int) -> int:
+    """The slices in which the one pass takes a dQ share of a padded qk
+    ``width`` (the source's ``slices_of``): one up to 128, slices of 64
+    columns above, each added behind a counter of its own."""
+    return -(-width // 64) if width > 128 else 1
 
 
 def _check_bwd(q, k, v, out, lse, dout, causal, dq, dk, dv) -> Tuple[str, bool]:
@@ -417,7 +422,7 @@ def flash_attention_bwd(
     with a zero stride (autograd's broadcast) is handed over as a copy.
     ``dq``, ``dk``, ``dv``, when given, are written in place.  One call is
     three device launches (delta, then the one pass and dq's convert, or
-    the dk/dv and dq passes) and counts one in
+    float32's dk/dv and dq passes) and counts one in
     ``flash_attention_bwd.launches``.  The launch is the custom op
     ``torch.ops.repro_torch.flash_attention_bwd``, which runs the checks.
     """

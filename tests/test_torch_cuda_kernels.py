@@ -285,8 +285,8 @@ BWD_SHAPES = [
 # The one pass's corners: ragged lengths (1, 63, 65, 127, 129, 1000), g = 1,
 # 2, 3, 4 and 8 q heads a kv head (heads split over items where the rule
 # asks it), fewer and more items than the card's 132 SMs (b kvh = 1, 4 and
-# 64), and every instance (32, 64, 80, 96, 128; 160 and (192, 128) on the
-# two passes)
+# 64), and every instance (32, 64, 80, 96, 128, and 160 and (192, 128),
+# whose dQ shares go in slices: MLA's at the ragged lengths, g = 1 and 2)
 BWD_ONE_PASS_SHAPES = [
     (1, 2, 1, 1, 128, 128),
     (1, 4, 2, 63, 64, 64),
@@ -299,6 +299,12 @@ BWD_ONE_PASS_SHAPES = [
     (4, 32, 16, 512, 64, 64),
     (1, 12, 4, 1024, 128, 128),
     (1, 6, 2, 333, 160, 160),
+    (1, 2, 1, 1, 192, 128),
+    (1, 4, 2, 63, 192, 128),
+    (1, 3, 3, 65, 192, 128),
+    (2, 4, 2, 129, 192, 128),
+    (1, 8, 8, 1000, 192, 128),
+    (1, 4, 4, 1000, 160, 160),
 ]
 # The kernel against its plain version (``ops.attention_bwd``, float32
 # products) on the same q, k, v, out, lse and dout, each gradient within tol
@@ -341,13 +347,12 @@ def test_flash_bwd_kernel_matches_plain(card, b, h, kvh, s, dqk, dv, causal, dty
     causal and not; not causal with other key counts than queries (sk = 2 s
     / 3 + 5)."""
     sk = s if causal else 2 * s // 3 + 5
-    bf16_path = "wgmma1" if kernel_instance(dqk, dv)[0] <= 128 else "wgmma2"
-    assert kernel_bwd_path(dtype, dqk, dv) == (bf16_path if dtype == torch.bfloat16 else "fma")
+    assert kernel_bwd_path(dtype, dqk, dv) == ("wgmma1" if dtype == torch.bfloat16 else "fma")
     _hold_bwd_to_plain(*_bwd_case(b, h, kvh, s, sk, dqk, dv, dtype, causal, card), causal)
 
 
 @pytest.mark.parametrize("sq,sk", [(70, 333), (300, 40)])
-@pytest.mark.parametrize("dqk,dv", [(128, 128), (192, 128), (80, 80), (64, 64)])
+@pytest.mark.parametrize("dqk,dv", [(128, 128), (192, 128), (80, 80), (64, 64), (160, 160)])
 def test_flash_bwd_kernel_cross_attention(card, sq, sk, dqk, dv):
     _hold_bwd_to_plain(*_bwd_case(1, 4, 2, sq, sk, dqk, dv, torch.bfloat16, False, card), False)
 
@@ -380,11 +385,16 @@ def test_flash_bwd_strided_views_and_broadcast_dout_through_ops(card, d, dtype):
     (torch.bfloat16, 80, 80, 2, 6, 2, 333), (torch.float32, 128, 128, 2, 6, 2, 333),
     (torch.bfloat16, 128, 128, 1, 24, 8, 4096),  # phi4's training shape
     (torch.bfloat16, 128, 128, 1, 12, 4, 4096),  # a model = 2 rank's: heads split over items
+    (torch.bfloat16, 192, 128, 1, 16, 16, 4096),  # deepseek's MLA training shape: dQ in 3 slices
+    (torch.bfloat16, 192, 128, 1, 8, 8, 4096),  # a deepseek rank's at model = 2
+    (torch.bfloat16, 160, 160, 1, 24, 8, 4096),  # 160: slices of 64, 64 and 32 columns
+    (torch.bfloat16, 160, 160, 1, 12, 4, 4096),  # 160 with heads split over items
 ])  # fmt: skip
 def test_flash_bwd_two_calls_are_bitwise_equal(card, dtype, dqk, dv, b, h, kvh, s):
-    """No add whose order varies: the two passes write every element once,
-    from one CTA; the one pass adds dQ's shares (and dK's and dV's where a
-    kv head's q heads are split) in a fixed order."""
+    """No add whose order varies: the FMA passes write every element once,
+    from one CTA; the one pass adds dQ's shares (each of its slices behind a
+    counter of its own; and dK's and dV's where a kv head's q heads are
+    split) in a fixed order."""
     q, k, v, out, lse, dout = _bwd_case(b, h, kvh, s, s, dqk, dv, dtype, True, card)
     args = (*(x.transpose(1, 2) for x in (q, k, v, out)), lse, dout.transpose(1, 2))
     first = flash_attention_bwd(*args, causal=True)
@@ -399,8 +409,9 @@ import numpy as np, torch
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
 rng = np.random.default_rng(3)
 mk = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", torch.bfloat16)
-b, h, kvh, sq, sk, d = 1, 8, 2, 256, 4096, 128
-q, k, v, dout = mk(b, h, sq, d), mk(b, kvh, sk, d), mk(b, kvh, sk, d), mk(b, h, sq, d)
+b, h, kvh, sq, sk = 1, 8, 2, 256, 4096
+dqk, dv = int(sys.argv[1]), int(sys.argv[2])
+q, k, v, dout = mk(b, h, sq, dqk), mk(b, kvh, sk, dqk), mk(b, kvh, sk, dv), mk(b, h, sq, dv)
 out, lse = flash_attention_fwd(q, k, v, causal=False)
 digests = set()
 for _ in range(50):
@@ -412,11 +423,13 @@ sys.exit(0 if len(digests) == 1 else 3)
 """
 
 
-def test_flash_bwd_fifty_calls_give_the_same_bits_in_their_own_process(card):
+@pytest.mark.parametrize("dqk,dv", [(128, 128), (192, 128)])
+def test_flash_bwd_fifty_calls_give_the_same_bits_in_their_own_process(card, dqk, dv):
     """50 calls where 32 key tiles add to every q tile's dQ (not causal, 4096
     keys, 256 queries; 4 q heads a kv head, split over items), in a child
     process with a time limit of its own, so that a call that hangs fails
-    this test instead of stalling the suite.  Every call gives the same bits."""
+    this test instead of stalling the suite.  Every call gives the same bits:
+    at 128 (a share a q tile) and at MLA's (192, 128) (3 slices a share)."""
     import os
     import subprocess
     import sys
@@ -424,7 +437,8 @@ def test_flash_bwd_fifty_calls_give_the_same_bits_in_their_own_process(card):
 
     src = str(Path(__file__).resolve().parents[1] / "src")
     env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    proc = subprocess.run([sys.executable, "-c", _FIFTY_CALLS], env=env, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", _FIFTY_CALLS, str(dqk), str(dv)], env=env, capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0 and "digests 1" in proc.stdout, (proc.returncode, proc.stdout, proc.stderr[-2000:])
 
 

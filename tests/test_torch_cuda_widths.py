@@ -18,7 +18,7 @@ pytestmark = pytest.mark.cuda
 
 WIDTHS = [(16, 16), (24, 24), (20, 20), (32, 32), (48, 48), (72, 72), (96, 96), (112, 112), (160, 160),
           (24, 16), (96, 64), (40, 88), (170, 100),
-          # every instance at its own width, the backward's one pass (up to 128) and two passes
+          # every instance at its own width, the backward's one pass (a share whole up to 128, in slices above)
           (64, 64), (80, 80), (128, 128), (144, 144), (192, 128), (8, 8)]
 # f32 2e-5: the same f32 arithmetic in another order.  bf16 2e-2 (output) and
 # 3e-2 of the largest gradient: both sides round p, dS and the output to bf16

@@ -83,12 +83,15 @@ def test_k1_backward_fake_matches_the_plain_outputs(no_build, b, h, kvh, s, dqk,
 
 
 # The fake backward allocates the real call's scratch: lse * log2(e) and
-# delta, and on the one pass (bf16 up to 128) the counters and dQ's float32
-# accumulator (with dK's and dV's where a kv head's q heads are split over
-# items), sized as the C entry lays them out (``scratch_floats``, the
-# source's ``layout_of``); (20, 20) reaches the kernel padded to 24.
+# delta, and on the one pass (bf16, every instance) the counters and dQ's
+# float32 accumulator (with dK's and dV's where a kv head's q heads are split
+# over items), sized as the C entry lays them out (``scratch_floats``, the
+# source's ``layout_of``); (20, 20) reaches the kernel padded to 24.  At 160
+# and (192, 128) a dQ share is 3 slices of 64 columns, a counter each: the
+# wide scratch, at deepseek's MLA training shape and at 160.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", ATTENTION + [(1, 24, 8, 4096, 128, 128)])
+@pytest.mark.parametrize("b,h,kvh,s,dqk,dv", ATTENTION + [(1, 24, 8, 4096, 128, 128), (1, 16, 16, 4096, 192, 128),
+                                                          (1, 24, 8, 4096, 160, 160)])
 def test_k1_backward_fake_allocates_the_c_entrys_scratch(no_build, monkeypatch, b, h, kvh, s, dqk, dv, dtype):
     sizes = []
 
@@ -108,7 +111,8 @@ def test_k1_backward_fake_allocates_the_c_entrys_scratch(no_build, monkeypatch, 
         n_qt, n_kt = -(-s // 64), -(-s // 128)
         groups = flash_kernel.bwd_groups(b, kvh, h // kvh, n_qt, n_kt, True)
         split = groups > 1
-        counters = b * h * n_qt + split * b * kvh * n_kt
+        slices = 3 if width > 128 else 1
+        counters = b * h * n_qt * slices + split * b * kvh * n_kt
         want = rows + -(-counters // 4) * 4 + b * h * n_qt * 64 * width + split * b * kvh * n_kt * 128 * 2 * width
     else:
         want = rows

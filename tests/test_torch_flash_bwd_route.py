@@ -42,14 +42,12 @@ def no_build(monkeypatch):
 # ---------------------------------------------------------------------------
 
 # The backward's paths, a static table by instance: bf16 takes the one pass
-# at the instances up to 128 (80's rows padded to 96) and the two passes at
-# 160 and (192, 128), where dK, dV and a dQ share do not fit the registers;
-# float32 takes the FMA passes
+# at every instance (80's rows padded to 96; at 160 and (192, 128) a dQ
+# share in slices of 64 columns); float32 takes the FMA passes
 ONE_PASS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128))
-TWO_PASSES = ((160, 160), (192, 128))
-EXPECTED_BWD = {(dtype, dqk, dv): path for dqk, dv in ONE_PASS + TWO_PASSES
-                for dtype, path in ((torch.bfloat16, "wgmma1" if (dqk, dv) in ONE_PASS else "wgmma2"),
-                                    (torch.float32, "fma"))}  # fmt: skip
+WIDE_ONE_PASS = ((160, 160), (192, 128))
+EXPECTED_BWD = {(dtype, dqk, dv): path for dqk, dv in ONE_PASS + WIDE_ONE_PASS
+                for dtype, path in ((torch.bfloat16, "wgmma1"), (torch.float32, "fma"))}  # fmt: skip
 
 # a grid around the built head dims, built and not
 GRID_DIMS = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
@@ -66,17 +64,18 @@ def test_kernel_bwd_path(no_build, dtype, dqk, dv):
     assert kernel_bwd_path(dtype, dqk, dv) == EXPECTED_BWD[(dtype, dqk, dv)]
 
 
-# Which bf16 path each width takes: the one pass wherever the instance that
-# holds (dqk, dv) is at most 128 wide, the two passes above
+# Which bf16 path each width takes: the one pass at every instance, the
+# widest (160 and (192, 128), beyond 128) with its dQ share in slices
 @pytest.mark.parametrize("dqk,dv,path", [
     (8, 8, "wgmma1"), (16, 16, "wgmma1"), (24, 16, "wgmma1"), (32, 32, "wgmma1"), (48, 48, "wgmma1"),
     (72, 72, "wgmma1"), (80, 80, "wgmma1"), (96, 64, "wgmma1"), (112, 112, "wgmma1"), (128, 128, "wgmma1"),
-    (129, 8, "wgmma2"), (144, 144, "wgmma2"), (160, 160, "wgmma2"), (161, 16, "wgmma2"), (170, 100, "wgmma2"),
-    (192, 128, "wgmma2"),
+    (129, 8, "wgmma1"), (144, 144, "wgmma1"), (160, 160, "wgmma1"), (161, 16, "wgmma1"), (170, 100, "wgmma1"),
+    (192, 128, "wgmma1"),
 ])  # fmt: skip
 def test_bf16_path_by_instance(no_build, dqk, dv, path):
     assert kernel_bwd_path(torch.bfloat16, dqk, dv) == path
-    assert (flash_kernel.kernel_instance(dqk, dv)[0] in flash_kernel.ONE_PASS_WIDTHS) == (path == "wgmma1")
+    width = flash_kernel.ONE_PASS_WIDTHS[flash_kernel.kernel_instance(dqk, dv)[0]]
+    assert flash_kernel.dq_slices(width) == (3 if max(dqk, dv) > 128 else 1)
 
 
 # The rule that sizes the one pass's items (the source's ``groups_of``): the
@@ -86,7 +85,9 @@ def test_bf16_path_by_instance(no_build, dqk, dv, path):
     (1, 8, 3, 4096, True, 1),   # phi4's training shape: 256 items, two each on 124 SMs
     (1, 4, 3, 4096, True, 3),   # a model = 2 rank's 12 / 4 heads: one head an item
     (4, 8, 3, 4096, True, 1),   # the smoke widths at b=4
-    (1, 16, 1, 4096, True, 1),  # g = 1 cannot split
+    (1, 16, 1, 4096, True, 1),  # g = 1 cannot split: deepseek's 16 / 16 MLA heads, 512 items
+    (1, 8, 1, 4096, True, 1),   # a deepseek rank's 8 / 8 at model = 2: 256 items
+    (4, 16, 1, 4096, True, 1),  # deepseek's heads at b=4
     (1, 1, 8, 4096, True, 8),
     (1, 2, 4, 4096, True, 4),
     (1, 4, 4, 4096, False, 2),  # not causal: every item meets every q tile
@@ -101,8 +102,10 @@ def test_one_pass_item_groups(b, kvh, g, s, causal, groups):
 
 
 # The scratch a call takes, written out from the C entry's layout: lse *
-# log2(e) and delta; for the one pass the counters (padded to 4 floats),
-# dQ's f32 accumulator and, where G > 1, dK's and dV's
+# log2(e) and delta; for the one pass the counters (one a q tile and dQ
+# slice, then one a key tile where G > 1; padded to 4 floats), dQ's f32
+# accumulator and, where G > 1, dK's and dV's.  At 160 and (192, 128) a
+# share is 3 slices, each behind a counter of its own
 @pytest.mark.parametrize("path,b,h,kvh,sq,sk,dqk,dv,causal,want", [
     ("wgmma1", 1, 24, 8, 4096, 4096, 128, 128, True,
      2 * 24 * 4096 + 24 * 64 + 24 * 64 * 64 * 128),
@@ -113,7 +116,16 @@ def test_one_pass_item_groups(b, kvh, g, s, causal, groups):
     ("wgmma1", 1, 4, 2, 129, 1000, 128, 128, False,
      2 * 4 * 256 + (4 * 3 + 2 * 8) + 4 * 3 * 64 * 128 + 2 * 8 * 128 * 256),
     ("wgmma1", 1, 1, 1, 65, 65, 32, 32, True, 2 * 128 + 4 + 2 * 64 * 32),
-    ("wgmma2", 1, 24, 8, 4096, 4096, 160, 160, True, 2 * 24 * 4096),
+    ("wgmma1", 1, 24, 8, 4096, 4096, 160, 160, True,
+     2 * 24 * 4096 + 24 * 64 * 3 + 24 * 64 * 64 * 160),
+    ("wgmma1", 1, 16, 16, 4096, 4096, 192, 128, True,  # deepseek's MLA training shape
+     2 * 16 * 4096 + 16 * 64 * 3 + 16 * 64 * 64 * 192),
+    ("wgmma1", 1, 8, 8, 4096, 4096, 192, 128, True,  # a deepseek rank's at model = 2
+     2 * 8 * 4096 + 8 * 64 * 3 + 8 * 64 * 64 * 192),
+    ("wgmma1", 1, 12, 4, 4096, 4096, 160, 160, True,  # G = 3 at 160
+     2 * 12 * 4096 + (12 * 64 * 3 + 4 * 32) + 12 * 64 * 64 * 160 + 4 * 32 * 128 * 2 * 160),
+    ("wgmma1", 2, 4, 2, 300, 300, 192, 128, True,  # G = 2, ragged: 5 q tiles, 3 key tiles
+     2 * 2 * 4 * 384 + (2 * 4 * 5 * 3 + 2 * 2 * 3) + 2 * 4 * 5 * 64 * 192 + 2 * 2 * 3 * 128 * 2 * 192),
     ("fma", 1, 24, 8, 4096, 4096, 128, 128, True, 2 * 24 * 4096),
 ])  # fmt: skip
 def test_scratch_floats_is_the_c_entrys_layout(path, b, h, kvh, sq, sk, dqk, dv, causal, want):
