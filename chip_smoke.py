@@ -300,8 +300,10 @@ BATCH, PROMPT_LEN, GEN = 4, 4096, 32
 
 # (b, h, kvh, s, d, causal): the four shapes of tests/test_kernels.py, one
 # ragged length, the non-causal case, llava's 7 and command-r's 12 q heads a kv
-# head at a ragged length, head dim 80 (causal, and non-causal at 4 q heads a kv head) and the
-# smoke configs' 16
+# head at a ragged length, head dim 80 (causal, and non-causal at 4 q heads a kv head), the
+# smoke configs' 16, and the bf16 schedule's edges: an odd group whose band holds every q tile
+# (3 / 1 at 333), one q tile shorter than a key tile under a band wider than the q tiles (2 / 1
+# at 77), and 40 keys, not causal
 KERNEL_SHAPES = [
     (1, 4, 4, 128, 64, True),
     (2, 8, 2, 256, 64, True),
@@ -314,6 +316,9 @@ KERNEL_SHAPES = [
     (1, 4, 4, 200, 80, True),
     (2, 8, 2, 333, 80, False),
     (2, 4, 2, 130, 16, True),
+    (1, 3, 1, 333, 128, True),
+    (2, 2, 1, 77, 128, True),
+    (1, 2, 1, 40, 64, False),
 ]
 # (b, h, kvh, s, dqk, dv, causal): MLA's pair (deepseek-v2-lite: qk 192 = nope
 # 128 + rope 64, v 128, kvh = h = 16) at lengths shorter than one tile and one
@@ -329,6 +334,11 @@ MUSICGEN_HEADS = (24, 24, 64)
 # float32: the same f32 arithmetic in another order.  bfloat16: p and the
 # output are rounded to 8 bits of mantissa at different places on each side.
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# K1 in bf16 at phi4's, llava's and command-r's prefill shapes (b=4, 4096 tokens): the error's
+# norm over the plain version's.  The kernel read 2.919e-3, 2.909e-3 and 2.918e-3 there
+# (PERF.md section 6, "K1's forward at large GQA groups"); 10 % over the largest.  One rounding more moves it where the
+# largest absolute error (a bf16 step) does not.
+FWD_REL_TOL = 1.10 * 2.919e-3
 # K1's widths beyond its first instances: the smoke configs' 16, 24, 32, 48, 96, the widest
 # square (160), deepseek's smoke MLA (24, 16) and (96, 64), against the plain versions in
 # float32 and bf16 at WIDTHS_CHECK (b, h, kvh, s: ragged, 4 q heads a kv head), the backward
@@ -399,6 +409,12 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # largest entry: the kernel rounds P and dS to bf16 as tensor-core operands and
 # both round the gradients to bf16
 BWD_TOL = 2e-2
+# and at phi4's, MLA's and 160's training shapes, each gradient's error norm over the plain
+# version's within the errors of one rounding of dS (PERF.md section 6, "dS's rounding at the
+# wide instances": the two passes read dq 1.377e-3 and 1.382e-3, dk 2.561e-3 and 2.571e-3, dv 2.535e-3 and 2.528e-3 at
+# (192, 128) and 160), rounded up, with 10 % over them: dS rounded once more put 2.6x into dq,
+# which BWD_TOL cannot see
+BWD_REL_TOL = {name: 1.10 * err for name, err in {"dq": 1.38e-3, "dk": 2.57e-3, "dv": 2.54e-3}.items()}
 # the backward's timing in turns: rounds of (kernel, SDPA, PyTorch FA-2) then
 # the reverse; iterations of each (the FA-2 backward takes some 25 ms)
 BWD_ROUNDS, BWD_ITERS, FA2_ITERS = 2, 20, 2
@@ -509,10 +525,11 @@ def ssd_bound(b, s, h, p, n, chunk, dtype_name):
     return bound(nbytes, ssd_flops(b, s, h, p, n, chunk), dtype_name)
 
 
-def attention_at_shape(gen, b, s, h, kvh, d, with_plain, dv=None, tag="[kernels]") -> dict:
+def attention_at_shape(gen, b, s, h, kvh, d, with_plain, dv=None, tag="[kernels]", rel_tol=None) -> dict:
     """K1 through ``ops.flash_attention`` on the models' (b, s, h, d) layout,
     bf16, causal, on inputs drawn from ``gen``: checked against the plain
-    version, then timed beside it, one SDPA call and the bound."""
+    version (and, with ``rel_tol``, its error's norm over the plain version's
+    within it), then timed beside it, one SDPA call and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -537,14 +554,18 @@ def attention_at_shape(gen, b, s, h, kvh, d, with_plain, dv=None, tag="[kernels]
     ref = torch.cat([attention_ref(qt[i : i + 1], kt[i : i + 1], vt[i : i + 1], causal=True) for i in rows])
     ref = ref.transpose(1, 2)
     err = (out.float() - ref.float()).abs().max().item()
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
     ref_lse = torch.cat([attention_ref_lse(qt[i : i + 1], kt[i : i + 1], causal=True) for i in rows])
     lse_err = (lse - ref_lse).abs().max().item()
     tol = KERNEL_TOL["bfloat16"]
     dims = f"d={d}" if dv == d else f"dqk={d} dv={dv}"
     if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) or not lse_err <= 2e-3:
         raise SystemExit(f"flash_attention disagrees at b={b} s={s} h={h} kvh={kvh} {dims}: {err}, lse {lse_err}")
+    if rel_tol is not None and not rel <= rel_tol:
+        raise SystemExit(f"flash_attention at b={b} s={s} h={h} kvh={kvh} {dims}: the error's norm over the plain "
+                         f"version's is {rel:.3e}, past {rel_tol:.3e}")
     del ref
-    row = {"path": kernel_path(torch.bfloat16, d, dv), "max_abs_err": err,
+    row = {"path": kernel_path(torch.bfloat16, d, dv), "max_abs_err": err, "rel_err": rel,
            "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)}
     row["plain_ms"] = (time_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=3, warmup=1)
                        if with_plain else None)
@@ -564,7 +585,8 @@ def attention_at_shape(gen, b, s, h, kvh, d, with_plain, dv=None, tag="[kernels]
     library = ("none" if row["library_ms"] is None else
                f"{row['library_ms']:.3f} ms ({row['ms'] / row['library_ms']:.2f}x)")
     print(f"{tag} flash_attention_fwd b={b} s={s} h={h} kvh={kvh} {dims} bf16 causal, {row['path']} path: "
-          f"max_abs_err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e}; kernel {row['ms']:.3f} ms "
+          f"max_abs_err {err:.3e} (tol {tol:g}), rel {rel:.3e}"
+          f"{'' if rel_tol is None else f' (tol {rel_tol:.3e})'}, lse err {lse_err:.3e}; kernel {row['ms']:.3f} ms "
           f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, {row['bound_ms'] / row['ms'] * 100:.0f} % of the bound's "
           f"rate), {plain}library (SDPA) {library}, bound {row['bound_ms']:.3f} ms by {row['bound_by']}")
     return row
@@ -608,12 +630,13 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg, group_cfgs) -
             if not lse_err <= 1e-4 * max(1.0, lse.abs().max().item()):
                 raise SystemExit(f"flash_attention_fwd lse disagrees: {lse_err}")
 
-    def at_full_size(b, h, kvh, d, with_plain, dv=None):
-        return attention_at_shape(gen, b, prompt_len, h, kvh, d, with_plain, dv)
+    def at_full_size(b, h, kvh, d, with_plain, dv=None, rel_tol=None):
+        return attention_at_shape(gen, b, prompt_len, h, kvh, d, with_plain, dv, rel_tol=rel_tol)
 
     # the shape the serving path gives it, then musicgen's heads at the same length,
     # deepseek's MLA pair (its prefill's shape) and stablelm's head dim 80
-    serving = at_full_size(BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, with_plain=True)
+    serving = at_full_size(BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, with_plain=True,
+                           rel_tol=FWD_REL_TOL)
     d64 = at_full_size(BATCH, *MUSICGEN_HEADS, with_plain=False)
     m = mla_cfg.mla
     mla = at_full_size(BATCH, mla_cfg.n_heads, mla_cfg.n_kv_heads, m.qk_nope_dim + m.qk_rope_dim,
@@ -621,9 +644,10 @@ def check_attention_kernel(prompt_len: int, cfg, mla_cfg, d80_cfg, group_cfgs) -
     d80 = at_full_size(BATCH, d80_cfg.n_heads, d80_cfg.n_kv_heads, d80_cfg.resolved_head_dim, with_plain=True)
     # before llava and command-r serve: the first groups that do not divide 8 (bands of 2) and
     # that exceed it (bands of 1)
-    groups = {c.name: at_full_size(BATCH, c.n_heads, c.n_kv_heads, c.resolved_head_dim, with_plain=False)
+    groups = {c.name: at_full_size(BATCH, c.n_heads, c.n_kv_heads, c.resolved_head_dim, with_plain=False,
+                                   rel_tol=FWD_REL_TOL)
               for c in group_cfgs}  # fmt: skip
-    keys = ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("path", "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -793,10 +817,11 @@ def check_ssd_kernel(prompt_len: int, cfg) -> dict:
     }
 
 
-def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
+def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]", rel_tol=None) -> dict:
     """K1's backward kernel at one bf16 causal shape: against its plain
     version (``ops.attention_bwd``) on the same inputs, each gradient within
-    ``BWD_TOL`` of its largest entry, then timed in turns with SDPA's
+    ``BWD_TOL`` of its largest entry (and, with ``rel_tol``, its error's norm
+    over the plain version's within ``rel_tol[grad]``), then timed in turns with SDPA's
     backward (a yardstick only) and the PyTorch FA-2 backward (the plain
     version, the route it replaced); its row for the kernels line."""
     import torch
@@ -821,12 +846,19 @@ def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
 
     got, want = kernel(), fa2()
     torch.cuda.synchronize()
-    errs = {}
+    errs, rels = {}, {}
     for which, g, w in zip(("dq", "dk", "dv"), got, want):
-        errs[which] = (g.transpose(1, 2).float() - w.float()).abs().max().item()
+        diff = g.transpose(1, 2).float() - w.float()
+        errs[which] = diff.abs().max().item()
+        rels[which] = (diff.norm() / w.float().norm()).item()
+        del diff
         if not (torch.isfinite(g).all() and errs[which] <= tol * max(1.0, w.float().abs().max().item())):
             raise SystemExit(f"{tag} K1's backward kernel: {which} at b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} "
                              f"strays from its plain version by {errs[which]} (tol {tol:g} of the largest entry)")
+        if rel_tol is not None and not rels[which] <= rel_tol[which]:
+            raise SystemExit(f"{tag} K1's backward kernel: {which} at b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv}: "
+                             f"the error's norm over the plain version's is {rels[which]:.3e}, past "
+                             f"{rel_tol[which]:.3e}")
     # a second call gives the same bits: dQ's shares are added in a fixed order
     again = kernel()
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -863,7 +895,7 @@ def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
     row = {"b": b, "s": s, "h": h, "kvh": kvh, "head_dims": [dqk, dv],
            "path": kernel_bwd_path(torch.bfloat16, dqk, dv), "max_abs_err": max(errs.values()),
            "two_calls_same_bits": True, "device_ms_by_launch": launch_ms,
-           "max_abs_err_by_grad": errs, "ms": ms, "ms_turns": times["kernel"],
+           "max_abs_err_by_grad": errs, "rel_err_by_grad": rels, "ms": ms, "ms_turns": times["kernel"],
            "plain_ms": min(times["fa2"]), "plain_ms_turns": times["fa2"],
            "library_ms": min(times["sdpa"]) if times["sdpa"] else None, "library_ms_turns": times["sdpa"],
            "bound_ms": bound_ms, "bound_by": bound_by}  # fmt: skip
@@ -871,8 +903,8 @@ def attention_bwd_at_shape(gen, b, s, h, kvh, dqk, dv, tag="[kernels]") -> dict:
                  f"{', '.join(f'{x:.3f}' for x in times['sdpa'])} ms (kernel {ms / row['library_ms']:.2f}x)")
     print(f"{tag} flash_attention_bwd b={b} s={s} h={h} kvh={kvh} dqk={dqk} dv={dv} bf16 causal, {row['path']} "
           f"kernels: against its plain version max_abs_err "
-          + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
-          + f" (tol {tol:g} of the largest entry); kernel {', '.join(f'{x:.3f}' for x in times['kernel'])} ms "
+          + ", ".join(f"{w} {e:.3e} (rel {rels[w]:.3e})" for w, e in errs.items())
+          + f" (tol {tol:g} of the largest entry{'' if rel_tol is None else '; rel within ' + str(rel_tol)}); kernel {', '.join(f'{x:.3f}' for x in times['kernel'])} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s counting 2.5x the forward's products, {bound_ms / ms * 100:.0f} % of "
           f"the bound's rate), PyTorch FA-2 backward {', '.join(f'{x:.3f}' for x in times['fa2'])} ms "
           f"(kernel {row['plain_ms'] / ms:.1f}x faster), SDPA's backward {sdpa_text}, bound {bound_ms:.3f} ms "
@@ -965,7 +997,9 @@ def check_attention_backward(cfg, mla_cfg, d80_cfg) -> dict:
     for name in dims:
         h, kvh, dqk, dv = dims[name]
         b = timed_batch.get(name, 1)
-        entry["timed"].append({"dims": name, **attention_bwd_at_shape(gen, b, PROMPT_LEN, h, kvh, dqk, dv)})
+        rel_tol = BWD_REL_TOL if name in ("phi4", "mla", "d160") else None
+        entry["timed"].append({"dims": name, **attention_bwd_at_shape(gen, b, PROMPT_LEN, h, kvh, dqk, dv,
+                                                                      rel_tol=rel_tol)})
     # the entry's own figures are the main path's shape: phi4's
     phi4 = entry["timed"][0]
     for key in ("path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):

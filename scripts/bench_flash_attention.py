@@ -12,9 +12,10 @@ k rows are ``--head-dim`` wide, v rows ``--v-head-dim`` (default: the same).  Wi
 version of the kernel, say) is built too, checked against the same plain
 version, and timed in turns with the checkout's: other, this, this, other,
 ``--rounds`` times over (each build's median too where that is more than
-once).  Each build's error against the plain version is printed as its
-largest absolute error and as the error's norm over the plain version's
-(``rel``), an output at a time.  Each time is printed with its rate and its
+once).  One SDPA call, the yardstick, takes its turns beside the builds
+(SDPA's backward with ``--backward``).  Each build's error against the
+plain version is printed as its largest absolute error and as the error's
+norm over the plain version's (``rel``), an output at a time.  Each time is printed with its rate and its
 share of the bound's rate.  To hold the kernel against an earlier commit's
 source:
 
@@ -28,10 +29,9 @@ At deepseek-v2-lite's MLA prefill (qk 192, v 128) and stablelm-3b's (d = 80):
 
 ``--backward`` does the same for the backward kernel (``flash_attention_bwd.cu``;
 ``--other`` then names a backward source): checked against its plain
-version (``ops.attention_bwd``), timed in turns with SDPA's backward (which
-joins the turns as one more build) beside its bound (the function's five
-products, 2.5x the forward's), with the device time of each of its
-launches from the profiler.  phi4's training shape:
+version (``ops.attention_bwd``), timed in turns with SDPA's backward
+beside its bound (the function's five products, 2.5x the forward's), with
+the device time of each of its launches from the profiler.  phi4's training shape:
 
     PYTHONPATH=src python3 scripts/bench_flash_attention.py --backward --batch 1 --other build/k1b_old.cu
 """
@@ -104,7 +104,9 @@ def main() -> None:
             return [g.transpose(1, 2) for g in flash_kernel.flash_attention_bwd(qt, kt, vt, out, lse,
                                                                                dout.transpose(1, 2), causal=True)]
     else:
-        refs = [attention_ref(qt, kt, vt, causal=True).float()]
+        # a sequence at a time: the float32 scores of all b at command-r's 96 heads would take 26 GB
+        refs = [torch.cat([attention_ref(qt[i : i + 1], kt[i : i + 1], vt[i : i + 1], causal=True).float()
+                           for i in range(b)])]  # fmt: skip
 
         def kernel():
             return [flash_kernel.flash_attention_fwd(qt, kt, vt, causal=True)[0]]
@@ -132,14 +134,17 @@ def main() -> None:
                 raise SystemExit("the kernel disagrees with its plain version")
 
     timed = {which: (lambda which=which: run(which)) for which in builds}
-    if args.backward:
-        # SDPA's backward, the yardstick, takes its turns beside the builds
-        leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
-        try:
+    # SDPA (its backward with --backward), the yardstick, takes its turns beside the builds
+    try:
+        if args.backward:
+            leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
             ref_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
             timed["sdpa"] = lambda: torch.autograd.grad(ref_out, leaves, dout.transpose(1, 2), retain_graph=True)
-        except RuntimeError as refused:
-            print(f"library: SDPA refuses this backward: {str(refused).splitlines()[0]}")
+        else:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            timed["sdpa"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    except RuntimeError as refused:
+        print(f"library: SDPA refuses this call: {str(refused).splitlines()[0]}")
     names = [n for n in timed if n != "this"]
     order = names + ["this", "this"] + names[::-1] if names else ["this", "this"]
 
@@ -168,9 +173,6 @@ def main() -> None:
                 if e.device_type == DeviceType.CUDA:
                     print(f"  {which:5s} device {e.self_device_time_total / 1e3 / e.count:.3f} ms a launch, "
                           f"x{e.count}: {e.key[:100]}")
-    if not args.backward:
-        report("library (one SDPA call)",
-               time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)))
 
 
 if __name__ == "__main__":

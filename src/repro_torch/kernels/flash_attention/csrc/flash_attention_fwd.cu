@@ -90,6 +90,21 @@
 //   bands side by side, enough that about eight CTAs read each K/V tile at
 //   once, seven of them from L2 (band ceil(8 / group), 1 where a kv head has
 //   eight q heads or more; at 80, 0.85-0.93 ms against 1.65 with band 1).
+//   Read by phase at d = 128 (scripts/probe_flash_fwd.py; b=4, s=4096, 24,
+//   56 and 96 q heads over 8 kv heads; H100 at 700 W): the loads do not set
+//   the pace.  The same items and TMA loads with no products take 28-39 % of
+//   the kernel's time, the producer waits for a free stage 81 % of its, the
+//   consumers wait for a K or V tile 4 % of theirs; their loop of products
+//   and softmax takes 85 %, an item's head, last P V and epilogue 10 %, in
+//   which both consumers sit at the same item boundary.  So these were tried
+//   and measured slower in turns, and are not kept (PERF.md, 6, "K1's
+//   forward at large GQA groups"):
+//   pairs of CTAs in a cluster that take two q heads of one kv head and
+//   multicast each half of every K and V tile to both (half the bytes out of
+//   L2; 6-11 % slower at groups 3, 7 and 12, three stages slower still); and
+//   issuing the next item's S_0 beside an item's last P V, with the epilogue
+//   under it or not, which made ptxas spill 200-1800 bytes and serialise the
+//   products (C7512) at every instance from 80 up.
 //   Code that never runs moves this kernel's time: a block that is never
 //   taken, put before the tile loop, read 7.7 % slower at qwen3-moe's d = 128
 //   (H100 at 700 W).  So two builds are compared only in turns on one card,
@@ -114,6 +129,21 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// Phase marks of the Hopper kernel and its load-only form, for
+// scripts/probe_flash_fwd.py: that script builds this source with K1_MARK and
+// its companions defined to add clock64 intervals to per-role counters, or
+// with K1_LOAD_ONLY true (the consumers wait for each tile and release it,
+// with no products).  Here the marks are empty and the load-only form is not
+// built, so neither changes the kernel's code.
+#ifndef K1_MARK
+#define K1_MARKS_BEGIN
+#define K1_MARK(phase)
+#define K1_MARKS_END(role)
+#endif
+#ifndef K1_LOAD_ONLY
+#define K1_LOAD_ONLY false
+#endif
 
 namespace {
 
@@ -490,7 +520,7 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[KS][4], const float (&s)[K
     }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool LOAD_ONLY>
 __global__ void __launch_bounds__(kHThreads, 1)
     flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
@@ -572,6 +602,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
     if (role == 0) {
         // ---- producer ---------------------------------------------------------
         setmaxnreg_dec<24>();
+        K1_MARKS_BEGIN
         if (threadIdx.x == 0) {
             tma_prefetch(&tm_q);
             tma_prefetch(&tm_k);
@@ -579,24 +610,31 @@ __global__ void __launch_bounds__(kHThreads, 1)
             int kv = 0;  // KV tiles loaded so far: its stage and phase
             for (int n = 0; number_of(n) < n_items; ++n) {
                 const Item it = item(number_of(n));
+                K1_MARK(3);
                 mbar_wait(empty_q, (n & 1) ^ 1);  // the item before is done with Q
+                K1_MARK(0);
                 // a box's columns past the head dim are zero-filled and counted
                 mbar_expect_tx(full_q, Cfg::kQBytes);
 #pragma unroll
                 for (int x = 0; x < QK_BOXES; ++x) {
                     tma_load_4d(sQ + x * BM * ROW, &tm_q, full_q, x * BOX, it.q0, it.head, it.batch);
                 }
+                K1_MARK(1);
                 for (int j = 0; j < it.n_tiles; ++j, ++kv) {
                     const int s = kv % STAGES;
                     const uint32_t phase = (kv / STAGES) & 1;
+                    K1_MARK(3);
                     mbar_wait(empty_k(s), phase ^ 1);
+                    K1_MARK(2);
                     mbar_expect_tx(full_k(s), Cfg::kKBytes);
 #pragma unroll
                     for (int x = 0; x < QK_BOXES; ++x) {
                         tma_load_4d(sK + s * Cfg::kKBytes + x * BN * ROW, &tm_k, full_k(s),
                                     x * BOX, j * BN, it.kvhead, it.batch);
                     }
+                    K1_MARK(3);
                     mbar_wait(empty_v(s), phase ^ 1);
+                    K1_MARK(2);
                     mbar_expect_tx(full_v(s), Cfg::kVBytes);
 #pragma unroll
                     for (int x = 0; x < V_BOXES; ++x) {
@@ -605,7 +643,9 @@ __global__ void __launch_bounds__(kHThreads, 1)
                     }
                 }
             }
+            K1_MARK(3);
         }
+        K1_MARKS_END(0)
     } else {
         // ---- consumers ------------------------------------------------------------
         setmaxnreg_inc<240>();
@@ -639,9 +679,28 @@ __global__ void __launch_bounds__(kHThreads, 1)
             wgmma_commit();
         };
 
+        K1_MARKS_BEGIN
         int kv = 0;  // KV tiles consumed so far: its stage and phase
         for (int n = 0; number_of(n) < n_items; ++n) {
             const Item it = item(number_of(n));
+            K1_MARK(0);
+            if constexpr (LOAD_ONLY) {
+                mbar_wait(full_q, n & 1);
+                for (int j = 0; j < it.n_tiles; ++j) {
+                    const int s = (kv + j) % STAGES;
+                    const uint32_t phase = ((kv + j) / STAGES) & 1;
+                    mbar_wait(full_k(s), phase);
+                    if (lane == 0) {
+                        mbar_arrive(empty_k(s));
+                        if (j == it.n_tiles - 1) mbar_arrive(empty_q);
+                    }
+                    mbar_wait(full_v(s), phase);
+                    if (lane == 0) mbar_arrive(empty_v(s));
+                }
+                kv += it.n_tiles;
+                K1_MARK(2);
+                continue;
+            }
             const int wrow0 = it.q0 + wg * 64;
             const int row_a = it.q0 + row0;
             // keys past sk, or (causal) past this warpgroup's first row: mask
@@ -674,11 +733,14 @@ __global__ void __launch_bounds__(kHThreads, 1)
                 sm.tile<BN>(sacc, 0, p.sk, p.causal, row_a, tq, masked(0), alpha_a, alpha_b);
                 pack_p(pf, sacc);
             }
+            K1_MARK(1);
             for (int j = 1; j < it.n_tiles; ++j) {
                 const int s = (kv + j) % STAGES;
                 const int sp = (kv + j - 1) % STAGES;
+                K1_MARK(3);
                 mbar_wait(full_k(s), ((kv + j) / STAGES) & 1);
                 mbar_wait(full_v(sp), ((kv + j - 1) / STAGES) & 1);
+                K1_MARK(2);
                 wgmma_fence();
                 issue_qk(sacc, s);
                 issue_pv(oacc, pf, sp);
@@ -697,8 +759,10 @@ __global__ void __launch_bounds__(kHThreads, 1)
                 rescale(oacc, alpha_a, alpha_b);
                 pack_p(pf, sacc);
             }
+            K1_MARK(3);
             const int sl = (kv + it.n_tiles - 1) % STAGES;
             mbar_wait(full_v(sl), ((kv + it.n_tiles - 1) / STAGES) & 1);
+            K1_MARK(2);
             wgmma_fence();
             issue_pv(oacc, pf, sl);
             wgmma_wait<0>();
@@ -706,6 +770,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
             fence_regs(pf);
             if (lane == 0) mbar_arrive(empty_v(sl));
             kv += it.n_tiles;
+            K1_MARK(4);
 
             // ---- epilogue: o / max(l, 1e-30) in bf16 (p.dv columns), lse ---------
             float l_a = sm.l_a, l_b = sm.l_b;
@@ -743,7 +808,9 @@ __global__ void __launch_bounds__(kHThreads, 1)
                 }
                 if (tq == 0) lse[row_b] = sm.m_b * p.scale + logf(den_b);
             }
+            K1_MARK(5);
         }
+        K1_MARKS_END(1 + wg)
     }
 }
 
@@ -1020,7 +1087,17 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, i
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DQK, int DV>
+// The Hopper kernel's band: how many q tiles of one (batch, q head) are dealt
+// out side by side.  With the q heads of a kv head neighbours in the order
+// already, a band makes about kKVShare CTAs read the same K and V tiles at
+// once.  kernel.py's `fwd_band` is the same rule.
+int band_of(int h, int kvh, int sq) {
+    const int n_qtiles = (sq + kHBlockM - 1) / kHBlockM;
+    const int group = h / kvh;
+    return min(n_qtiles, max(1, (kKVShare + group - 1) / group));
+}
+
+template <int DQK, int DV, bool LOAD_ONLY = K1_LOAD_ONLY>
 int launch_hopper(Params p, cudaStream_t stream) {
     using Cfg = HopperCfg<DQK, DV>;
     static_assert(Cfg::kBox == 64 || Cfg::kBox == 32, "encode_map takes boxes of 64 and 32");
@@ -1034,21 +1111,17 @@ int launch_hopper(Params p, cudaStream_t stream) {
         return kErrTensorMap;
     }
     constexpr int smem = Cfg::kSmem;
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_hopper<DQK, DV>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_hopper<DQK, DV, LOAD_ONLY>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     int device = 0, sms = 0;
     err = cudaGetDevice(&device);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    // a band of q tiles of one (batch, head), times the q heads of a kv head
-    // (neighbours in the order already), makes about kKVShare CTAs read the
-    // same K and V tiles at once
     const int n_qtiles = (p.sq + kHBlockM - 1) / kHBlockM;
-    const int group = p.h / p.kvh;
-    p.band = min(n_qtiles, max(1, (kKVShare + group - 1) / group));
+    p.band = band_of(p.h, p.kvh, p.sq);
     const int n_items = n_qtiles * p.b * p.h;
-    flash_fwd_hopper<DQK, DV><<<min(n_items, sms), kHThreads, smem, stream>>>(tm_q, tm_k, tm_v, p);
+    flash_fwd_hopper<DQK, DV, LOAD_ONLY><<<min(n_items, sms), kHThreads, smem, stream>>>(tm_q, tm_k, tm_v, p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1063,6 +1136,11 @@ extern "C" int flash_attention_path_dqk_dv(int dtype, int dqk, int dv) {
 
 // The same table for one head dim (dqk == dv).
 extern "C" int flash_attention_path(int dtype, int d) { return path_of(dtype, d, d); }
+
+// The Hopper kernel's band for h q heads over kvh kv heads and sq queries
+// (`band_of`).  kernel.py's `fwd_band` is the same rule; a card test holds the
+// two together.
+extern "C" int flash_attention_fwd_band(int h, int kvh, int sq) { return band_of(h, kvh, sq); }
 
 // The instance that takes (qk head dim, v head dim), by its template's dqk:
 // 32, 64, 80, 96, 128, 160 (square) or 192 (with dv 128); 0 for none.

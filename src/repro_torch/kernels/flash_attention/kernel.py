@@ -10,7 +10,9 @@ laid out as it is.
 raises.  It counts its launches in ``flash_attention_fwd.launches``.  Which
 of the source's two kernels takes a call is ``kernel_path(dtype, dqk, dv)``:
 bf16 goes to the Hopper kernel (``wgmma``, TMA, warp specialisation), f32 to
-the full-precision one.  No path falls back to another.  Both are built at
+the full-precision one.  The Hopper kernel is persistent: ``fwd_items`` are
+its work items in the order they are dealt (``fwd_deal``), in bands of
+``fwd_band`` q tiles.  No path falls back to another.  Both are built at
 the instances ``HEAD_DIMS`` (square) and ``HEAD_DIM_PAIRS``, and a call takes
 the smallest that holds both of its head dims (``kernel_instance``): every
 qk and v width up to 160, as the reference takes any, and a qk width up to
@@ -71,6 +73,9 @@ __all__ = [
     "dq_slices",
     "flash_attention_bwd",
     "flash_attention_fwd",
+    "fwd_band",
+    "fwd_deal",
+    "fwd_items",
     "kernel_bwd_path",
     "kernel_instance",
     "kernel_path",
@@ -91,6 +96,8 @@ BWD_PATHS = ("fma", "wgmma1")
 # the one pass's instances (by qk width) and their padded rows
 ONE_PASS_WIDTHS = {32: 32, 64: 64, 80: 96, 96: 96, 128: 128, 160: 160, 192: 192}
 _ITEM_SMS = 132  # the H100's SMs, which the source's rule that sizes the one pass's items counts on
+_FWD_BLOCK = 128  # q rows a forward item and keys a KV tile (the source's kHBlockM and kHBlockN)
+_KV_SHARE = 8  # CTAs that read one kv head's K and V tiles at once in the forward (the source's kKVShare)
 # what the C entry returns besides a cudaError_t
 _ERRORS = {
     -1: "this (dtype, head dim) is not built",
@@ -142,6 +149,41 @@ def kernel_bwd_path(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> s
     return "fma" if dtype == torch.float32 else "wgmma1"
 
 
+def fwd_band(h: int, kvh: int, sq: int) -> int:
+    """The bf16 forward's band (the source's ``band_of``): how many q tiles of
+    one (batch, q head) go out side by side, so that with the q heads of a kv
+    head next to each other about eight CTAs read the same K and V tiles at
+    once (``ceil(8 / group)``, at most the q tiles there are)."""
+    n_qt, g = -(-sq // _FWD_BLOCK), h // kvh
+    return min(n_qt, max(1, -(-_KV_SHARE // g)))
+
+
+def fwd_items(b: int, h: int, kvh: int, sq: int, sk: int, causal: bool) -> list:
+    """The bf16 forward's work items by number (the source's ``item``), each
+    ``(batch, q head, q tile, key tiles)``: heavy first, in bands of
+    ``fwd_band`` q tiles from the last (the most keys under a causal mask),
+    every (batch, q head) at one band before any at the next, a band's q
+    tiles of one (batch, q head) next to each other."""
+    band = fwd_band(h, kvh, sq)
+    n_qt, n_kt = -(-sq // _FWD_BLOCK), -(-sk // _FWD_BLOCK)
+    items = []
+    for w in range(n_qt * b * h):
+        bnd, r = divmod(w, band * b * h)
+        width = min(band, n_qt - bnd * band)  # the last band may have fewer q tiles
+        bh, off = divmod(r, width)
+        qt = n_qt - 1 - bnd * band - off
+        items.append((bh // h, bh % h, qt, min(n_kt, qt + 1) if causal else n_kt))
+    return items
+
+
+def fwd_deal(n_items: int, n_units: int) -> list:
+    """The item numbers each of ``n_units`` CTAs takes, in order (the source's
+    ``number_of``): rounds of one item a CTA, every other round in reverse."""
+    rounds = -(-n_items // n_units)
+    return [[w for k in range(rounds) if (w := k * n_units + (n_units - 1 - u if k & 1 else u)) < n_items]
+            for u in range(n_units)]
+
+
 def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
     return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
 
@@ -154,8 +196,9 @@ def _aligned(d: int) -> int:
 def build(source: Path = _SOURCE):
     """Compile (if needed) and load the kernel's library; returns its entry
     point for one head dim, with the entry for a (dqk, dv) pair as
-    ``.dqk_dv``, the path tables as ``.path`` and ``.path_dqk_dv`` and the
-    instance table as ``.instance``."""
+    ``.dqk_dv``, the path tables as ``.path`` and ``.path_dqk_dv``, the
+    instance table as ``.instance`` and the bf16 kernel's band rule as
+    ``.band``."""
     lib = load_library("flash_attention_fwd", [source])
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     head = [ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, c_int]  # q k v o lse dtype b h kvh sq sk
@@ -168,10 +211,11 @@ def build(source: Path = _SOURCE):
     fn.path = getattr(lib, "flash_attention_path", None)
     fn.path_dqk_dv = getattr(lib, "flash_attention_path_dqk_dv", None)
     fn.instance = getattr(lib, "flash_attention_instance", None)
+    fn.band = getattr(lib, "flash_attention_fwd_band", None)
     if fn.dqk_dv is not None:
         fn.dqk_dv.argtypes = head + [c_int, c_int] + tail  # dqk dv
         fn.dqk_dv.restype = c_int
-    for table, n_args in ((fn.path, 2), (fn.path_dqk_dv, 3), (fn.instance, 2)):
+    for table, n_args in ((fn.path, 2), (fn.path_dqk_dv, 3), (fn.instance, 2), (fn.band, 3)):
         if table is not None:
             table.argtypes = [c_int] * n_args
             table.restype = c_int
