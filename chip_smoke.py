@@ -249,6 +249,31 @@ non-zero exit if it fails:
             replays, capture s, and the CPU's us a cycle at 8 lanes.  No
             kernel launches in this phase (every count set to 0 just before,
             read just after).
+8b. sim:    the port's cycle-accurate SCU cluster simulator
+            (``repro_torch.core.scu``, numpy host code as in the reference)
+            and its fleet service.  (a) Every parity program of the trace
+            phase with no SCU rows, on the port's engine (``Cluster`` in
+            lockstep and fastforward, through ``TraceProgram.__call__``)
+            and on the card through ``run_traces_torch``: cycles, bank
+            conflicts, the nine counters, finish cycles and words equal.
+            (b) The paper's results: Table 1's barrier (``prim_cycles`` of
+            ``scu`` and ``sw`` at 2, 4 and 8 cores; ``scu`` flat, ``sw`` over
+            3x from 2 to 8), and Table 2 / Fig. 6, the nine apps under
+            ``scu``, ``tas`` and ``sw`` (cycles, energy uJ, power mW, the
+            SCU's cycle and energy gains over ``sw``, their mean and
+            maximum).  Checks every cycle count, energy and power against
+            the reference's (``SIM_APP_REFERENCE``: cycles exactly, the
+            floats within 1e-12 relative), that lockstep equals fastforward
+            on dwt and fft, and on every app that ``scu`` takes no more
+            cycles than ``sw`` and at most 1.01 x its energy.  (c) A ``FleetService``
+            over a ``SlotFleet`` takes a ``poisson_trace`` of barrier jobs
+            under a ``CheckpointPolicy``, with priority preemption and one
+            fault plan (a droop that times the first attempt of one job out);
+            checks that every job completes and that every preempted or
+            resumed job's stats equal the same job run uninterrupted.  No
+            kernel launches (every count set to 0 just before, read just
+            after, and each worker process's counts read at its end);
+            prints the phase's host seconds.
 9. dryrun:  after every phase that starts a process group
             (``repro_torch.launch.dryrun`` on fake CUDA tensors): phi4
             training at 1 x 4096, mamba2 at 4 x 4096, and both prefilled at
@@ -491,6 +516,38 @@ LOOP_RTOL, LOOP_ATOL = 1e-5, 1e-6
 # past its 60 s on an H100
 TRACE_CLUSTERS, TRACE_CORES, TRACE_BANKS = 8192, 8, 16
 TRACE_SFRS, TRACE_ITERS, TRACE_CUT_ITERS = (0, 32, 128, 512, 2048), 8, {2048: 2}
+# the sim phase: Table 2 of the nine apps at 8 cores, seed 0, as the reference's
+# ``repro.core.scu.apps.run_app`` gives it on the CPU: app -> policy -> (cycles,
+# energy uJ, power mW); the cycles are held exactly, the floats within SIM_REL_TOL
+# relative (tests/test_torch_sim_apps.py holds this table to the reference, and the
+# port to the reference app by app)
+SIM_APP_REFERENCE = {
+    "dwt": {"scu": (11004, 0.7862873499999999, 25.009139631043254),
+            "tas": (11915, 0.80970575, 23.784894041124634), "sw": (11875, 0.81849845, 24.12416484210526)},
+    "dijkstra": {"scu": (36726, 2.0280652, 19.32752872624299),
+                 "tas": (66058, 2.7560681000000002, 14.602679993339187), "sw": (65212, 3.0204632, 16.211159295835124)},
+    "aes": {"scu": (41008, 3.0202271499999997, 25.77739715421381),
+            "tas": (41292, 3.02800275, 25.6660118788143), "sw": (41292, 3.03200835, 25.69996421825051)},
+    "livermore6": {"scu": (23482, 1.1045573999999998, 16.463465207392893),
+                   "tas": (30322, 1.3075188, 15.09239430116747), "sw": (29771, 1.4450851, 16.989008934869506)},
+    "livermore2": {"scu": (9187, 0.6653234, 25.347032763687817),
+                   "tas": (10835, 0.7049865, 22.772983387171205), "sw": (10796, 0.7155668000000001, 23.198256761763613)},
+    "fft": {"scu": (6023, 0.4387437, 25.495649178150423),
+            "tas": (6520, 0.4509388, 24.20683742331288), "sw": (6495, 0.4541194, 24.471407236335644)},
+    "fann": {"scu": (91554, 6.50860255, 24.881609678441144),
+             "tas": (111140, 6.98818445, 22.007059182112652), "sw": (110637, 7.1294489500000005, 22.554002119544094)},
+    "mfcc": {"scu": (541949, 37.720900549999996, 24.36080736840551),
+             "tas": (594886, 39.147425850000005, 23.03231047209045), "sw": (592047, 39.77291405, 23.51252504868701)},
+    "pca": {"scu": (2206193, 75.84814655, 12.032878035829139),
+            "tas": (2286506, 78.91995825, 12.080434246619077), "sw": (2278039, 98.41551115, 15.120649340287853)},
+}  # fmt: skip
+SIM_REL_TOL = 1e-12
+SIM_POLICIES = ("scu", "tas", "sw")
+# the fleet run: SIM_FLEET_JOBS barrier jobs of 8 and 16 cores over SIM_FLEET_SLOTS slots of
+# 16 cores, Poisson arrivals at SIM_FLEET_RATE jobs a round, each capped at twice its cycles
+# run alone; job SIM_FLEET_FAULTY's first attempt is stalled past its cap by a droop half way
+# through, and the last three jobs come at a higher priority
+SIM_FLEET_JOBS, SIM_FLEET_SLOTS, SIM_FLEET_RATE, SIM_FLEET_FAULTY = 12, 3, 0.05, 3
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1454,6 +1511,223 @@ def trace_batch(card: str) -> dict:
     phase_s = time.perf_counter() - t_phase
     print(f"[trace] phase {phase_s:.1f} s")
     return {"lanes": lanes, "cycles": got["cycles"], "run_s": run_s, "phase_s": phase_s}
+
+
+def engine_against_the_card() -> int:
+    """(a) of the sim phase: every parity program with no SCU rows on the port's
+    engine (lockstep and fastforward) and on the card; returns how many ran."""
+    from repro_torch.core.scu import SCU, T_SCU, Cluster
+    from repro_torch.core.scu.engine import _COUNTERS
+    from repro_torch.core.scu.trace_exec import run_traces_torch
+
+    ran = 0
+    for name, (make, n_banks) in trace_parity_programs().items():
+        if not all(p.is_traced and all(r[0] != T_SCU for r in p.rows) for p in make()):
+            continue
+        runs = []
+        for mode in ("lockstep", "fastforward"):
+            programs = make()
+            cl = Cluster(n_cores=len(programs), scu=SCU(n_cores=len(programs)), mode=mode)
+            if cl.n_banks != n_banks:
+                raise SystemExit(f"[sim] {name}: the engine has {cl.n_banks} banks, the card's run {n_banks}")
+            cl.load(programs)
+            runs.append((cl, cl.run()))
+        gpu = run_traces_torch(make(), n_banks=n_banks)
+        for cl, st in runs:
+            fields = {"cycles": gpu["cycles"] == st.cycles, "bank conflicts": gpu["bank_conflicts"] == st.bank_conflicts,
+                      "finish cycles": gpu["finished_at"].tolist() == [c.finished_at for c in st.cores],
+                      "words": set(cl.tcdm) <= set(gpu["tcdm"])
+                      and gpu["tcdm"] == {a: cl.tcdm.get(a, 0) for a in gpu["tcdm"]}}  # fmt: skip
+            fields.update({k: gpu["counters"][k].tolist() == [getattr(c, k) for c in st.cores] for k in _COUNTERS})
+            wrong = [k for k, same in fields.items() if not same]
+            if wrong:
+                raise SystemExit(f"[sim] {name}: the card differs from the port's engine ({cl.mode}) in {wrong}")
+        print(f"[sim] {name}: the card = the port's engine in lockstep and fastforward on cycles, bank conflicts, "
+              f"the nine counters, finish cycles and words ({runs[0][1].cycles} cycles)")
+        ran += 1
+    return ran
+
+
+def kernel_launches() -> dict:
+    """The launch count of every kernel wrapper in this process."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.scu_barrier import kernel as scu_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    return {"flash_attention_fwd": flash_kernel.flash_attention_fwd.launches,
+            "flash_attention_bwd": flash_kernel.flash_attention_bwd.launches,
+            "ssd_scan_fwd": ssd_kernel.ssd_scan_fwd.launches, "scu_barrier": scu_kernel.scu_barrier.launches,
+            "scu_notifier": scu_kernel.scu_notifier.launches, "scu_self_signal": scu_kernel.scu_self_signal.launches}
+
+
+def in_worker(fn, *args):
+    """A worker of the sim phase: ``fn(*args)`` and the worker's kernel launches."""
+    return fn(*args), kernel_launches()
+
+
+def run_one_app(name: str, variant: str, mode: str = "fastforward"):
+    """One app of Table 2 under one policy: ``run_app``'s ``AppResult``."""
+    from repro_torch.core.scu import APPS, run_app
+
+    return run_app(APPS[name], variant, mode=mode)
+
+
+def barrier_table() -> dict:
+    """Table 1's barrier row of the sim phase: ``prim_cycles`` of scu and sw at 2, 4 and 8 cores."""
+    from repro_torch.core.scu import run_barrier_bench
+
+    scu = [run_barrier_bench("scu", n, 0, iters=64).prim_cycles for n in (2, 4, 8)]
+    sw = [run_barrier_bench("sw", n, 0, iters=64).prim_cycles for n in (2, 4, 8)]
+    print(f"[sim] Table 1, barrier prim_cycles at 2, 4 and 8 cores (64 iterations): scu {scu}, sw {sw}")
+    if not (max(scu) - min(scu) < 1.0 and sw[2] > 3 * sw[0]):
+        raise SystemExit("[sim] Table 1's shape: scu is not flat in the core count or sw not over 3x from 2 to 8")
+    return {"scu": scu, "sw": sw}
+
+
+def app_table(results: dict, apps_s: float) -> dict:
+    """Table 2 / Fig. 6 of the sim phase from ``results[(app, policy)]``: prints it and
+    the gains, and checks the cycles against the reference's and the paper's claims."""
+    rows = {}
+    print("[sim] Table 2 / Fig. 6 (8 cores, seed 0): app, then cycles, energy uJ and power mW under "
+          + ", ".join(SIM_POLICIES) + "; the SCU's cycle and energy gains over sw")
+    for name, want in SIM_APP_REFERENCE.items():
+        res = {v: results[(name, v)] for v in SIM_POLICIES}
+        scu_r, sw_r = res["scu"], res["sw"]
+        gain, egain = sw_r.cycles / scu_r.cycles, sw_r.energy_uj / scu_r.energy_uj
+        rows[name] = {"cycles": {v: r.cycles for v, r in res.items()}, "energy_uj": {v: r.energy_uj for v, r in res.items()},
+                      "power_mw": {v: r.power_mw for v, r in res.items()}, "gain": gain, "energy_gain": egain}  # fmt: skip
+        print(f"[sim]   {name:10s} " + "  ".join(f"{v} {r.cycles} {r.energy_uj:.4f} uJ {r.power_mw:.3f} mW"
+                                             for v, r in res.items()) + f"  gains {gain:.4f}x {egain:.4f}x")
+        for v, r in res.items():
+            cycles, energy_uj, power_mw = want[v]
+            if r.cycles != cycles or not all(abs(got - ref) <= SIM_REL_TOL * abs(ref)
+                                             for got, ref in ((r.energy_uj, energy_uj), (r.power_mw, power_mw))):
+                raise SystemExit(f"[sim] {name} under {v}: (cycles, energy uJ, power mW) "
+                                 f"{(r.cycles, r.energy_uj, r.power_mw)}, the reference's {want[v]}")
+        if not (scu_r.cycles <= sw_r.cycles and scu_r.energy_uj <= 1.01 * sw_r.energy_uj):
+            raise SystemExit(f"[sim] {name}: scu takes more cycles than sw or over 1.01 x its energy")
+    gains = {k: r["gain"] for k, r in rows.items()}
+    egains = {k: r["energy_gain"] for k, r in rows.items()}
+    top, etop = max(gains, key=gains.get), max(egains, key=egains.get)
+    mean, emean = sum(gains.values()) / len(gains), sum(egains.values()) / len(egains)
+    print(f"[sim] gains of scu over sw: cycles mean {mean:.4f}x ({100 * (mean - 1):.1f} %), max {gains[top]:.4f}x "
+          f"({top}); energy mean {emean:.4f}x ({100 * (emean - 1):.1f} %), max {egains[etop]:.4f}x ({etop}); "
+          f"{len(rows)} apps x {len(SIM_POLICIES)} policies in {apps_s:.1f} s in worker processes (paper: up to "
+          f"92 % and 23 % on average in performance, 98 % and 39 % in energy); every cycle count the reference's, "
+          f"every energy and power within {SIM_REL_TOL:g} of it")
+    return {"apps": rows, "mean_gain": mean, "max_gain": [top, gains[top]], "mean_energy_gain": emean}
+
+
+def fleet_run() -> dict:
+    """(c) of the sim phase: a Poisson stream of barrier jobs through a
+    ``FleetService`` with checkpoints, preemption and one fault plan (run in a
+    worker process: its line is returned, under ``"line"``, and printed by the caller)."""
+    from repro_torch.core.scu import FaultEvent, FaultPlan, prep_barrier_bench
+    from repro_torch.serve.arrivals import poisson_trace
+    from repro_torch.serve.fleet_service import CheckpointPolicy, FleetService, RetryPolicy
+    from repro_torch.sync import available_policies
+
+    policies = available_policies()
+
+    def job_config(i: int, attempt: int = 0, cap: int = 10_000_000):
+        n = 16 if i % 3 == 2 else 8
+        config = prep_barrier_bench(policies[i % len(policies)], n, sfr=13 * (i % 5), iters=24 + 8 * (i % 4),
+                                    compiled=True).config  # fmt: skip
+        config.max_cycles = cap
+        if i == SIM_FLEET_FAULTY and attempt == 1:
+            config.cluster.faults = FaultPlan([FaultEvent("droop", cycle=cap // 4, cores=tuple(range(n)),
+                                                          span=10 * cap, domain="d0")])  # fmt: skip
+        return config
+
+    alone = []  # each job run uninterrupted, on its own cluster
+    for i in range(SIM_FLEET_JOBS):
+        config = job_config(i)
+        config.cluster.load(config.programs)
+        alone.append(config.cluster.run(config.max_cycles))
+    caps = [2 * st.cycles for st in alone]
+
+    arrivals = poisson_trace(SIM_FLEET_RATE, SIM_FLEET_JOBS, seed=0)
+    svc = FleetService(SIM_FLEET_SLOTS, 16, admission_order="priority", preempt=True,
+                       retry=RetryPolicy(max_attempts=2, backoff_rounds=0), checkpoint=CheckpointPolicy(4))
+    jobs, i = [], 0
+    while i < SIM_FLEET_JOBS or svc.pending or svc.fleet.occupied:
+        while i < SIM_FLEET_JOBS and arrivals[i] <= svc.round:
+            jobs.append(svc.submit(factory=lambda attempt, i=i: job_config(i, attempt, caps[i]),
+                                   priority=5 if i >= SIM_FLEET_JOBS - 3 else 0))
+            i += 1
+        svc.step()
+        if svc.round > 1_000_000:
+            raise SystemExit("[sim] the fleet service did not drain")
+    if not all(j.state == "done" and j.error is None for j in jobs):
+        raise SystemExit(f"[sim] fleet jobs not done: {[(j.job_id, j.state, j.error) for j in jobs if j.state != 'done']}")
+    interrupted = [j for j in jobs if j.preemptions or j.fault_log]
+    for j in jobs:
+        if alone[j.job_id] != j.stats:
+            raise SystemExit(f"[sim] fleet job {j.job_id} (preempted {j.preemptions}, failed attempts "
+                             f"{len(j.fault_log)}): its stats differ from the job run uninterrupted")
+    preempted = sum(1 for j in jobs if j.preemptions)
+    resumed = sum(1 for j in jobs if j.fault_log)
+    faulty = jobs[SIM_FLEET_FAULTY]
+    if not (len(faulty.fault_log) == 1 and 0 < faulty.wasted_cycles < caps[SIM_FLEET_FAULTY]):
+        raise SystemExit(f"[sim] fleet job {SIM_FLEET_FAULTY}: {len(faulty.fault_log)} failed attempts, "
+                         f"{faulty.wasted_cycles} wasted cycles; one attempt, resumed from a checkpoint, was expected")
+    if not (preempted and resumed):
+        raise SystemExit(f"[sim] the fleet run suspended {preempted} jobs and resumed {resumed} from a checkpoint; "
+                         "it must do both to check restores")
+    line = (f"[sim] fleet: {len(jobs)} barrier jobs ({', '.join(policies)}; 8 and 16 cores) over {SIM_FLEET_SLOTS} "
+            f"slots of 16 cores, Poisson arrivals at {SIM_FLEET_RATE} a round (rounds {arrivals[0]}..{arrivals[-1]}), "
+            f"{sum(st.cycles for st in alone)} cycles run alone, checkpoints every 4 rounds: every job done in "
+            f"{svc.round} rounds, idle lanes {svc.idle_lane_fraction:.4f}; {preempted} preempted ({svc.preemptions} "
+            f"preemptions) and {resumed} resumed from a checkpoint after a timed-out attempt (wasted cycles "
+            f"{sum(j.wasted_cycles for j in jobs)}), each job's stats = the job run uninterrupted")
+    return {"jobs": len(jobs), "rounds": svc.round, "preempted": preempted, "resumed": resumed,
+            "interrupted": len(interrupted), "line": line}
+
+
+def sim_phase(card: str) -> dict:
+    """The sim phase (see the module note).  The 27 app runs of Table 2 and
+    the fleet run go to worker processes (spawned: they import the port),
+    longest first, while this process runs (a) and Table 1.  Each worker
+    returns the kernels' launch counts of its own process, which must be 0."""
+    import multiprocessing
+    import os
+
+    t_phase = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        # pca and mfcc take most of the time (Table 2's cycles under sw)
+        order = sorted(SIM_APP_REFERENCE, key=lambda name: -SIM_APP_REFERENCE[name]["sw"][0])
+        futures = {(name, v): pool.submit(in_worker, run_one_app, name, v) for name in order[:1] for v in SIM_POLICIES}
+        fleet_future = pool.submit(in_worker, fleet_run)
+        futures.update({(name, v): pool.submit(in_worker, run_one_app, name, v) for name in order[1:]
+                        for v in SIM_POLICIES})  # fmt: skip
+        lockstep = {(name, v): pool.submit(in_worker, run_one_app, name, v, "lockstep") for name in ("dwt", "fft")
+                    for v in SIM_POLICIES}  # fmt: skip
+        parity = engine_against_the_card()
+        table1 = barrier_table()
+        launched = {}
+
+        def result(future, what):
+            got, launches = future.result()
+            launched.update({f"{name} in {what}": n for name, n in launches.items() if n})
+            return got
+
+        fleet = result(fleet_future, "the fleet run")
+        print(fleet.pop("line"))
+        results = {key: result(f, f"{key[0]} under {key[1]}") for key, f in futures.items()}
+        apps_s = time.perf_counter() - t_phase
+        for key, f in lockstep.items():
+            if dataclasses.asdict(result(f, f"{key[0]} under {key[1]}, lockstep")) != dataclasses.asdict(results[key]):
+                raise SystemExit(f"[sim] {key[0]} under {key[1]}: lockstep and fastforward differ")
+    if launched:
+        raise SystemExit(f"[sim] kernels launched in the sim phase's workers: {launched}")
+    print(f"[sim] dwt and fft under {', '.join(SIM_POLICIES)}: lockstep = fastforward on every AppResult field")
+    paper = app_table(results, apps_s)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[sim] {card}: {parity} parity programs, the paper's tables and one fleet run; no kernel launch in "
+          f"the {len(futures) + len(lockstep) + 1} worker runs; phase {phase_s:.1f} s of host time ({workers} worker "
+          f"processes)")
+    return {"parity_programs": parity, "table1": table1, "paper": paper, "fleet": fleet, "phase_s": phase_s}
 
 
 def plain_attention():
@@ -3896,6 +4170,15 @@ def main() -> int:
     trace_batch(card)
     if any(counted.launches for counted in counters.values()):
         raise SystemExit(f"[trace] kernels launched in the trace phase: "
+                         f"{ {name: counted.launches for name, counted in counters.items()} }")
+
+    # ---- 8b. sim --------------------------------------------------------------
+    # the cycle-accurate simulator and its fleet service are host code; they launch none of the kernels
+    for counted in counters.values():
+        counted.launches = 0
+    sim_phase(card)
+    if any(counted.launches for counted in counters.values()):
+        raise SystemExit(f"[sim] kernels launched in the sim phase: "
                          f"{ {name: counted.launches for name, counted in counters.items()} }")
 
     # ---- 9. dryrun: after every phase that starts a group --------------------

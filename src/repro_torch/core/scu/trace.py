@@ -1,19 +1,26 @@
-"""Static micro-op trace IR: core programs as data tables, not generators.
+"""Static micro-op traces: a compiled IR for simulator programs.
 
-Own copy of the data side of ``repro/core/scu/trace.py`` (the port imports
-nothing of ``repro``): the row encoding, the sentinel tracer, the
-:class:`TraceBuilder` with its re-rolling of marked iterations into ``LOOP``
-rows, the :class:`TraceProgram` record and the lowering helpers.  A
-:class:`TraceProgram` is a per-core table of ``(op_kind, repeat, a0..a6)``
-rows compiled from the ``Compute``/``Mem``/``Poll``/``Scu`` generator
-programs, with an explicit "not traceable" escape: an untraceable program
-still becomes a :class:`TraceProgram`, with ``is_traced`` False, which the
-trace executor (``trace_exec.run_traces_torch``) refuses.
+Own copy of ``repro/core/scu/trace.py`` (the port imports nothing of
+``repro``), all but its batched array executor.  A :class:`TraceProgram` is
+a per-core table of ``(op_kind, repeat, a0..a6)`` rows compiled from the
+``Compute``/``Mem``/``Poll``/``Scu`` generator programs, with bounded loops
+re-rolled into explicit ``LOOP`` rows and an explicit "not traceable ->
+generator fallback" escape hatch.
 
-Not ported, because they drive the numpy engine, which stays in ``repro``:
-``TraceProgram.__call__`` (a program as an engine ``Program``), the
-``_TraceCursor`` that interprets a table for the engine, and the
-``TraceRunMonitor`` that collapses periodic whole-cluster spans.
+Three consumers:
+
+* :class:`_TraceCursor` -- a drop-in generator replacement (``send`` /
+  ``__next__`` / ``StopIteration``) interpreting the table, so every tier
+  of the port's engine (lockstep, fast-forward, fleet, ``SlotFleet.admit``)
+  executes traces unchanged and bit-exactly; ``TraceProgram.__call__``
+  hands one out.
+* :class:`TraceRunMonitor` -- the compiled fast path of the engine: it
+  digests the full cluster state at loop-head crossings, proves a
+  whole-cluster period, and collapses the remaining loop iterations into
+  one multiply of the per-period stat deltas.
+* ``trace_exec.run_traces_torch`` -- the batched executor for pure-TCDM
+  traces, on a card or the CPU; the counterpart of the reference's
+  ``run_traces_xp``, which is not copied.
 
 Value semantics: a trace tracks one register ``R`` mirroring the engine's
 ``resume_value`` -- every granted transaction latches into it, exactly like
@@ -21,19 +28,22 @@ the value sent into a generator.  ``BR`` branches compare ``R`` against an
 immediate; ``sw`` rows may store ``R + delta`` (latched at fetch time, like
 a generator computing from the value it received).  Programs whose control
 flow depends on values in ways the IR cannot express are detected by the
-sentinel tracer (:func:`trace_generator`) and fall back.
+sentinel tracer (:func:`trace_generator`) and fall back to generators.
 
-Lifecycle: a :class:`TraceProgram` is **single-use** -- the lowering that
-produced it consumed one build of the (shared, mutable) policy state, and
-the executor consumes it.  Re-running a config means re-lowering or
+Lifecycle: like :class:`repro_torch.core.scu.faults.FaultPlan`, a
+:class:`TraceProgram` is **single-use** -- its cursor (or the executor)
+consumes it, and the lowering that produced it consumed one build of the
+(shared, mutable) policy state.  Re-running a config means re-lowering or
 :meth:`TraceProgram.clone`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List, Optional, Set, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
-from .engine import Compute, Mem, Poll, Scu
+import numpy as np
+
+from .engine import _COUNTERS, Compute, Mem, Poll, Scu
 
 __all__ = [
     "T_COMPUTE",
@@ -47,6 +57,7 @@ __all__ = [
     "Untraceable",
     "TraceBuilder",
     "TraceProgram",
+    "TraceRunMonitor",
     "trace_generator",
     "trace_fragments",
     "lower_or_fallback",
@@ -69,6 +80,7 @@ T_HALT = 7
 
 _MK_LW, _MK_SW, _MK_TAS = 0, 1, 2
 _MEM_KIND_CODE = {"lw": _MK_LW, "sw": _MK_SW, "tas": _MK_TAS}
+_MEM_KIND_NAME = {v: k for k, v in _MEM_KIND_CODE.items()}
 
 _DATA_OPS = (T_COMPUTE, T_MEM, T_POLL, T_SCU)
 
@@ -282,7 +294,7 @@ class TraceBuilder:
         segments = self._segments()
         # Canonical per-segment keys: rows with branch targets rebased to
         # segment-relative offsets, so identical iterations compare equal
-        # wherever they land.  Cross-segment targets are an emitter error --
+        # wherever they land.  Cross-segment targets are a builder error --
         # re-rolling could not preserve them.
         keys: List[Tuple[Tuple[int, ...], ...]] = []
         for start, end in segments:
@@ -352,19 +364,21 @@ class TraceBuilder:
 
 
 # --------------------------------------------------------------------------
-# The program object
+# The program object and its cursor interpreter
 # --------------------------------------------------------------------------
 
 
 class TraceProgram:
     """A compiled per-core micro-op table (or a declared generator fallback).
 
-    Single-use: the executor that runs it marks it consumed, and a second
-    run raises -- :meth:`clone` (or re-lowering) produces a fresh usable
-    instance for retries.
+    Duck-types as a ``Program``: calling it with ``(cluster, cid)`` yields a
+    :class:`_TraceCursor`, which the engine drives exactly like a generator.
+    Single-use, mirroring :class:`~repro_torch.core.scu.faults.FaultPlan`: the
+    second call raises -- :meth:`clone` (or re-lowering) produces a fresh
+    usable instance for retries.
     """
 
-    __slots__ = ("rows", "scu_pool", "fallback", "label", "_consumed")
+    __slots__ = ("rows", "scu_pool", "fallback", "label", "_consumed", "_ops")
 
     def __init__(
         self,
@@ -380,6 +394,7 @@ class TraceProgram:
         self.fallback = fallback
         self.label = label
         self._consumed = False
+        self._ops: Optional[List[Optional[Any]]] = None
 
     @property
     def is_traced(self) -> bool:
@@ -408,6 +423,140 @@ class TraceProgram:
 
     def n_data_rows(self) -> int:
         return sum(1 for r in self.rows or () if r[0] in _DATA_OPS)
+
+    def __call__(self, cluster, cid: int):
+        if self._consumed:
+            raise RuntimeError(
+                f"TraceProgram {self.label or cid!r} already consumed: trace "
+                "cursors are single-use (like FaultPlan) -- re-lower the "
+                "program or clone() a fresh instance for a retried run"
+            )
+        self._consumed = True
+        if self.rows is None:
+            return self.fallback(cluster, cid)
+        return _TraceCursor(self, cluster, cid)
+
+    def _op_cache(self) -> List[Optional[Any]]:
+        """Per-row immutable micro-op objects (delta stores stay None --
+        their data depends on R and is built fresh at fetch time)."""
+        if self._ops is None:
+            ops: List[Optional[Any]] = []
+            for row in self.rows:
+                kind = row[0]
+                if kind == T_COMPUTE:
+                    ops.append(Compute(row[2]))
+                elif kind == T_MEM:
+                    if row[5]:
+                        ops.append(None)  # R + delta store
+                    else:
+                        ops.append(Mem(_MEM_KIND_NAME[row[2]], row[3], row[4]))
+                elif kind == T_POLL:
+                    ops.append(Poll(
+                        _MEM_KIND_NAME[row[2]], row[3], row[4], row[5],
+                        row[6], row[7], row[8],
+                    ))
+                elif kind == T_SCU:
+                    ops.append(self.scu_pool[row[2]])
+                else:
+                    ops.append(None)
+            self._ops = ops
+        return self._ops
+
+
+class _TraceCursor:
+    """Generator-protocol interpreter over a :class:`TraceProgram` table.
+
+    The engine's ``_advance`` drives it via ``__next__``/``send`` and sees
+    only ``Compute``/``Mem``/``Poll``/``Scu`` objects -- control rows are
+    resolved internally at zero cycles and zero instructions, so a traced
+    program is bit-indistinguishable from the generator it was lowered
+    from.  ``R`` mirrors the engine's ``resume_value``; ``crossed`` flags
+    backward control transfers for the period-collapse monitor.
+    """
+
+    _is_trace_cursor = True
+
+    __slots__ = ("prog", "cid", "pc", "R", "ctrs", "crossed", "_rep", "_ops")
+
+    def __init__(self, prog: TraceProgram, cluster, cid: int):
+        self.prog = prog
+        self.cid = cid
+        self.pc = 0
+        self.R: Any = 0
+        # armed LOOP rows: row index -> remaining back-jumps
+        self.ctrs: Dict[int, int] = {}
+        self.crossed = False
+        self._rep = 0
+        self._ops = prog._op_cache()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._fetch()
+
+    def send(self, value):
+        self.R = value
+        return self._fetch()
+
+    def _fetch(self):
+        rows = self.prog.rows
+        n = len(rows)
+        pc = self.pc
+        guard = 0
+        while True:
+            if pc >= n:
+                self.pc = pc
+                raise StopIteration
+            row = rows[pc]
+            kind = row[0]
+            if kind <= T_SCU:  # data op
+                rep = self._rep if self._rep else row[1]
+                rep -= 1
+                if rep == 0:
+                    self.pc = pc + 1
+                    self._rep = 0
+                else:
+                    self.pc = pc
+                    self._rep = rep
+                op = self._ops[pc]
+                if op is None:  # R + delta store, latched now (fetch time)
+                    row_t = rows[pc]
+                    op = Mem(_MEM_KIND_NAME[row_t[2]], row_t[3], self.R + row_t[4])
+                return op
+            if kind == T_JMP:
+                tgt = row[2]
+                if tgt <= pc:
+                    self.crossed = True
+                pc = tgt
+            elif kind == T_BR:
+                if self.R == row[2]:
+                    tgt = row[3]
+                    if tgt <= pc:
+                        self.crossed = True
+                    pc = tgt
+                else:
+                    pc += 1
+            elif kind == T_LOOP:
+                rem = self.ctrs.get(pc)
+                if rem is None:
+                    rem = row[3]
+                if rem > 0:
+                    self.ctrs[pc] = rem - 1
+                    self.crossed = True
+                    pc = row[2]
+                else:
+                    self.ctrs.pop(pc, None)
+                    pc += 1
+            else:  # T_HALT
+                self.pc = n
+                raise StopIteration
+            guard += 1
+            if guard > _CONTROL_GUARD:  # pragma: no cover - malformed table
+                raise RuntimeError(
+                    f"trace {self.prog.label!r}: control flow cycled "
+                    f"{_CONTROL_GUARD} rows without reaching a micro-op"
+                )
 
 
 # --------------------------------------------------------------------------
@@ -490,3 +639,151 @@ def lower_or_fallback(
         return TraceProgram(fallback=program, label=label or f"fallback:{cid}")
     return tb.build(label=label or f"trace:{cid}")
 
+
+# --------------------------------------------------------------------------
+# The compiled fast path: whole-cluster period collapse over trace state
+# --------------------------------------------------------------------------
+
+
+def _pending_key(op) -> Optional[Tuple[Any, ...]]:
+    if op is None:
+        return None
+    t = type(op)
+    if t is Mem:
+        return ("m", op.kind, op.addr, op.data)
+    if t is Poll:
+        return (
+            "p", op.kind, op.addr, op.until, op.hit_cycles, op.miss_cycles,
+            op.hit_instr, op.miss_instr,
+        )
+    if t is Scu:
+        return ("s", op.kind, op.addr, op.data)
+    return ("c", op.cycles)
+
+
+class TraceRunMonitor:
+    """Collapse repeated whole-cluster periods of a fully-traced run.
+
+    Activated by :meth:`Cluster.load` when every core runs a pure (table,
+    no-fallback) :class:`_TraceCursor`, no fault plan is attached and no
+    watchdog is armed.  At the top of the fast-forward scheduler loop,
+    whenever some cursor crossed a loop head, the monitor digests the
+    complete cluster state -- per-core scheduler fields, cursor positions
+    and armed loop-counter keys (values excluded: they are the induction
+    variables), the TCDM words at every statically-addressed location, all
+    round-robin pointers and the SCU's :meth:`state_key`.  A recurring
+    digest proves the cluster is periodic; every mechanism between the two
+    digests (full steps, quiescent jumps, spin resolution) is deterministic
+    given that state, so the remaining iterations collapse into one multiply
+    of the per-period cycle/counter deltas, bounded so at least one full
+    period of real execution remains before every loop counter expires and
+    before ``max_cycles``.
+    """
+
+    __slots__ = ("cl", "cursors", "addrs", "seen")
+
+    # runaway guard: aperiodic digests stop accumulating past this
+    _SEEN_LIMIT = 4096
+
+    def __init__(self, cluster, cursors: Sequence[_TraceCursor]):
+        self.cl = cluster
+        self.cursors = list(cursors)
+        addrs: Set[int] = set()
+        for cur in self.cursors:
+            addrs |= cur.prog.addresses()
+        self.addrs = sorted(addrs)
+        self.seen: Dict[Any, Any] = {}
+
+    def poll(self) -> None:
+        crossed = False
+        for cur in self.cursors:
+            if cur.crossed:
+                crossed = True
+                cur.crossed = False
+        if not crossed:
+            return
+        key = self._digest()
+        prev = self.seen.get(key)
+        snap = self._snapshot()
+        if prev is None:
+            if len(self.seen) >= self._SEEN_LIMIT:
+                self.seen.clear()
+            self.seen[key] = snap
+        elif not self._jump(prev, snap):
+            self.seen[key] = snap  # measure the next period from here
+
+    # ------------------------------------------------------------ internals
+    def _digest(self) -> Tuple[Any, ...]:
+        cl = self.cl
+        lanes = []
+        for core, cur in zip(cl.cores, self.cursors):
+            lanes.append((
+                core.state.value, core.busy, core.wake_countdown,
+                core.sleep_entry, core.elw_issued, core.resume_value,
+                cur.pc, cur._rep, frozenset(cur.ctrs),
+                _pending_key(core.pending),
+            ))
+        tcdm = cl.tcdm
+        mem = tuple(tcdm.get(a, 0) for a in self.addrs)
+        scu = cl.scu
+        return (
+            tuple(lanes), mem, cl._rr.tobytes(),
+            scu.state_key() if scu is not None else None,
+        )
+
+    def _snapshot(self):
+        cl = self.cl
+        if cl._vec is not None:
+            counters = cl._vec.counter_block.copy()
+        else:
+            counters = np.array(
+                [[getattr(c, name) for c in cl.cores] for name in _COUNTERS],
+                dtype=np.int64,
+            )
+        return (
+            cl.cycle, counters, cl.stats.bank_conflicts, cl.stats.scu_events,
+            [dict(cur.ctrs) for cur in self.cursors],
+        )
+
+    def _jump(self, prev, snap) -> bool:
+        cl = self.cl
+        cyc0, ctr0, bc0, ev0, loops0 = prev
+        cyc1, ctr1, bc1, ev1, loops1 = snap
+        period = cyc1 - cyc0
+        if period <= 0:
+            return False
+        k: Optional[int] = None
+        deltas: List[List[Tuple[int, int, int]]] = []
+        for l0, l1 in zip(loops0, loops1):
+            lane: List[Tuple[int, int, int]] = []
+            for row, rem in l1.items():
+                d = l0.get(row, rem) - rem
+                if d <= 0:
+                    continue  # inner loop, re-armed within the period
+                kk = (rem - d) // d
+                if kk <= 0:
+                    return False
+                k = kk if k is None else min(k, kk)
+                lane.append((row, rem, d))
+            deltas.append(lane)
+        cap = (cl.max_cycles - cl.cycle) // period - 2
+        k = cap if k is None else min(k, cap)
+        if k <= 0:
+            return False
+        dC = ctr1 - ctr0
+        if cl._vec is not None:
+            cl._vec.counter_block += k * dC
+        else:
+            for i, name in enumerate(_COUNTERS):
+                for j, core in enumerate(cl.cores):
+                    setattr(core, name, getattr(core, name) + k * int(dC[i, j]))
+        cl.stats.bank_conflicts += k * (bc1 - bc0)
+        cl.stats.scu_events += k * (ev1 - ev0)
+        cl.cycle += k * period
+        for cur, lane in zip(self.cursors, deltas):
+            for row, rem, d in lane:
+                cur.ctrs[row] = rem - k * d
+        cl.trace_jumps += 1
+        cl.trace_jump_cycles += k * period
+        self.seen.clear()
+        return True

@@ -10,7 +10,7 @@ done-flag and the cycle count a replay.  On the CPU the same block runs
 eagerly.  The per-cycle step stays PyTorch ops: no Pallas kernel stands
 behind it, and none is written here.
 
-The port is held to the engine (``Cluster(..., mode="lockstep")``), not to
+The port is held to the engine (its own ``Cluster(..., mode="lockstep")``), not to
 the reference executor, which differs from it in two places:
 
 * The reference's ``_set`` writes every lane's index, and masked-off lanes

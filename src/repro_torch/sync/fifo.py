@@ -230,12 +230,6 @@ def fifo_pipeline_programs(
 F_WORK_QUEUE = F_GATHER  # the work-queue bench runs no barrier: reuse inst 1
 
 
-def split_quota(items: int, n: int) -> list:
-    """Fair partition of ``items`` over ``n`` workers (remainder first); own
-    copy of ``repro/core/scu/programs.py``'s."""
-    return [items // n + (1 if i < items % n else 0) for i in range(n)]
-
-
 def fifo_work_queue_programs(
     n_producers: int, n_consumers: int, items: int,
     t_produce: int, t_consume: int, state, cost_model=None,
@@ -266,6 +260,8 @@ def fifo_work_queue_programs(
                     yield Compute(t_consume)
 
         return prog
+
+    from repro_torch.core.scu.programs import split_quota
 
     return [make_producer(q) for q in split_quota(items, n_producers)] + [
         make_consumer(q) for q in split_quota(items, n_consumers)

@@ -91,6 +91,15 @@ with tempfile.TemporaryDirectory() as out:
     rec = repro_torch.launch.dryrun.run_cell("phi4-mini-3.8b", ShapeConfig("p", 16, 2, "prefill"),
                                              {"data": 1, "model": 1}, out, smoke=True)
     assert rec["status"] == "ok" and repro_torch.launch.roofline.analyze_record(rec)["bound_s"] > 0
+import repro_torch.core.scu.faults, repro_torch.core.scu.extensions, repro_torch.core.scu.scu_unit
+import repro_torch.core.scu.checkpoint, repro_torch.core.scu.energy, repro_torch.core.scu.apps
+import repro_torch.serve.arrivals, repro_torch.serve.energy, repro_torch.serve.fleet_service, repro_torch.serve.fleet_pool
+from repro_torch.core.scu import APPS, prep_barrier_bench, run_app
+assert run_app(APPS["fft"], "scu").cycles == 6023
+svc = repro_torch.serve.fleet_service.FleetService(n_slots=1, slot_cores=8)
+job = svc.submit(prep_barrier_bench("scu", 8, sfr=10, iters=3, compiled=True).config)
+svc.run_until_drained()
+assert job.state == "done" and job.stats.cycles > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 print("PROBE-OK")
@@ -116,7 +125,8 @@ def test_no_import_statement_names_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from) (jax|repro|ml_dtypes)(\.|\s|$)", re.M)
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted((ROOT / "examples").glob("*_torch.py"))
              + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"])
-    assert {"dryrun.py", "dispatch_analysis.py", "roofline.py", "costs.py", "hardware.py", "quickstart_torch.py"} <= {f.name for f in files}
+    assert {"dryrun.py", "dispatch_analysis.py", "roofline.py", "costs.py", "hardware.py", "quickstart_torch.py",
+            "engine.py", "apps.py", "checkpoint.py", "fleet_service.py", "fleet_pool.py"} <= {f.name for f in files}
     assert len(files) > 15
     for path in files:
         assert not pattern.search(path.read_text()), path

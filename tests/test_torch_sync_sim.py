@@ -1,11 +1,12 @@
-"""The port's simulator fragments, run by the JAX package's simulator.
+"""The port's simulator fragments, run by the JAX package's simulator and by the port's own.
 
-The port does not carry the cycle-accurate engine (it is numpy and stays in
-``repro.core.scu``); it carries the fragments that every policy registers.
-Here ``repro``'s ``Cluster`` runs them through a small adapter that turns
-the port's op records into ``repro``'s and passes the values the engine
-sends back, and every count must be the same as the JAX package's own
-fragments give: cycles and every field of ``ClusterStats``.
+Every policy registers simulator fragments.  Here ``repro``'s ``Cluster``
+runs the port's through a small adapter that turns the port's op records
+into ``repro``'s and passes the values the engine sends back, and every
+count must be the same as the JAX package's own fragments give: cycles and
+every field of ``ClusterStats``.  The last case runs the port's fragments on
+the port's own engine (``repro_torch.core.scu``) beside ``repro``'s
+fragments on ``repro``'s engine.
 """
 
 import dataclasses
@@ -21,6 +22,7 @@ from repro.sync import get_policy as jax_get_policy
 from repro.sync import register_policy as jax_register_policy
 from repro.sync import unregister_policy as jax_unregister_policy
 from repro.sync.api import PolicyDef as JaxPolicyDef
+import repro_torch.core.scu as port_scu
 import repro_torch.core.scu.engine as port_engine
 from repro_torch.core.scu import primitives as port_primitives
 from repro_torch.sync import get_policy
@@ -204,3 +206,31 @@ def test_trace_emitters_write_identical_rows(name):
             assert ours._rows == theirs._rows, (name, hook, cid)
             assert ours._scu_pool == theirs._scu_pool
             assert ours.build().rows == theirs.build().rows
+
+
+def _run_on(pkg, policy, n):
+    """Staggered arrivals, three barriers and three critical sections a core, on ``pkg``'s engine."""
+    cl = pkg.Cluster(n_cores=n, scu=pkg.SCU(n_cores=n))
+    state = policy.make_sim_state(n)
+    passed = []
+
+    def prog(delay):
+        def p(cluster, cid):
+            yield pkg.Compute(delay)
+            for _ in range(3):
+                yield from policy.sim_barrier(cluster, cid, state, None)
+                passed.append((cid, cluster.cycle))
+                yield from policy.sim_mutex(cluster, cid, 5, state, None)
+
+        return p
+
+    cl.load([prog(1 + 9 * i) for i in range(n)])
+    return dataclasses.asdict(cl.run(max_cycles=2_000_000)), passed
+
+
+@pytest.mark.parametrize("name", BUILTINS)
+@pytest.mark.parametrize("n", [2, 8])
+def test_port_fragments_on_the_port_engine_equal_repros_on_repros(name, n):
+    from repro.core import scu as jax_scu
+
+    assert _run_on(port_scu, get_policy(name), n) == _run_on(jax_scu, jax_get_policy(name), n)

@@ -2,7 +2,7 @@
 
 The IR (``repro_torch.core.scu.trace``) and the lowering
 (``repro_torch.core.scu.programs``) must give ``repro``'s rows, row for row,
-for every registered policy but ``fifo``.  The executor
+for every registered policy (``fifo``'s run on the engine alone).  The executor
 (``repro_torch.core.scu.trace_exec.run_traces_torch``, here on the CPU) is
 held to the engine (``Cluster(..., mode="lockstep")``, the oracle of
 ``tests/test_trace.py``): ``cycles``, the nine counters, ``bank_conflicts``,
@@ -17,6 +17,7 @@ import torch
 
 from chip_smoke import relocate_cluster, relocated_address, same_trace_result, same_word_traces, tas_lock_traces
 from chip_smoke import tcdm_traces
+from repro import sync as jax_sync
 from repro.core.scu import SCU, Cluster
 from repro.core.scu import trace as jax_trace
 from repro.core.scu.engine import _COUNTERS as JAX_COUNTERS
@@ -116,31 +117,66 @@ def test_every_registered_policy_is_covered():
     assert set(available_policies()) == set(LOWERED) | {"fifo"}
 
 
+FIFO_CASES = {
+    "barrier": (lambda: trace_barrier_programs("fifo", 8, 0, 2),
+                lambda: prep_barrier_bench("fifo", 8, 0, 2, compiled=True), "SCU rows need the full engine"),
+    "mutex": (lambda: trace_mutex_programs("FIFO", 8, 3, 0, 2),
+              lambda: prep_mutex_bench("FIFO", 8, 3, 0, 2, compiled=True), "needs pure traced programs"),
+    "chain": (lambda: trace_chain_programs("fifo", 8, 7, 3),
+              lambda: prep_chain_bench("fifo", 8, 7, 3, compiled=True), "SCU rows need the full engine"),
+}  # fmt: skip
+
+
 def test_fifo_lowering_raises_a_clear_error():
-    for lower in (lambda: trace_barrier_programs("fifo", 8, 0, 2), lambda: trace_mutex_programs("FIFO", 8, 3, 0, 2),
-                  lambda: trace_chain_programs("fifo", 8, 7, 3)):  # fmt: skip
-        with pytest.raises(ValueError, match="fifo policy does not lower"):
-            lower()
+    """``fifo``'s barrier, mutex and chain run on the SCU's event FIFOs: the
+    trace executor refuses each of their lowerings with a clear error, and
+    the port's engine runs them (``test_torch_sim_engine.py``)."""
+    for lower, _, refusal in FIFO_CASES.values():
+        with pytest.raises(ValueError, match=refusal):
+            run_traces_torch(lower(), n_banks=16, device="cpu")
 
 
-def test_a_fragment_that_reads_the_cluster_fails_loudly():
-    base = get_policy("tree")
+@pytest.mark.parametrize("prim", sorted(FIFO_CASES))
+def test_fifo_lowers_as_repro(prim):
+    """``fifo``'s lowerings are ``repro``'s rows, or its fallbacks, with its labels."""
+    lower, reference, _ = FIFO_CASES[prim]
+    port, ref = lower(), reference().config.programs
+    assert [_key(p) for p in port] == [_key(p) for p in ref]
+    assert [p.label for p in port] == [p.label for p in ref]
 
-    def reads_cluster(cluster, cid, state, cost_model=None):
-        yield Compute(cluster.n_banks)
 
-    policy = PolicyDef(
-        name="reads_cluster", description="a trace-safe barrier that reads the cluster",
-        make_sim_state=base.make_sim_state, sim_barrier=reads_cluster, sim_mutex=base.sim_mutex,
-        chip_barrier=base.chip_barrier, shape_gradients=base.shape_gradients,
-        opt_state_specs=base.opt_state_specs, trace_safe_barrier=True,
-    )  # fmt: skip
-    register_policy(policy)
+def test_a_fragment_that_reads_the_cluster_reads_the_engines():
+    """The lowering hands a trace-safe fragment the bench's engine ``Cluster``,
+    as ``repro``'s does: what it reads there (here the bank count) lands in
+    ``repro``'s rows, and the executor equals the engine on them."""
+
+    def reads_cluster(base, compute_of):
+        def barrier(cluster, cid, state, cost_model=None):
+            yield compute_of(cluster.n_banks)
+            yield from base.sim_barrier(cluster, cid, state, cost_model)
+
+        return barrier
+
+    sides = ((PolicyDef, register_policy, unregister_policy, get_policy, Compute),
+             (jax_sync.PolicyDef, jax_sync.register_policy, jax_sync.unregister_policy, jax_sync.get_policy,
+              JaxCompute))  # fmt: skip
+    for make, register, _, get, compute_of in sides:
+        base = get("tree")
+        register(make(
+            name="reads_cluster", description="a trace-safe barrier that reads the cluster",
+            make_sim_state=base.make_sim_state, sim_barrier=reads_cluster(base, compute_of), sim_mutex=base.sim_mutex,
+            chip_barrier=base.chip_barrier, shape_gradients=base.shape_gradients,
+            opt_state_specs=base.opt_state_specs, trace_safe_barrier=True,
+        ))  # fmt: skip
     try:
-        with pytest.raises(RuntimeError, match="cluster.n_banks"):
-            trace_barrier_programs("reads_cluster", 2, 0, 1)
+        port = trace_barrier_programs("reads_cluster", 4, 0, 2)
+        ref = prep_barrier_bench("reads_cluster", 4, 0, 2, compiled=True).config.programs
+        assert all(p.is_traced for p in port)
+        assert [_key(p) for p in port] == [_key(p) for p in ref]
+        _assert_engine_result(run_traces_torch(port, n_banks=8, device="cpu"), *_engine(ref))
     finally:
-        unregister_policy("reads_cluster")
+        for _, _, unregister, _, _ in sides:
+            unregister("reads_cluster")
 
 
 def test_clone_and_single_use_behave_as_in_the_reference():
